@@ -1,0 +1,85 @@
+"""Batched pinhole camera with radial-tangential distortion (torch).
+
+Port of ``putslam_tpu/geometry/camera.py``: ``(..., 2)`` pixel tensors and
+``(..., 3)`` point tensors, no per-feature loops; undistortion is the same
+fixed 8-iteration fixed-point inversion.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from putslam_tpu_torch.config import CameraConfig
+
+
+def undistort_normalized(cam: CameraConfig, xy_d, iters: int = 8):
+    """Invert the distortion by fixed-point iteration."""
+    xy = xy_d
+    for _ in range(iters):
+        x, y = xy[..., 0], xy[..., 1]
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+        xy2 = 2.0 * x * y
+        dx = cam.p1 * xy2 + cam.p2 * (r2 + 2.0 * x * x)
+        dy = cam.p2 * xy2 + cam.p1 * (r2 + 2.0 * y * y)
+        xy = (xy_d - torch.stack([dx, dy], dim=-1)) / radial[..., None]
+    return xy
+
+
+def pixel_to_normalized(cam: CameraConfig, uv):
+    return torch.stack([(uv[..., 0] - cam.cu) / cam.fu,
+                        (uv[..., 1] - cam.cv) / cam.fv], dim=-1)
+
+
+def normalized_to_pixel(cam: CameraConfig, xy):
+    return torch.stack([xy[..., 0] * cam.fu + cam.cu,
+                        xy[..., 1] * cam.fv + cam.cv], dim=-1)
+
+
+def undistort_pixels(cam: CameraConfig, uv):
+    """Distorted pixels → ideal (undistorted) pixels (...,2)."""
+    return normalized_to_pixel(
+        cam, undistort_normalized(cam, pixel_to_normalized(cam, uv)))
+
+
+def unproject(cam: CameraConfig, uv, depth):
+    """(u, v, d) → camera-frame xyz (...,3) for undistorted pixels."""
+    xy = pixel_to_normalized(cam, uv)
+    return torch.cat([xy * depth[..., None], depth[..., None]], dim=-1)
+
+
+def project(cam: CameraConfig, xyz):
+    """Camera-frame xyz → ideal pixels (...,2), with a tiny-z guard."""
+    z = xyz[..., 2:3]
+    z = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
+    return normalized_to_pixel(cam, xyz[..., 0:2] / z)
+
+
+def depth_valid_mask(cam: CameraConfig, depth):
+    """The min/max depth validity gate (0.1–6 m at fr1)."""
+    return (depth > cam.min_depth) & (depth < cam.max_depth)
+
+
+def bilinear_sample(image, uv):
+    """Sample image (H, W) at float pixel coords uv (...,2), clamped."""
+    H, W = image.shape[-2], image.shape[-1]
+    u = torch.clamp(uv[..., 0], 0.0, W - 1.0)
+    v = torch.clamp(uv[..., 1], 0.0, H - 1.0)
+    u0 = torch.clamp(torch.floor(u).long(), 0, W - 2)
+    v0 = torch.clamp(torch.floor(v).long(), 0, H - 2)
+    du = u - u0
+    dv = v - v0
+    i00 = image[..., v0, u0]
+    i01 = image[..., v0, u0 + 1]
+    i10 = image[..., v0 + 1, u0]
+    i11 = image[..., v0 + 1, u0 + 1]
+    return (i00 * (1 - du) * (1 - dv) + i01 * du * (1 - dv)
+            + i10 * (1 - du) * dv + i11 * du * dv)
+
+
+def sample_depth(depth_image, uv):
+    """Nearest-neighbour depth lookup at pixel coords (...,2)."""
+    H, W = depth_image.shape[-2], depth_image.shape[-1]
+    u = torch.clamp(torch.round(uv[..., 0]).long(), 0, W - 1)
+    v = torch.clamp(torch.round(uv[..., 1]).long(), 0, H - 1)
+    return depth_image[..., v, u]

@@ -1,0 +1,120 @@
+"""Synthetic RGB-D sequences rendered on the device (raycast box world).
+
+Port of the renderer of ``putslam_tpu/io/synthetic.py``: a procedurally
+textured axis-aligned room seen from a camera trajectory, with exact ground
+truth poses and depth. Conventions: camera looks down +z, x right, y down;
+a pose is camera→world in the (..., 7) layout.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from putslam_tpu_torch.config import CameraConfig
+from putslam_tpu_torch.geometry import se3
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _hash3(ix, iy, iz, seed: int):
+    """The reference's uint32 cell hash, in int64 with explicit 32-bit
+    wrap-around. Cells go float → int32 (two's complement for negative
+    cells) → uint32, as the reference casts them."""
+    def u32(c):
+        return c.to(torch.int32).to(torch.int64) & _MASK32
+
+    h = (((u32(ix) * 73856093) & _MASK32) ^ ((u32(iy) * 19349663) & _MASK32)
+         ^ ((u32(iz) * 83492791) & _MASK32) ^ ((seed * 2654435761) & _MASK32))
+    h = h ^ (h >> 13)
+    h = (h * 1274126177) & _MASK32
+    h = h ^ (h >> 16)
+    return (h & 0xFFFF).to(torch.float32) / 65535.0
+
+
+def texture3d(p, footprint=None, seed: int = 7):
+    """Intensity in [0, 1] at world points p (..., 3): hashed cells at three
+    scales, faded to mid-gray where a cell is smaller than the pixel
+    footprint, plus smooth shading."""
+    out = 0.0
+    for octave, (scale, weight) in enumerate(((4.0, 0.45), (10.0, 0.3),
+                                              (24.0, 0.15))):
+        g = torch.floor(p * scale)
+        val = _hash3(g[..., 0], g[..., 1], g[..., 2], seed + octave)
+        if footprint is not None:
+            fade = torch.clamp((1.0 - footprint * scale) / 0.6, 0.0, 1.0)
+            val = fade * val + (1.0 - fade) * 0.5
+        out = out + weight * val
+    out = out + 0.1 * (0.5 + 0.5 * torch.sin(p[..., 0] * 1.7 + p[..., 2] * 0.9))
+    return torch.clamp(out, 0.0, 1.0)
+
+
+def render_frame(cam: CameraConfig, pose, supersample: int = 2,
+                 seed: int = 7):
+    """(gray (H, W) in [0, 1], depth (H, W) z-depth metres) for a camera
+    pose inside the [-3, 3]×[-2, 2]×[-3, 3] room, on the pose's device.
+    The intensity is rendered at ``supersample``× and average-pooled."""
+    dev = pose.device
+    box_min = torch.tensor([-3.0, -2.0, -3.0], device=dev)
+    box_max = torch.tensor([3.0, 2.0, 3.0], device=dev)
+    ss = supersample
+    H, W = cam.height, cam.width
+    u = (torch.arange(W * ss, dtype=torch.float32, device=dev) + 0.5) / ss - 0.5
+    v = (torch.arange(H * ss, dtype=torch.float32, device=dev) + 0.5) / ss - 0.5
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    dir_cam = torch.stack([(uu - cam.cu) / cam.fu, (vv - cam.cv) / cam.fv,
+                           torch.ones_like(uu)], dim=-1)
+    R = se3.quat_to_matrix(se3.rotation_quat(pose))
+    o = se3.translation(pose)
+    d = torch.einsum("ij,hwj->hwi", R, dir_cam)
+
+    safe_d = torch.where(torch.abs(d) < 1e-9, torch.full_like(d, 1e-9), d)
+    t_far = torch.maximum((box_max - o) / safe_d, (box_min - o) / safe_d)
+    t = torch.clamp(torch.amin(t_far, dim=-1), min=1e-3)
+
+    hit = o + t[..., None] * d
+    axis = torch.argmin(t_far, dim=-1)
+    # Put the hit exactly on the wall it exits through. Every wall lies on
+    # a texture-cell boundary (±3·scale, ±2·scale are integers), so the
+    # reference's o + t·d decides the cell layer by a one-ulp rounding of
+    # the wall-normal coordinate — per pixel, differently in every float
+    # implementation (ROADMAP Queue 3). Snapped, the texture is a function
+    # of the wall point alone.
+    face = torch.where(safe_d > 0, box_max, box_min)
+    on_axis = torch.nn.functional.one_hot(axis, 3).bool()
+    hit = torch.where(on_axis, face, hit)
+    n_dot_d = torch.gather(torch.abs(d), -1, axis[..., None])[..., 0]
+    d_norm = torch.linalg.norm(d, dim=-1)
+    cos_inc = torch.clamp(n_dot_d / torch.clamp(d_norm, min=1e-9), min=0.05)
+    footprint = (t * d_norm) / (cam.fu * ss) / cos_inc
+    gray = texture3d(hit, footprint, seed)
+    if ss > 1:
+        gray = gray.reshape(H, ss, W, ss).mean(dim=(1, 3))
+        t = t.reshape(H, ss, W, ss)[:, 0, :, 0]
+    return gray, t
+
+
+def orbit_trajectory(n_frames: int, radius: float = 0.8,
+                     height_amp: float = 0.15, yaw_amp: float = 0.35,
+                     device="cpu"):
+    """Smooth looping trajectory: lateral arc + small yaw and pitch.
+    Returns (n_frames, 7) camera→world poses."""
+    s = torch.linspace(0.0, 2.0 * math.pi, n_frames, dtype=torch.float32,
+                       device=device)
+    t = torch.stack([radius * torch.sin(s), height_amp * torch.sin(2.0 * s),
+                     0.5 * radius * torch.cos(s) - 0.5], dim=-1)
+    yaw = yaw_amp * torch.sin(s)
+    pitch = 0.1 * torch.cos(2.0 * s)
+    z = torch.zeros_like(yaw)
+    qy = torch.stack([torch.cos(yaw / 2), z, torch.sin(yaw / 2), z], dim=-1)
+    qx = torch.stack([torch.cos(pitch / 2), torch.sin(pitch / 2), z, z], dim=-1)
+    return se3.make_pose(t, se3.quat_mul(qy, qx))
+
+
+def render_sequence(cam: CameraConfig, poses, seed: int = 7):
+    """Render a trajectory frame by frame: (grays (N, H, W),
+    depths (N, H, W)) on the poses' device."""
+    frames = [render_frame(cam, p, seed=seed) for p in poses]
+    return (torch.stack([f[0] for f in frames]),
+            torch.stack([f[1] for f in frames]))

@@ -1,0 +1,23 @@
+"""Shared helpers of the putslam_tpu_torch parity tests (test_torch_*.py).
+
+The same numpy inputs go through the JAX package (on the CPU, as
+conftest.py forces) and through its PyTorch port; states cross over with
+putslam_tpu_torch.convert."""
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)   # tier-1 runs several xdist workers
+
+
+def t(x, dtype=None):
+    """numpy / JAX array → CPU torch tensor (a copy)."""
+    out = torch.as_tensor(np.array(x))
+    return out if dtype is None else out.to(dtype)
+
+
+def n(x):
+    """torch tensor or JAX array → numpy."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
