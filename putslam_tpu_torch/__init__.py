@@ -11,8 +11,9 @@ and never ``jax``. Plain functions on tensors; state is ``NamedTuple``s with
 the JAX package's field names; every entry point takes an explicit
 ``device``; RANSAC draws from an explicit ``torch.Generator``.
 
-Subpackages: geometry, ops, frontend, slam_map, backend, models, io, eval,
-utils — as in ``putslam_tpu``. ``run`` is the command-line runner.
+Subpackages: geometry, ops, frontend, slam_map, backend, loopclosure,
+motion, models, io, eval, utils — as in ``putslam_tpu``. ``run`` is the
+command-line runner.
 """
 
 import torch

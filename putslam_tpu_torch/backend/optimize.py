@@ -1,10 +1,18 @@
-"""Bundle adjustment: Gauss-Newton with a dense Schur complement.
+"""Bundle adjustment: Gauss-Newton with a Schur complement over landmarks.
 
-Port of ``putslam_tpu/backend/optimize.py::gauss_newton_mm`` (the
-``dense_schur_mm`` solver, the fr1 default) with its helpers. The behaviour
-is the JAX package's; the formulation is the GPU's: the one-hot matmuls
-that fed the TPU's MXU are gathers (``index_select``) and segment sums
-(``index_add_``) here.
+Port of ``putslam_tpu/backend/optimize.py``: the three solvers behind
+``optimize_graph`` — ``gauss_newton`` (``dense_schur``: a dense
+(K, L, 6, 3) coupling buffer, ``S = H_cc − H_cl·H_ll⁻¹·H_clᵀ``, Cholesky),
+``gauss_newton_mm`` (``dense_schur_mm``, the fr1 default) and
+``gauss_newton_pcg`` (``pcg``: block-Jacobi preconditioned conjugate
+gradients on the reduced camera system, matrix-free). ``dense_schur`` and
+``pcg`` run every iteration (no chi² termination), as the JAX package's do.
+The behaviour is the JAX package's; the formulation is the GPU's: the
+one-hot matmuls that fed the TPU's MXU are gathers (``index_select``) and
+segment sums (``index_add_``) here, and ``dense_schur``'s 2-D scatters
+(``.at[kf, lm].add``) are ``index_add_`` on a flattened K·L axis.
+
+``gauss_newton_mm``:
 
 Both compactions are kept: the active window (the ≤ ``ba_window`` free
 keyframes get compact slots, so the reduced camera system is (6·W)²) and
@@ -39,12 +47,14 @@ class BAResult(NamedTuple):
     obs_sq_err: torch.Tensor  # (M,) final per-observation weighted sq. error
 
 
+SOLVERS = ("dense_schur", "dense_schur_mm", "pcg")
+
+
 def check_backend_config(bcfg: BackendConfig) -> None:
     """Raise NotImplementedError for the backend options not ported."""
-    if bcfg.solver != "dense_schur_mm":
+    if bcfg.solver not in SOLVERS:
         raise NotImplementedError(
-            f"backend.solver={bcfg.solver!r} is not ported yet "
-            "(only 'dense_schur_mm')")
+            f"backend.solver={bcfg.solver!r} is not ported yet")
     if bcfg.error_type != 0:
         raise NotImplementedError(
             f"backend.error_type={bcfg.error_type} is not ported yet")
@@ -82,6 +92,239 @@ def _segment_sum(x, idx, n: int):
 def _gather_pad(x, idx):
     """x[idx] with idx ∈ [0, len(x)]; the sentinel index reads zeros."""
     return torch.cat([x, torch.zeros_like(x[:1])], dim=0)[idx]
+
+
+def _assemble_obs(bcfg: BackendConfig, kf_pose, lm_pos, lm_valid,
+                  g: GraphState, lm_gen, kf_gen):
+    """Residuals, Jacobians, robust weights and weighted squared errors of
+    every pose-landmark observation: (r, Jp, Jl, w, sq)."""
+    r, Jp, Jl = factors.assemble_obs_terms(kf_pose[g.obs_kf],
+                                           lm_pos[g.obs_lm], g.obs_xyz,
+                                           bcfg.error_type)
+    w_info = g.obs_w * _obs_gate(g, lm_valid, lm_gen, kf_gen)
+    sq = w_info * torch.sum(r * r, dim=-1)
+    w = w_info * factors.robust_weight(sq, bcfg.robust_kernel,
+                                       bcfg.robust_delta)
+    return r, Jp, Jl, w, sq
+
+
+def _pp_terms(bcfg: BackendConfig, g: GraphState, kf_pose, kf_gen):
+    """Pose-pose edges with stale-generation masking: (r6, Ji, Jj, wpp,
+    sq_pp)."""
+    pi = kf_pose[g.pp_i]
+    pj = kf_pose[g.pp_j]
+    r6 = factors.pp_residual(pi, pj, g.pp_rel)
+    Ji, Jj = factors.pp_jacobians(pi, pj, g.pp_rel)
+    gate = g.pp_valid
+    if kf_gen is not None:
+        gate = gate & (g.pp_gen_i == kf_gen[g.pp_i]) \
+            & (g.pp_gen_j == kf_gen[g.pp_j])
+    wpp_info = g.pp_w * gate
+    sq_pp = wpp_info * torch.sum(r6 * r6, dim=-1)
+    wpp = wpp_info * factors.robust_weight(sq_pp, bcfg.robust_kernel,
+                                           bcfg.robust_delta)
+    return r6, Ji, Jj, wpp, sq_pp
+
+
+def _damped_ll_inverse(H_ll, lam: float):
+    """(H_ll + λ(1 + tr/3)·I)⁻¹ per landmark, closed form."""
+    tr_ll = (H_ll[..., 0, 0] + H_ll[..., 1, 1] + H_ll[..., 2, 2]) / 3.0
+    eye3 = torch.eye(3, dtype=H_ll.dtype, device=H_ll.device)
+    return inv3x3(H_ll + (lam * (1.0 + tr_ll))[:, None, None] * eye3)
+
+
+def _solve_reduced(S, b_red, dead, lam: float):
+    """Gauge-fix (identity rows for ``dead`` (n,) slots), symmetrise, damp
+    by λ·max|diag| and solve S·dc = b by Cholesky. A failed factorisation
+    gives NaN (as ``lax.linalg.cholesky``), and a non-finite or ≥ 1e3 step
+    is replaced by zero: never an exception, never a host sync."""
+    n6 = S.shape[0]
+    frozen6 = dead.repeat_interleave(6)
+    S = torch.where(frozen6[:, None] | frozen6[None, :], torch.zeros_like(S),
+                    S)
+    S = S + torch.diag(frozen6.to(S.dtype))
+    S = 0.5 * (S + S.T)
+    max_diag = torch.clamp(torch.max(torch.abs(torch.diagonal(S))), min=1.0)
+    S = S + (lam * max_diag) * torch.eye(n6, dtype=S.dtype, device=S.device)
+    b_red = torch.where(frozen6, torch.zeros_like(b_red), b_red)
+    Lc, info = torch.linalg.cholesky_ex(S)
+    Lc = torch.where(info != 0, torch.full_like(Lc, math.nan), Lc)
+    dc = torch.cholesky_solve(b_red[:, None], Lc)[:, 0]
+    dc = torch.where(torch.isfinite(dc), dc, torch.zeros_like(dc))
+    return torch.where(torch.all(torch.abs(dc) < 1e3), dc,
+                       torch.zeros_like(dc))
+
+
+def _apply_step(kf_pose, lm_pos, dc_mat, dl, frozen, lm_live):
+    """Retract the free poses by dc, move the live landmarks whose step is
+    finite and < 1e3."""
+    dl = torch.where(torch.isfinite(dl), dl, torch.zeros_like(dl))
+    new_pose = torch.where(frozen[:, None], kf_pose,
+                           se3.retract(kf_pose, dc_mat))
+    moved = lm_live & (torch.amax(torch.abs(dl), dim=-1) < 1e3)
+    return new_pose, torch.where(moved[:, None], lm_pos + dl, lm_pos)
+
+
+def gauss_newton(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
+                 g: GraphState, fixed_kf, lm_gen=None, kf_gen=None,
+                 cam: CameraConfig = None) -> BAResult:
+    """``dense_schur``: ``bcfg.gn_iterations`` Gauss-Newton steps over the
+    full K keyframes and L landmarks with a dense (K, L, 6, 3) coupling
+    buffer — 1.2 MB at the tiny config, 151 MB at fr1 (K = 256, L = 8192).
+    The 2-D scatters are ``index_add_`` on a flattened K·L (K·K) axis."""
+    check_backend_config(bcfg)
+    dev = kf_pose.device
+    K = kf_pose.shape[0]
+    L = lm_pos.shape[0]
+    lam = bcfg.damping
+    f32 = torch.float32
+    kf = g.obs_kf.long()
+    lm = g.obs_lm.long()
+    pi = g.pp_i.long()
+    pj = g.pp_j.long()
+    frozen = fixed_kf | ~kf_valid
+    chi2s = []
+    for _ in range(bcfg.gn_iterations):
+        r, Jp, Jl, w, sq = _assemble_obs(bcfg, kf_pose, lm_pos, lm_valid, g,
+                                         lm_gen, kf_gen)
+        chi2 = torch.sum(sq)
+        H_cc = torch.zeros((K * K, 6, 6), dtype=f32, device=dev)
+        H_cc.index_add_(0, kf * K + kf,
+                        torch.einsum("m,mri,mrj->mij", w, Jp, Jp))
+        H_ll = _segment_sum(torch.einsum("m,mri,mrj->mij", w, Jl, Jl), lm, L)
+        H_cl = torch.zeros((K * L, 6, 3), dtype=f32, device=dev)
+        H_cl.index_add_(0, kf * L + lm,
+                        torch.einsum("m,mri,mrj->mij", w, Jp, Jl))
+        b_c = _segment_sum(-torch.einsum("m,mri,mr->mi", w, Jp, r), kf, K)
+        b_l = _segment_sum(-torch.einsum("m,mri,mr->mi", w, Jl, r), lm, L)
+
+        r6, Ji, Jj, wpp, sq_pp = _pp_terms(bcfg, g, kf_pose, kf_gen)
+        chi2 = chi2 + torch.sum(sq_pp)
+        for a, b, Ja, Jb in ((pi, pi, Ji, Ji), (pj, pj, Jj, Jj),
+                             (pi, pj, Ji, Jj), (pj, pi, Jj, Ji)):
+            H_cc.index_add_(0, a * K + b,
+                            torch.einsum("e,eri,erj->eij", wpp, Ja, Jb))
+        b_c.index_add_(0, pi, -torch.einsum("e,eri,er->ei", wpp, Ji, r6))
+        b_c.index_add_(0, pj, -torch.einsum("e,eri,er->ei", wpp, Jj, r6))
+
+        # --- Schur complement over landmarks ----------------------------
+        H_ll_inv = _damped_ll_inverse(H_ll, lam)
+        Hcl = H_cl.view(K, L, 6, 3).permute(0, 2, 1, 3).reshape(K * 6, L * 3)
+        HclWinv = torch.einsum("kla,lab->klb", Hcl.view(K * 6, L, 3),
+                               H_ll_inv)
+        S = (H_cc.view(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
+             - HclWinv.reshape(K * 6, L * 3) @ Hcl.T)
+        Winv_bl = torch.einsum("lab,lb->la", H_ll_inv, b_l)
+        b_red = b_c.reshape(K * 6) - Hcl @ Winv_bl.reshape(L * 3)
+        dc = _solve_reduced(S, b_red, frozen, lam)
+
+        # δl = H_ll⁻¹ (b_l − H_lc δc)
+        Hlc_dc = torch.einsum("kla,k->la", Hcl.view(K * 6, L, 3), dc)
+        dl = torch.einsum("lab,lb->la", H_ll_inv, b_l - Hlc_dc)
+        kf_pose, lm_pos = _apply_step(kf_pose, lm_pos, dc.reshape(K, 6), dl,
+                                      frozen, lm_valid)
+        chi2s.append(chi2)
+    sq_final = _final_sq_errors(bcfg, kf_pose, lm_pos, lm_valid, g, lm_gen,
+                                kf_gen, cam)
+    return BAResult(kf_pose, lm_pos, torch.stack(chi2s), sq_final)
+
+
+def gauss_newton_pcg(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos,
+                     lm_valid, g: GraphState, fixed_kf, lm_gen=None,
+                     kf_gen=None, cam: CameraConfig = None) -> BAResult:
+    """``pcg``: the reduced camera system S·x = b solved matrix-free by
+    exactly ``pcg_iterations`` block-Jacobi preconditioned CG steps
+    (guards |denom| > 1e-20, no early exit), applying
+    S·v = H_cc·v − H_cl·(H_ll⁻¹·(H_lc·v)) through per-observation 6×3
+    products and segment sums."""
+    check_backend_config(bcfg)
+    dev = kf_pose.device
+    K = kf_pose.shape[0]
+    L = lm_pos.shape[0]
+    lam = bcfg.damping
+    f32 = torch.float32
+    kf = g.obs_kf.long()
+    lm = g.obs_lm.long()
+    pi = g.pp_i.long()
+    pj = g.pp_j.long()
+    frozen = fixed_kf | ~kf_valid
+    eye6 = torch.eye(6, dtype=f32, device=dev)
+    chi2s = []
+    for _ in range(bcfg.gn_iterations):
+        r, Jp, Jl, w, sq = _assemble_obs(bcfg, kf_pose, lm_pos, lm_valid, g,
+                                         lm_gen, kf_gen)
+        chi2 = torch.sum(sq)
+        B = torch.einsum("m,mri,mrj->mij", w, Jp, Jl)            # (M, 6, 3)
+        H_cc_diag = _segment_sum(torch.einsum("m,mri,mrj->mij", w, Jp, Jp),
+                                 kf, K)
+        H_ll = _segment_sum(torch.einsum("m,mri,mrj->mij", w, Jl, Jl), lm, L)
+        b_c = _segment_sum(-torch.einsum("m,mri,mr->mi", w, Jp, r), kf, K)
+        b_l = _segment_sum(-torch.einsum("m,mri,mr->mi", w, Jl, r), lm, L)
+
+        r6, Ji, Jj, wpp, sq_pp = _pp_terms(bcfg, g, kf_pose, kf_gen)
+        chi2 = chi2 + torch.sum(sq_pp)
+        Hij = torch.einsum("e,eri,erj->eij", wpp, Ji, Jj)
+        H_cc_diag.index_add_(0, pi, torch.einsum("e,eri,erj->eij", wpp, Ji,
+                                                 Ji))
+        H_cc_diag.index_add_(0, pj, torch.einsum("e,eri,erj->eij", wpp, Jj,
+                                                 Jj))
+        b_c.index_add_(0, pi, -torch.einsum("e,eri,er->ei", wpp, Ji, r6))
+        b_c.index_add_(0, pj, -torch.einsum("e,eri,er->ei", wpp, Jj, r6))
+
+        H_ll_inv = _damped_ll_inverse(H_ll, lam)
+        diag_scale = torch.clamp(torch.max(torch.abs(
+            torch.einsum("kii->k", H_cc_diag))), min=1.0) / 6.0
+
+        def S_matvec(v):
+            v = torch.where(frozen[:, None], torch.zeros_like(v), v)
+            u = torch.einsum("kij,kj->ki", H_cc_diag, v)
+            u = u.index_add(0, pi, torch.einsum("eij,ej->ei", Hij, v[pj]))
+            u = u.index_add(0, pj, torch.einsum("eji,ej->ei", Hij, v[pi]))
+            t1 = _segment_sum(torch.einsum("mij,mi->mj", B, v[kf]), lm, L)
+            t2 = torch.einsum("lab,lb->la", H_ll_inv, t1)
+            c = torch.einsum("mij,mj->mi", B, t2[lm])
+            u = u - _segment_sum(c, kf, K) + (lam * diag_scale) * v
+            return torch.where(frozen[:, None], v, u)
+
+        M_inv = torch.linalg.inv_ex(
+            H_cc_diag + (lam * diag_scale + 1e-6) * eye6)[0]
+
+        def M_solve(v):
+            return torch.where(frozen[:, None], v,
+                               torch.einsum("kij,kj->ki", M_inv, v))
+
+        b_vec = torch.where(frozen[:, None], torch.zeros_like(b_c), b_c)
+        x = torch.zeros_like(b_vec)
+        rr = b_vec
+        p = M_solve(b_vec)
+        rz = torch.sum(b_vec * p)
+        zero = torch.zeros_like(rz)
+        for _ in range(bcfg.pcg_iterations):
+            Sp = S_matvec(p)
+            denom = torch.sum(p * Sp)
+            alpha = torch.where(torch.abs(denom) > 1e-20, rz / denom, zero)
+            x = x + alpha * p
+            rr = rr - alpha * Sp
+            z = M_solve(rr)
+            rz_new = torch.sum(rr * z)
+            beta = torch.where(torch.abs(rz) > 1e-20, rz_new / rz, zero)
+            p = z + beta * p
+            rz = rz_new
+        dc = x.reshape(K * 6)
+        dc = torch.where(torch.isfinite(dc), dc, torch.zeros_like(dc))
+        dc = torch.where(torch.all(torch.abs(dc) < 1e3), dc,
+                         torch.zeros_like(dc))
+        dc_mat = dc.reshape(K, 6)
+
+        Hlc_dc = _segment_sum(torch.einsum("mij,mi->mj", B, dc_mat[kf]), lm,
+                              L)
+        dl = torch.einsum("lab,lb->la", H_ll_inv, b_l - Hlc_dc)
+        kf_pose, lm_pos = _apply_step(kf_pose, lm_pos, dc_mat, dl, frozen,
+                                      lm_valid)
+        chi2s.append(chi2)
+    sq_final = _final_sq_errors(bcfg, kf_pose, lm_pos, lm_valid, g, lm_gen,
+                                kf_gen, cam)
+    return BAResult(kf_pose, lm_pos, torch.stack(chi2s), sq_final)
 
 
 def schur_subtrahend_mm(obs_kf, obs_lm, F, K: int, L: int):
@@ -151,12 +394,6 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
     gate = _obs_gate(g, lm_valid, lm_gen, kf_gen) & (cl_obs < LC)
     ck_obs = torch.where(cl_obs < LC, ck_obs, torch.full_like(ck_obs, KC))
 
-    pp_gate = g.pp_valid
-    if kf_gen is not None:
-        pp_gate = pp_gate & (g.pp_gen_i == kf_gen[g.pp_i]) \
-            & (g.pp_gen_j == kf_gen[g.pp_j])
-    eye3 = torch.eye(3, dtype=f32, device=dev)
-
     def do_iteration(kf_pose, lm_pos_c):
         kf_p = kf_pose[g.obs_kf]
         lm_p = _gather_pad(lm_pos_c, cl_obs)
@@ -181,31 +418,24 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
 
         # pose-pose edges: a frozen endpoint lands in the sentinel block,
         # so the edge acts as a prior on the free endpoint
-        pi = kf_pose[g.pp_i]
-        pj = kf_pose[g.pp_j]
-        r6 = factors.pp_residual(pi, pj, g.pp_rel)
-        Ji, Jj = factors.pp_jacobians(pi, pj, g.pp_rel)
-        wpp_info = g.pp_w * pp_gate
-        sq_pp = wpp_info * torch.sum(r6 * r6, dim=-1)
-        wpp = wpp_info * factors.robust_weight(sq_pp, bcfg.robust_kernel,
-                                               bcfg.robust_delta)
+        r6, Ji, Jj, wpp, sq_pp = _pp_terms(bcfg, g, kf_pose, kf_gen)
         chi2 = chi2 + torch.sum(sq_pp)
-        H_cc = torch.zeros((KC + 1, KC + 1, 6, 6), dtype=f32, device=dev)
+        n1 = KC + 1
+        H_cc = torch.zeros((n1 * n1, 6, 6), dtype=f32, device=dev)
         ar = torch.arange(KC, device=dev)
-        H_cc[ar, ar] = H_cc_diag
+        H_cc.index_add_(0, ar * n1 + ar, H_cc_diag)
         for a, b, Ja, Jb in ((cpp_i, cpp_i, Ji, Ji), (cpp_j, cpp_j, Jj, Jj),
                              (cpp_i, cpp_j, Ji, Jj), (cpp_j, cpp_i, Jj, Ji)):
-            H_cc.index_put_((a, b), torch.einsum("e,eri,erj->eij", wpp, Ja, Jb),
-                            accumulate=True)
-        H_cc = H_cc[:KC, :KC]
+            H_cc.index_add_(0, a * n1 + b,
+                            torch.einsum("e,eri,erj->eij", wpp, Ja, Jb))
+        H_cc = H_cc.view(n1, n1, 6, 6)[:KC, :KC]
         b_cp = torch.zeros((KC + 1, 6), dtype=f32, device=dev)
         b_cp.index_add_(0, cpp_i, -torch.einsum("e,eri,er->ei", wpp, Ji, r6))
         b_cp.index_add_(0, cpp_j, -torch.einsum("e,eri,er->ei", wpp, Jj, r6))
         b_c = b_c + b_cp[:KC]
 
         # --- landmark elimination ---------------------------------------
-        tr_ll = (H_ll[..., 0, 0] + H_ll[..., 1, 1] + H_ll[..., 2, 2]) / 3.0
-        H_ll_inv = inv3x3(H_ll + (lam * (1.0 + tr_ll))[:, None, None] * eye3)
+        H_ll_inv = _damped_ll_inverse(H_ll, lam)
         Linv = chol3x3(H_ll_inv)
         F = torch.einsum("mia,mab->mib", C, _gather_pad(Linv, cl_obs))
         S = H_cc.permute(0, 2, 1, 3).reshape(KC * 6, KC * 6) \
@@ -217,23 +447,7 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
         b_red = (b_c - _segment_sum(c_m, ck_obs, KC)).reshape(KC * 6)
 
         # --- gauge fixing + solve ----------------------------------------
-        frozen6 = dead_c.repeat_interleave(6)
-        S = torch.where(frozen6[:, None] | frozen6[None, :],
-                        torch.zeros_like(S), S)
-        S = S + torch.diag(frozen6.to(f32))
-        S = 0.5 * (S + S.T)
-        max_diag = torch.clamp(torch.max(torch.abs(torch.diagonal(S))), min=1.0)
-        S = S + (lam * max_diag) * torch.eye(KC * 6, dtype=f32, device=dev)
-        b_red = torch.where(frozen6, torch.zeros_like(b_red), b_red)
-        # a failed factorisation yields NaN (as lax.linalg.cholesky), which
-        # the guard below turns into a skipped update
-        Lc, info = torch.linalg.cholesky_ex(S)
-        Lc = torch.where(info != 0, torch.full_like(Lc, math.nan), Lc)
-        dc = torch.cholesky_solve(b_red[:, None], Lc)[:, 0]
-        dc = torch.where(torch.isfinite(dc), dc, torch.zeros_like(dc))
-        dc = torch.where(torch.all(torch.abs(dc) < 1e3), dc,
-                         torch.zeros_like(dc))
-        dc_mat = dc.reshape(KC, 6)
+        dc_mat = _solve_reduced(S, b_red, dead_c, lam).reshape(KC, 6)
         dc_full = set_rows(torch.zeros((K, 6), dtype=f32, device=dev), sel,
                            dc_mat) if windowed else dc_mat
 
@@ -241,12 +455,8 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
         u_m = torch.einsum("mia,mi->ma", C, _gather_pad(dc_mat, ck_obs))
         dl = torch.einsum("lab,lb->la", H_ll_inv,
                           b_l - _segment_sum(u_m, cl_obs, LC))
-        dl = torch.where(torch.isfinite(dl), dl, torch.zeros_like(dl))
-
-        new_pose = se3.retract(kf_pose, dc_full)
-        new_pose = torch.where(frozen_full[:, None], kf_pose, new_pose)
-        moved = ~lm_dead_c & (torch.amax(torch.abs(dl), dim=-1) < 1e3)
-        new_lm_c = torch.where(moved[:, None], lm_pos_c + dl, lm_pos_c)
+        new_pose, new_lm_c = _apply_step(kf_pose, lm_pos_c, dc_full, dl,
+                                         frozen_full, ~lm_dead_c)
         return new_pose, new_lm_c, chi2
 
     lm_pos_c = lm_pos[torch.clamp(sel_lm, max=L - 1)]
@@ -270,7 +480,10 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
 def optimize_graph(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
                    g: GraphState, fixed_kf, lm_gen=None, kf_gen=None,
                    cam: CameraConfig = None) -> BAResult:
-    """Solver front door; only ``dense_schur_mm`` is ported (it checks
-    the configuration)."""
-    return gauss_newton_mm(bcfg, kf_pose, kf_valid, lm_pos, lm_valid, g,
-                           fixed_kf, lm_gen, kf_gen, cam=cam)
+    """Solver front door: dispatches on ``bcfg.solver`` ("dense_schur",
+    "dense_schur_mm", "pcg"); raises for any other solver."""
+    check_backend_config(bcfg)
+    fn = {"dense_schur": gauss_newton, "dense_schur_mm": gauss_newton_mm,
+          "pcg": gauss_newton_pcg}[bcfg.solver]
+    return fn(bcfg, kf_pose, kf_valid, lm_pos, lm_valid, g, fixed_kf, lm_gen,
+              kf_gen, cam=cam)

@@ -2,7 +2,8 @@
 
 ``from_numpy(tree, device)`` maps the JAX package's ``Features``,
 ``MapState``, ``GraphState``, ``SlamState`` (with the ``LCQueue`` and
-``EKFState`` it carries) and ``GuidedMatchResult``, given as numpy arrays
+``EKFState`` it carries), ``GuidedMatchResult`` and the tracking VO's
+``TrackState``, given as numpy arrays
 — e.g. taken with ``jax.tree.map(np.asarray, state)`` — onto the port's NamedTuples of the
 same names and fields, on ``device``. ``to_numpy(tree)`` maps back to numpy.
 JAX's ``SlamState.key`` has no counterpart (the port holds its
@@ -35,13 +36,16 @@ def brief_bank(device) -> torch.Tensor:
 def _classes():
     from putslam_tpu_torch.backend.graph import GraphState
     from putslam_tpu_torch.frontend.detector import Features
-    from putslam_tpu_torch.models.slam import EKFState, LCQueue, SlamState
+    from putslam_tpu_torch.loopclosure.bow import LCQueue
+    from putslam_tpu_torch.models.slam import SlamState
+    from putslam_tpu_torch.models.vo import TrackState
+    from putslam_tpu_torch.motion.ekf import EKFState
     from putslam_tpu_torch.slam_map.features_map import (GuidedMatchResult,
                                                          MapState)
 
     return {c.__name__: c for c in
             (Features, MapState, GraphState, SlamState, LCQueue, EKFState,
-             GuidedMatchResult)}
+             GuidedMatchResult, TrackState)}
 
 
 def _is_namedtuple(x) -> bool:

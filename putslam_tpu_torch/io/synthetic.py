@@ -1,14 +1,17 @@
 """Synthetic RGB-D sequences rendered on the device (raycast box world).
 
-Port of the renderer of ``putslam_tpu/io/synthetic.py``: a procedurally
-textured axis-aligned room seen from a camera trajectory, with exact ground
-truth poses and depth. Conventions: camera looks down +z, x right, y down;
+Port of ``putslam_tpu/io/synthetic.py``: a procedurally textured
+axis-aligned room seen from a camera trajectory, with exact ground truth
+poses and depth; the orbit and leave-and-return (revisit) trajectories; and
+sensor degradation (image noise, blur, depth noise, depth holes) drawn from
+a ``torch.Generator``. Conventions: camera looks down +z, x right, y down;
 a pose is camera→world in the (..., 7) layout.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -110,6 +113,58 @@ def orbit_trajectory(n_frames: int, radius: float = 0.8,
     qy = torch.stack([torch.cos(yaw / 2), z, torch.sin(yaw / 2), z], dim=-1)
     qx = torch.stack([torch.cos(pitch / 2), torch.sin(pitch / 2), z, z], dim=-1)
     return se3.make_pose(t, se3.quat_mul(qy, qx))
+
+
+def revisit_trajectory(n_frames: int, sweep: float = 1.2,
+                       height_amp: float = 0.08, yaw_amp: float = 0.12,
+                       device="cpu"):
+    """Leave-and-return trajectory for loop-closure tests: a single
+    out-and-back lobe to ``sweep`` metres, symmetric in s ↔ 1 − s, always
+    facing the same wall. Returns (n_frames, 7) camera→world poses."""
+    s = torch.linspace(0.0, 1.0, n_frames, dtype=torch.float32, device=device)
+    lobe = torch.sin(math.pi * s)
+    t = torch.stack([sweep * lobe, height_amp * lobe, 0.15 * lobe - 0.5],
+                    dim=-1)
+    yaw = yaw_amp * lobe
+    z = torch.zeros_like(yaw)
+    return se3.make_pose(t, torch.stack([torch.cos(yaw / 2), z,
+                                         torch.sin(yaw / 2), z], dim=-1))
+
+
+def degrade_sequence(grays, depths, seed: int = 0,
+                     intensity_sigma: float = 0.0,
+                     depth_dropout: float = 0.0,
+                     depth_sigma: float = 0.0, blur: int = 0,
+                     generator: Optional[torch.Generator] = None):
+    """Sensor-noise injection on (T, H, W) frames, in the JAX package's
+    order: additive Gaussian image noise (clipped to [0, 1]), horizontal
+    box blur of width 2·blur + 1 (zero-padded ``same`` convolution per
+    row), additive Gaussian depth noise (clamped at 0), and depth holes (a
+    ``depth_dropout`` fraction of pixels set to 0). The noise comes from
+    ``generator``, else from one seeded with ``seed`` on the frames' device;
+    it is not the JAX package's ``jax.random`` stream. Returns new tensors
+    (grays', depths')."""
+    g, d = grays, depths
+    if generator is None:
+        generator = torch.Generator(device=g.device)
+        generator.manual_seed(seed)
+    if intensity_sigma > 0:
+        noise = torch.randn(g.shape, generator=generator, device=g.device)
+        g = torch.clamp(g + intensity_sigma * noise, 0.0, 1.0)
+    if blur > 0:
+        w = 2 * blur + 1
+        kernel = torch.full((1, 1, w), 1.0 / w, dtype=g.dtype, device=g.device)
+        rows = g.reshape(-1, 1, g.shape[-1])
+        g = torch.nn.functional.conv1d(rows, kernel, padding=blur
+                                       ).reshape(g.shape)
+    if depth_sigma > 0:
+        noise = torch.randn(d.shape, generator=generator, device=d.device)
+        d = torch.clamp(d + depth_sigma * noise, min=0.0)
+    if depth_dropout > 0:
+        holes = torch.rand(d.shape, generator=generator,
+                           device=d.device) < depth_dropout
+        d = torch.where(holes, torch.zeros_like(d), d)
+    return g, d
 
 
 def render_sequence(cam: CameraConfig, poses, seed: int = 7):

@@ -1,25 +1,31 @@
 """The full SLAM engine: VO + global feature map + bundle adjustment.
 
 Port of ``putslam_tpu/models/slam.py`` (without the playback mode). One
-``slam_step`` runs: detection, frame-to-frame VO, guided map matching with
-the absolute-pose RANSAC and its widening retry ladder, the drift-budget
-correction gate, the keyframe decision and bookkeeping, the periodic bundle
-adjustment, map compression and the re-anchor of the live pose on the last
-keyframe. ``run_slam_final`` adds the end-of-run full-graph polish, the
-trajectory repair and the re-anchored trajectory.
+``slam_step`` runs: detection, frame-to-frame VO (with the EKF prior where
+VO fails, when ``motion_model.enabled``), guided map matching with the
+absolute-pose RANSAC and its widening retry ladder, the drift-budget
+correction gate, the keyframe decision and bookkeeping, loop closure (when
+``loop_closure.enabled``: BoW signature and scoring on keyframes, one
+queued candidate popped and verified per frame, its correction edge added
+before the BA), the periodic bundle adjustment, map compression, the
+re-anchor of the live pose on the last keyframe and the EKF correction.
+``run_slam_final`` adds the end-of-run full-graph polish, the trajectory
+repair and the re-anchored trajectory.
 
 Where the JAX package branches on device values with ``lax.cond`` (retry,
-keyframe bookkeeping, BA), this port branches on the host: a few device →
-host syncs per frame. ``lax.scan`` is a Python loop.
+keyframe bookkeeping, loop-closure verification, BA), this port branches on
+the host: a few device → host syncs per frame. ``lax.scan`` is a Python
+loop. The JAX package computes the loop-closure signature and scores on
+every frame and keeps them on keyframes; the port computes them on
+keyframes only.
 
 RANSAC draws come from an explicit ``torch.Generator``, or — for a test
 that replays the JAX package's key chain — from ``draws``, a mapping with
 one (used_pairs, H) uniform tensor per RANSAC call of the frame: ``vo``,
-``map``, ``retry0``, ``retry1``.
+``map``, ``retry0``, ``retry1`` and, with loop closure, ``lc``.
 
-The loop-closure and EKF fields of ``SlamState`` are carried at the JAX
-package's initial values, so states convert both ways (``convert.py``);
-those subsystems are not ported yet and raise when enabled.
+``LCQueue`` (``loopclosure/bow.py``) and ``EKFState`` (``motion/ekf.py``)
+are re-exported here.
 """
 
 from __future__ import annotations
@@ -37,27 +43,15 @@ from putslam_tpu_torch.config import SlamConfig
 from putslam_tpu_torch.frontend import ransac as ransac_mod
 from putslam_tpu_torch.frontend.detector import Features, detect_and_describe
 from putslam_tpu_torch.geometry import se3
+from putslam_tpu_torch.loopclosure import bow
+from putslam_tpu_torch.loopclosure import verify as lc_verify
+from putslam_tpu_torch.loopclosure.bow import LCQueue  # noqa: F401
 from putslam_tpu_torch.models import vo as vo_mod
+from putslam_tpu_torch.motion import ekf as ekf_mod
+from putslam_tpu_torch.motion.ekf import EKFState  # noqa: F401
 from putslam_tpu_torch.slam_map import features_map as fm
 from putslam_tpu_torch.utils.device import as_tensor, resolve_device
-from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows
-
-BOW_VOCAB_SEED = 17
-
-
-class LCQueue(NamedTuple):
-    """Loop-closure candidate buffer (carried, not used: LC not ported)."""
-
-    kf_a: torch.Tensor
-    kf_b: torch.Tensor
-    prob: torch.Tensor
-
-
-class EKFState(NamedTuple):
-    """Decaying-velocity EKF state (carried, not used: EKF not ported)."""
-
-    x: torch.Tensor
-    P: torch.Tensor
+from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows, take_row
 
 
 class SlamState(NamedTuple):
@@ -99,8 +93,6 @@ def check_config(cfg: SlamConfig) -> None:
     vo_mod.check_vo_config(cfg)
     opt_mod.check_backend_config(cfg.backend)
     unported = [
-        (cfg.loop_closure.enabled, "loop_closure.enabled"),
-        (cfg.motion_model.enabled, "motion_model.enabled"),
         (cfg.map.use_uncertainty, "map.use_uncertainty"),
         (cfg.matcher.max_mates > 1, "matcher.max_mates > 1"),
         (cfg.matcher.acceptance != "hamming",
@@ -117,20 +109,6 @@ def _obs_info(cfg: SlamConfig) -> float:
     Euclidean RANSAC gate."""
     sigma = cfg.ransac.inlier_threshold_euclidean / 2.0
     return 1.0 / (sigma * sigma)
-
-
-def _bow_signature(cfg: SlamConfig, feat: Features) -> torch.Tensor:
-    """The frame's L2-normalised nearest-word histogram over the fixed
-    random binary vocabulary (``loopclosure/bow.py``): the JAX package
-    stores keyframe 0's at init, so the state carries it too."""
-    V = cfg.loop_closure.vocab_size
-    rng = np.random.default_rng(BOW_VOCAB_SEED)
-    vocab = torch.as_tensor(rng.choice(np.array([-1, 1], np.int8),
-                                       size=(V, 256)), device=feat.desc.device)
-    word = torch.argmax(feat.desc.float() @ vocab.float().T, dim=1)
-    hist = torch.zeros((V,), dtype=torch.float32, device=word.device)
-    hist.index_add_(0, word, feat.valid.to(torch.float32))
-    return hist / torch.clamp(torch.linalg.norm(hist), min=1e-9)
 
 
 def _landmark_indices_for(m: fm.MapState, pose, feat: Features):
@@ -173,27 +151,21 @@ def slam_init(cfg: SlamConfig, gray, depth, init_pose=None,
     V = cfg.loop_closure.vocab_size
     Q = cfg.loop_closure.queue_capacity
     kf_sig = torch.zeros((K, V), dtype=torch.float32, device=dev)
-    kf_sig[kf_idx] = _bow_signature(cfg, feat)
+    kf_sig[kf_idx] = bow.signature(bow.make_vocab(V, dev), feat.desc,
+                                   feat.valid)
     sig_valid = torch.zeros((K,), dtype=torch.bool, device=dev)
     sig_valid[kf_idx] = True
-    ekf_x = torch.zeros((13,), dtype=torch.float32, device=dev)
-    ekf_x[0:3] = se3.translation(init_pose)
-    ekf_x[6:10] = se3.rotation_quat(init_pose)
     return SlamState(
         map=m, graph=g, prev_feat=feat, pose=init_pose,
         pose_smooth=init_pose, last_kf_idx=kf_idx, last_kf_pose=init_pose,
         frames_since_kf=torch.zeros((), **i32),
         frame_idx=torch.ones((), **i32),
         kf_sig=kf_sig, sig_valid=sig_valid,
-        lc_queue=LCQueue(torch.full((Q,), -1, **i32),
-                         torch.full((Q,), -1, **i32),
-                         torch.full((Q,), -np.inf, dtype=torch.float32,
-                                    device=dev)),
+        lc_queue=bow.init_queue(Q, dev),
         n_lc_edges=torch.zeros((), **i32),
         health=torch.ones((), dtype=torch.float32, device=dev),
         frames_since_map_ok=torch.zeros((), **i32),
-        ekf=EKFState(ekf_x, torch.eye(13, dtype=torch.float32, device=dev)
-                     * 1e-2),
+        ekf=ekf_mod.init(cfg.motion_model, init_pose),
     )
 
 
@@ -222,6 +194,13 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
     degraded = state.health < cfg.matcher.degraded_health_ratio
     vo_res = vo_mod.vo_step(cfg, state.prev_feat, feat, u=uniforms("vo"))
     pose_pred = se3.compose(state.pose, vo_res.rel_pose)
+    ekf_pred = state.ekf
+    if cfg.motion_model.enabled:
+        # where VO failed, the EKF's constant-velocity prediction replaces
+        # the dead-stop prior of the identity increment
+        ekf_pred = ekf_mod.predict(cfg.motion_model, state.ekf, 1.0)
+        pose_pred = torch.where(vo_res.ok, pose_pred,
+                                ekf_mod.predicted_pose(ekf_pred))
 
     # ---- 2. guided map matching + absolute-pose RANSAC, retry ladder ----
     def run_guided(scale, u, thr_scale=1.0):
@@ -312,8 +291,39 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
         prev_ring = torch.remainder(state.last_kf_idx, K)
         g = graph_mod.add_pose_pose(
             g, prev_ring, kf_idx_new, rel_kf,
-            torch.tensor(100.0, device=dev), add_pp,
+            torch.full((), 100.0, device=dev), add_pp,
             gen_i=m.kf_gen[prev_ring], gen_j=m.kf_gen[kf_idx_new])
+
+    # ---- 4b. loop closure: its edge enters the graph before the BA -------
+    kf_sig, sig_valid = state.kf_sig, state.sig_valid
+    lc_queue, n_lc = state.lc_queue, state.n_lc_edges
+    if cfg.loop_closure.enabled:
+        lc = cfg.loop_closure
+        if is_kf:
+            sig = bow.signature(bow.make_vocab(lc.vocab_size, dev), feat.desc,
+                                feat.valid)
+            # the slot this keyframe recycles still holds the evicted
+            # keyframe's signature: it takes no part in the scoring
+            scores = bow.score_against(
+                kf_sig, sig, set_rows(sig_valid, kf_idx_new.reshape(1),
+                                      False))
+            lc_queue = bow.push_candidates(lc_queue, kf_idx_new, scores,
+                                           m.kf_seq, m.n_kf, lc.tail_skip,
+                                           lc.min_probability)
+            kf_sig = set_rows(kf_sig, kf_idx_new.reshape(1), sig[None])
+            sig_valid = set_rows(sig_valid, kf_idx_new.reshape(1), True)
+        # pop and verify one candidate per frame
+        cand_a, cand_b, cand_p, lc_queue = bow.pop_best(lc_queue)
+        if bool(torch.isfinite(cand_p)):
+            ca = torch.clamp(cand_a, min=0)
+            cb = torch.clamp(cand_b, min=0)
+            vres = lc_verify.verify_candidate(cfg, m, g, ca, cb,
+                                              u=uniforms("lc"))
+            g = graph_mod.add_pose_pose(
+                g, ca, cb, vres.rel_pose, torch.full((), 200.0, device=dev),
+                vres.ok, gen_i=take_row(m.kf_gen, ca),
+                gen_j=take_row(m.kf_gen, cb))
+            n_lc = n_lc + vres.ok.to(torch.int32)
 
     # ---- 5. periodic bundle adjustment -----------------------------------
     do_ba = is_kf and bool(
@@ -367,6 +377,13 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
                             torch.full_like(mag, cfg.pose_blend_alpha))
         pose_smooth_out = se3.retract(smooth_pred, alpha * delta_s)
 
+    # ---- EKF measurement update with the accepted frame pose; a fully
+    # failed frame keeps the prediction, so the velocity coasts -----------
+    ekf_new = ekf_pred
+    if cfg.motion_model.enabled:
+        ekf_corr = ekf_mod.correct(cfg.motion_model, ekf_pred, pose_out)
+        ekf_new = _tree_where(vo_res.ok | map_ok, ekf_corr, ekf_pred)
+
     decay = cfg.matcher.degraded_ema_decay
     state_new = state._replace(
         map=m, graph=g, prev_feat=feat, pose=pose_out,
@@ -376,6 +393,8 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
         frames_since_kf=(torch.zeros_like(state.frames_since_kf) if is_kf
                          else state.frames_since_kf + 1),
         frame_idx=state.frame_idx + 1,
+        kf_sig=kf_sig, sig_valid=sig_valid, lc_queue=lc_queue,
+        n_lc_edges=n_lc, ekf=ekf_new,
         health=decay * state.health + (1.0 - decay) * first_pass_ratio,
         frames_since_map_ok=torch.where(
             map_ok, torch.zeros_like(state.frames_since_map_ok),

@@ -1,12 +1,22 @@
-"""Frame-to-frame visual odometry (VO version 0: detect + match).
+"""Frame-to-frame visual odometry.
 
-Port of ``putslam_tpu/models/vo.py``: detect → describe → Hamming matmul
-cross-check matching → lift to 3D → RANSAC, with the translation sanity gate
-that turns implausible jumps into the identity increment.
+Port of ``putslam_tpu/models/vo.py``. Version 0: detect → describe →
+Hamming matmul cross-check matching → lift to 3D → RANSAC. Version 1
+(tracking): pyramidal KLT of the previous frame's features → lift →
+RANSAC, refilling lost tracks from a fresh level-0 FAST detection. Both
+have the translation sanity gate that turns implausible jumps into the
+identity increment.
+
+The tracking refill writes the k-th fresh detection into the k-th free
+slot, and sends the unused lanes to a sentinel row. The JAX package sends
+them to slot 0 with its old value, so on its CPU backend (last duplicate
+write wins) a free slot 0 is never refilled; the port refills it (ROADMAP
+Queue 3l).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -14,9 +24,12 @@ import torch
 from putslam_tpu_torch.config import SlamConfig
 from putslam_tpu_torch.frontend import ransac as ransac_mod
 from putslam_tpu_torch.frontend.detector import Features, detect_and_describe
+from putslam_tpu_torch.geometry import camera as camera_mod
 from putslam_tpu_torch.geometry import se3
-from putslam_tpu_torch.ops import matching
+from putslam_tpu_torch.ops import fast as fast_mod
+from putslam_tpu_torch.ops import klt, matching
 from putslam_tpu_torch.utils.device import as_tensor, resolve_device
+from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows
 
 
 class VOStepResult(NamedTuple):
@@ -29,9 +42,9 @@ class VOStepResult(NamedTuple):
 
 def check_vo_config(cfg: SlamConfig) -> None:
     """Raise for the VO options this port does not implement yet."""
-    if cfg.vo_version != 0:
+    if cfg.vo_version not in (0, 1):
         raise NotImplementedError(
-            f"vo_version={cfg.vo_version} (KLT tracking) is not ported yet")
+            f"vo_version={cfg.vo_version} is not ported yet")
     if cfg.matcher.retry_hamming_slack > 0:
         raise NotImplementedError(
             "matcher.retry_hamming_slack > 0 is not ported yet")
@@ -98,11 +111,114 @@ def vo_sequence(cfg: SlamConfig, grays, depths,
     return poses, stats
 
 
+# ---------------------------------------------------------------------------
+# Tracking-mode VO (vo_version=1): pyramidal KLT instead of detect + match.
+# ---------------------------------------------------------------------------
+
+
+class TrackState(NamedTuple):
+    uv: torch.Tensor      # (N, 2) tracked feature positions in ``gray``
+    xyz: torch.Tensor     # (N, 3) camera-frame 3D (detection frame's depth)
+    valid: torch.Tensor   # (N,) bool
+    gray: torch.Tensor    # (H, W) previous frame image
+
+
+def _detect_for_tracking(cfg: SlamConfig, gray, depth):
+    """FAST on level 0 only (one launch of the kernel on a CUDA tensor) and
+    the depth lift: (uv (N, 2), xyz (N, 3), valid (N,))."""
+    det = cfg.detector
+    uv, _, valid = fast_mod.detect(gray, det.fast_threshold, det.nms_radius,
+                                   det.grid_rows, det.grid_cols,
+                                   det.max_features,
+                                   grid_policy=det.grid_policy)
+    z = camera_mod.sample_depth(depth, uv)
+    xyz = camera_mod.unproject(cfg.camera,
+                               camera_mod.undistort_pixels(cfg.camera, uv), z)
+    return uv, xyz, valid & camera_mod.depth_valid_mask(cfg.camera, z)
+
+
+def init_tracking(cfg: SlamConfig, gray, depth) -> TrackState:
+    uv, xyz, valid = _detect_for_tracking(cfg, gray, depth)
+    return TrackState(uv, xyz, valid, gray)
+
+
+def vo_step_tracking(cfg: SlamConfig, ts: TrackState, gray, depth,
+                     u: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
+    """Track the features into ``gray``, estimate the increment by RANSAC
+    (x_prev ≈ T · x_curr), and refill lost tracks with fresh detections
+    when fewer than ``min_tracked_features`` survive. Detection runs on
+    every step; the refill is masked, not skipped. Returns
+    (TrackState', VOStepResult)."""
+    tc = cfg.tracker
+    tr = klt.track(tc, ts.gray, gray, ts.uv, ts.valid)
+    if tc.patch_refine:
+        wide = dataclasses.replace(tc, win_size=tc.patch_refine_win)
+        tr2 = klt.refine_patch_alignment(wide, ts.gray, gray, ts.uv, tr.pts,
+                                         tr.valid)
+        tr = tr._replace(pts=torch.where(tr2.valid[:, None], tr2.pts, tr.pts))
+    z = camera_mod.sample_depth(depth, tr.pts)
+    xyz_new = camera_mod.unproject(
+        cfg.camera, camera_mod.undistort_pixels(cfg.camera, tr.pts), z)
+    valid = tr.valid & camera_mod.depth_valid_mask(cfg.camera, z)
+
+    res = ransac_mod.estimate(cfg.ransac, cfg.camera, xyz_new, ts.xyz, valid,
+                              u=u, generator=generator)
+    too_far = torch.linalg.norm(se3.translation(res.pose)) > cfg.max_vo_translation
+    rel = torch.where(too_far, se3.identity(dtype=res.pose.dtype,
+                                            device=res.pose.device), res.pose)
+
+    # refill: the k-th fresh detection (not within 2·nms_radius of a live
+    # track) goes to the k-th free slot
+    n_tracked = torch.sum(valid)
+    need = n_tracked < tc.min_tracked_features
+    uv_d, xyz_d, v_d = _detect_for_tracking(cfg, gray, depth)
+    N = uv_d.shape[0]
+    d2 = torch.sum((uv_d[:, None, :] - tr.pts[None, :, :]) ** 2, dim=-1)
+    near = torch.any((d2 < float(cfg.detector.nms_radius * 2) ** 2)
+                     & valid[None, :], dim=1)
+    free_idx = nonzero_fixed(~valid, N, -1)
+    cand_idx = nonzero_fixed(v_d & ~near & need, N, -1)
+    okm = (free_idx >= 0) & (cand_idx >= 0)
+    slot = torch.where(okm, free_idx, torch.full_like(free_idx, N))
+    cidx = torch.clamp(cand_idx, min=0)
+    ts_new = TrackState(set_rows(tr.pts, slot, uv_d[cidx]),
+                        set_rows(xyz_new, slot, xyz_d[cidx]),
+                        set_rows(valid, slot, True), gray)
+    return ts_new, VOStepResult(rel, n_tracked.to(torch.int32),
+                                res.n_inliers, res.inlier_ratio,
+                                res.ok & ~too_far)
+
+
+def vo_sequence_tracking(cfg: SlamConfig, grays, depths,
+                         generator: Optional[torch.Generator] = None,
+                         init_pose=None, draws=None):
+    """Tracking VO over a stacked (T, H, W) sequence: (poses (T, 7),
+    per-step results stacked over T−1 steps). ``draws``: optional per-step
+    list of RANSAC uniforms."""
+    dev = grays.device
+    pose = se3.identity(dtype=grays.dtype, device=dev) if init_pose is None \
+        else init_pose
+    ts = init_tracking(cfg, grays[0], depths[0])
+    poses, steps = [pose], []
+    for i in range(1, grays.shape[0]):
+        ts, res = vo_step_tracking(
+            cfg, ts, grays[i], depths[i],
+            u=None if draws is None else draws[i - 1], generator=generator)
+        pose = se3.compose(pose, res.rel_pose)
+        poses.append(pose)
+        steps.append(res)
+    stats = VOStepResult(*(torch.stack(x) for x in zip(*steps))) if steps \
+        else None
+    return torch.stack(poses), stats
+
+
 def run_vo(cfg: SlamConfig, grays, depths, seed: int = 0, init_pose=None,
            device="cuda"):
     """Arrays or tensors in, numpy out: (poses (T, 7), stats). Frames are
     moved to ``device``; RANSAC draws from a generator seeded with
-    ``seed``."""
+    ``seed``. Dispatches on ``cfg.vo_version`` (0 = matching, 1 = KLT
+    tracking)."""
     check_vo_config(cfg)
     dev = resolve_device(device)
     g = as_tensor(grays, dev, torch.float32)
@@ -111,7 +227,8 @@ def run_vo(cfg: SlamConfig, grays, depths, seed: int = 0, init_pose=None,
     gen.manual_seed(seed)
     ip = None if init_pose is None else as_tensor(init_pose, dev,
                                                   torch.float32)
-    poses, stats = vo_sequence(cfg, g, d, generator=gen, init_pose=ip)
+    seq = vo_sequence_tracking if cfg.vo_version == 1 else vo_sequence
+    poses, stats = seq(cfg, g, d, generator=gen, init_pose=ip)
     return (poses.cpu().numpy(),
             None if stats is None else VOStepResult(
                 *(x.cpu().numpy() for x in stats)))

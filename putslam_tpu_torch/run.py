@@ -2,20 +2,23 @@
 
 Usage:
     python -m putslam_tpu_torch.run --synthetic 64 --out results/
-    python -m putslam_tpu_torch.run --synthetic 30 --only-vo --device cpu
+    python -m putslam_tpu_torch.run --synthetic 30 --loop-closure
+    python -m putslam_tpu_torch.run --synthetic 30 --only-vo --vo-version 1
 
 Same CLI names and output files as ``putslam_tpu/run.py``
 (``VO_trajectory.res``, ``graph_trajectory.res``, ``fps.res``,
-``times.txt``) for ``--synthetic N``, ``--only-vo``, ``--out``, ``--seed``,
-``--chunk`` and ``--max-frames``, plus ``--device`` (default ``cuda``;
-asking for CUDA where there is none is an error). Prints one JSON report
-line with the frame count, fps and, against the synthetic ground truth,
-ATE and RPE.
+``times.txt`` and, for a SLAM run, ``statistics.txt``) for
+``--synthetic N``, ``--only-vo``, ``--vo-version`` (0 = matching, 1 = KLT
+tracking), ``--loop-closure``, ``--out``, ``--seed``, ``--chunk`` and
+``--max-frames``, plus ``--device`` (default ``cuda``; asking for CUDA where
+there is none is an error). Prints one JSON report line with the frame
+count, fps and, against the synthetic ground truth, ATE and RPE.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -23,7 +26,7 @@ import time
 
 import numpy as np
 
-_NOT_PORTED = ("dataset", "loop_closure", "global_ba", "reference_resources",
+_NOT_PORTED = ("dataset", "global_ba", "reference_resources",
                "reference_eval", "plots")
 
 
@@ -33,6 +36,9 @@ def main(argv=None) -> int:
                     help="render N synthetic frames")
     ap.add_argument("--out", default="results", help="output directory")
     ap.add_argument("--only-vo", action="store_true", help="VO only")
+    ap.add_argument("--vo-version", type=int, default=0,
+                    help="0=matching, 1=KLT tracking (VOVersion)")
+    ap.add_argument("--loop-closure", action="store_true")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--chunk", type=int, default=64,
                     help="move the sequence to the device in blocks of this "
@@ -42,8 +48,6 @@ def main(argv=None) -> int:
                     help="torch device to run on (default cuda)")
     # flags of putslam_tpu.run that this port does not support yet
     ap.add_argument("--dataset")
-    ap.add_argument("--vo-version", type=int, default=0)
-    ap.add_argument("--loop-closure", action="store_true")
     ap.add_argument("--global-ba", action="store_true")
     ap.add_argument("--reference-resources")
     ap.add_argument("--reference-eval", action="store_true")
@@ -52,8 +56,8 @@ def main(argv=None) -> int:
 
     unported = [f"--{name.replace('_', '-')}" for name in _NOT_PORTED
                 if getattr(args, name)]
-    if args.vo_version != 0:
-        unported.append("--vo-version 1")
+    if args.vo_version not in (0, 1):
+        unported.append(f"--vo-version {args.vo_version}")
     if unported:
         ap.error(f"not yet ported to putslam_tpu_torch: {', '.join(unported)}")
     if not args.synthetic:
@@ -69,7 +73,10 @@ def main(argv=None) -> int:
     from putslam_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
-    cfg = tum_fr1_config(only_vo=args.only_vo)
+    cfg = tum_fr1_config(only_vo=args.only_vo, vo_version=args.vo_version)
+    if args.loop_closure:
+        cfg = cfg.replace(loop_closure=dataclasses.replace(
+            cfg.loop_closure, enabled=True))
     os.makedirs(args.out, exist_ok=True)
     timer = timing.StageTimer()
 
@@ -88,6 +95,7 @@ def main(argv=None) -> int:
 
     sync()
     t0 = time.perf_counter()
+    outs = None
     if args.only_vo:
         with timer.stage("vo_total"):
             est, _ = vo.run_vo(cfg, grays, depths, seed=args.seed,
@@ -95,7 +103,7 @@ def main(argv=None) -> int:
             sync()
     else:
         with timer.stage("slam_total"):
-            est_vo_anchored, est, _, _ = slam.run_slam_final(
+            est_vo_anchored, est, outs, _ = slam.run_slam_final(
                 cfg, grays, depths, init_pose=gt_poses[0], seed=args.seed,
                 chunk_size=args.chunk, device=dev)
             sync()
@@ -108,6 +116,9 @@ def main(argv=None) -> int:
                             timestamps, est_vo_anchored)
     timing.write_fps(os.path.join(args.out, "fps.res"), n, total)
     timer.write_times_txt(os.path.join(args.out, "times.txt"))
+    if outs is not None:
+        timing.write_run_statistics(os.path.join(args.out, "statistics.txt"),
+                                    outs)
 
     report = {"frames": n, "fps": round(n / total, 2), "device": str(dev),
               "ate_rmse_m": round(ate_mod.ate_rmse_aligned_frames(gt_poses,

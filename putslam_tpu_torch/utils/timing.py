@@ -1,5 +1,6 @@
-"""Per-stage wall-clock timing with the reference's dump names
-(``times.txt``, ``fps.res``) — copy of ``putslam_tpu/utils/timing.py``.
+"""Per-stage wall-clock timing and run statistics with the reference's dump
+names (``times.txt``, ``fps.res``, ``statistics.txt``) — copy of
+``putslam_tpu/utils/timing.py``.
 Stages timed around device work must end in ``torch.cuda.synchronize()``
 to measure the device and not the enqueue."""
 
@@ -42,3 +43,27 @@ def write_fps(path: str, n_frames: int, total_seconds: float) -> None:
     """fps.res — a single number."""
     with open(path, "w") as f:
         f.write(f"{n_frames / max(total_seconds, 1e-9):.3f}\n")
+
+
+def write_run_statistics(path: str, outs) -> None:
+    """statistics.txt: inlier counts, map matches, keyframe / BA cadence and
+    landmark growth of a SLAM run, one ``key value`` per line, with the JAX
+    package's keys and formats. ``outs``: ``SlamOutputs`` with numpy (or
+    tensor) fields stacked over the frames."""
+    import numpy as np
+
+    def arr(name):
+        x = getattr(outs, name)
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+    with open(path, "w") as f:
+        f.write(f"frames {len(arr('pose'))}\n")
+        f.write(f"vo_ok_fraction {float(arr('vo_ok').mean()):.4f}\n")
+        f.write(f"map_ok_fraction {float(arr('map_ok').mean()):.4f}\n")
+        f.write(f"keyframes {int(arr('is_keyframe').sum())}\n")
+        f.write(f"ba_runs {int(arr('ba_ran').sum())}\n")
+        f.write(f"map_inliers_median "
+                f"{float(np.median(arr('n_map_inliers'))):.1f}\n")
+        f.write(f"map_matches_median "
+                f"{float(np.median(arr('n_map_matches'))):.1f}\n")
+        f.write(f"landmarks_final {int(arr('n_landmarks')[-1])}\n")

@@ -1,7 +1,10 @@
-"""Bundle-adjustment parity: gauss_newton_mm (the dense_schur_mm solver)
-on the same graph in both packages — windowed + landmark-blocked, and full
-— plus the closed-form pose-pose Jacobians and the final error pass.
-Chi² per iteration ≤ 1e-3 relative; poses and landmarks ≤ 1e-4."""
+"""Bundle-adjustment parity: the three solvers on the same graph in both
+packages — gauss_newton_mm (dense_schur_mm) windowed + landmark-blocked
+and full, gauss_newton (dense_schur) and gauss_newton_pcg (pcg) with gauge
+and window masks and with a failed factorisation — plus the closed-form
+pose-pose Jacobians, the final error pass, and the port's solvers against
+each other. Chi² per iteration ≤ 1e-3 relative; poses and landmarks
+≤ 1e-4."""
 
 import dataclasses
 
@@ -152,10 +155,95 @@ def test_pp_jacobians_match_jax_closed_form():
 
 
 def test_unported_solver_raises():
+    """The reprojection factor, full-information whitening and unknown
+    solver names still raise at the front door."""
     p = _problem()
-    bcfg = dataclasses.replace(BackendConfig(), solver="pcg")
-    with pytest.raises(NotImplementedError):
-        topt.optimize_graph(bcfg, t(p["kf_pose"]), t(p["kf_valid"]),
-                            t(p["lm_pos"]), t(p["lm_valid"]),
-                            convert.from_numpy(p["g"], "cpu"),
-                            torch.as_tensor(p["fixed_kf"]))
+    for over in (dict(error_type=1), dict(use_obs_info=True),
+                 dict(solver="sparse_cholesky")):
+        bcfg = dataclasses.replace(BackendConfig(), **over)
+        with pytest.raises(NotImplementedError):
+            topt.optimize_graph(bcfg, t(p["kf_pose"]), t(p["kf_valid"]),
+                                t(p["lm_pos"]), t(p["lm_valid"]),
+                                convert.from_numpy(p["g"], "cpu"),
+                                torch.as_tensor(p["fixed_kf"]))
+
+
+def _run_both(solver, bcfg, p, cam=None):
+    jfn = {"dense_schur": jopt.gauss_newton, "pcg": jopt.gauss_newton_pcg,
+           "dense_schur_mm": jopt.gauss_newton_mm}[solver]
+    ref = jfn(bcfg, *(jnp.asarray(p[k]) for k in ("kf_pose", "kf_valid",
+                                                   "lm_pos", "lm_valid")),
+              jgraph.GraphState(*map(jnp.asarray, p["g"])),
+              jnp.asarray(p["fixed_kf"]), jnp.asarray(p["lm_gen"]),
+              jnp.asarray(p["kf_gen"]), cam=cam)
+    got = topt.optimize_graph(
+        dataclasses.replace(bcfg, solver=solver),
+        *(t(p[k]) for k in ("kf_pose", "kf_valid", "lm_pos", "lm_valid")),
+        convert.from_numpy(p["g"], "cpu"), t(p["fixed_kf"]), t(p["lm_gen"]),
+        t(p["kf_gen"]), cam=cam)
+    return ref, got
+
+
+@pytest.mark.parametrize("solver", ["dense_schur", "pcg"])
+@pytest.mark.parametrize("n_fixed", [2, 5])
+def test_dense_schur_and_pcg_match_jax(solver, n_fixed):
+    """gauss_newton (dense_schur) and gauss_newton_pcg on the toy graph,
+    with the gauge (2 fixed keyframes) or a window (5 fixed)."""
+    bcfg = dataclasses.replace(BackendConfig(), gn_iterations=3,
+                               pcg_iterations=32)
+    p = _problem(2)
+    p["fixed_kf"] = np.arange(K) < n_fixed
+    ref, got = _run_both(solver, bcfg, p, CameraConfig())
+    chi2 = np.asarray(ref.chi2)
+    assert chi2[-1] < chi2[0]
+    np.testing.assert_allclose(n(got.chi2), chi2, rtol=1e-3)
+    np.testing.assert_allclose(n(got.kf_pose), np.asarray(ref.kf_pose),
+                               atol=1e-4)
+    np.testing.assert_allclose(n(got.lm_pos), np.asarray(ref.lm_pos),
+                               atol=1e-4)
+    np.testing.assert_allclose(n(got.obs_sq_err), np.asarray(ref.obs_sq_err),
+                               rtol=1e-3, atol=1e-3)
+    fixed = p["fixed_kf"] | ~p["kf_valid"]
+    np.testing.assert_array_equal(n(got.kf_pose)[fixed], p["kf_pose"][fixed])
+
+
+@pytest.mark.parametrize("solver", ["dense_schur", "pcg"])
+def test_failed_factorisation_gives_a_zero_step(solver):
+    """A NaN measurement poisons the camera system: the Cholesky (or the
+    preconditioner) fails, the guards turn the step into zero — no
+    exception — and every pose stays put, as in the JAX package."""
+    bcfg = dataclasses.replace(BackendConfig(), gn_iterations=2)
+    p = _problem(3)
+    g = p["g"]
+    xyz = g.obs_xyz.copy()
+    xyz[5] = np.nan
+    p["g"] = g._replace(obs_xyz=xyz)
+    ref, got = _run_both(solver, bcfg, p)
+    np.testing.assert_array_equal(np.asarray(ref.kf_pose), p["kf_pose"])
+    np.testing.assert_array_equal(n(got.kf_pose), p["kf_pose"])
+    np.testing.assert_allclose(n(got.lm_pos), np.asarray(ref.lm_pos),
+                               atol=1e-4)
+    assert np.isnan(n(got.chi2)).all() and np.isnan(np.asarray(ref.chi2)).all()
+
+
+def test_port_solvers_agree():
+    """The port's three solvers on one problem: poses within 2e-4 of
+    dense_schur and the final chi² within 2 % (the JAX package's
+    test_round3.py::test_solvers_agree tolerances)."""
+    p = _problem(4)
+    sols = {}
+    for solver in ("dense_schur", "dense_schur_mm", "pcg"):
+        bcfg = dataclasses.replace(BackendConfig(), solver=solver,
+                                   gn_iterations=6, robust_kernel="none",
+                                   ba_window=0, pcg_iterations=32)
+        sols[solver] = topt.optimize_graph(
+            bcfg, *(t(p[k]) for k in ("kf_pose", "kf_valid", "lm_pos",
+                                      "lm_valid")),
+            convert.from_numpy(p["g"], "cpu"), t(p["fixed_kf"]),
+            t(p["lm_gen"]), t(p["kf_gen"]))
+    ref = n(sols["dense_schur"].kf_pose)
+    chi_ref = float(sols["dense_schur"].chi2[-1])
+    for solver in ("dense_schur_mm", "pcg"):
+        np.testing.assert_allclose(n(sols[solver].kf_pose), ref, atol=2e-4)
+        chi = float(sols[solver].chi2[-1])
+        assert abs(chi - chi_ref) < 0.02 * max(chi_ref, 1e-6), solver

@@ -20,6 +20,8 @@ def test_port_imports_with_jax_blocked():
             "import putslam_tpu_torch.run, putslam_tpu_torch.models.slam\n"
             "import putslam_tpu_torch.convert, putslam_tpu_torch.ops.fast_cuda\n"
             "import putslam_tpu_torch.io.synthetic\n"
+            "import putslam_tpu_torch.loopclosure.verify\n"
+            "import putslam_tpu_torch.motion.ekf, putslam_tpu_torch.ops.klt\n"
             "assert not [m for m in sys.modules if m.startswith('jax')\n"
             "            and sys.modules[m] is not None]\n"
             "print('ok')")

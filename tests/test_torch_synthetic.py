@@ -98,3 +98,53 @@ def test_render_sequence_shapes():
     g, d = tsyn.render_sequence(CAM, tsyn.orbit_trajectory(2))
     assert g.shape == d.shape == (2, CAM.height, CAM.width)
     assert bool(torch.isfinite(g).all()) and float(g.min()) >= 0.0
+
+
+def test_revisit_trajectory_matches_jax():
+    for T, sweep in ((64, 1.2), (24, 0.6)):
+        np.testing.assert_allclose(
+            n(tsyn.revisit_trajectory(T, sweep=sweep)),
+            np.asarray(jsyn.revisit_trajectory(T, sweep=sweep)), atol=1e-6)
+
+
+def _frames3():
+    g, d = jsyn.render_sequence(CAM, jnp.asarray(ORBIT[:3]))
+    return np.asarray(g), np.asarray(d)
+
+
+@pytest.mark.parametrize("blur", [1, 2])
+def test_blur_only_degrade_matches_jax(blur):
+    """The box blur (zero-padded 'same' convolution per row) is
+    deterministic: equal to the JAX package's within 1e-6; depth passes
+    through untouched."""
+    g, d = _frames3()
+    gj, dj = jsyn.degrade_sequence(g, d, seed=1, blur=blur)
+    gt, dt = tsyn.degrade_sequence(t(g), t(d), seed=1, blur=blur)
+    np.testing.assert_allclose(n(gt), np.asarray(gj), atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(n(dt), np.asarray(dj))
+
+
+def test_degrade_noise_statistics():
+    """The port draws from a seeded torch.Generator (not jax.random), so
+    its noise is checked by its statistics: image noise σ and clipping,
+    depth noise σ and the ≥ 0 clamp, the hole fraction; the same seed
+    gives the same frames."""
+    g = torch.full((4, 96, 128), 0.5)
+    d = torch.full((4, 96, 128), 2.0)
+    g2, d2 = tsyn.degrade_sequence(g, d, seed=3, intensity_sigma=0.03,
+                                   depth_sigma=0.01, depth_dropout=0.25)
+    dg = (g2 - g).flatten()
+    assert abs(float(dg.mean())) < 1e-3
+    assert abs(float(dg.std()) - 0.03) < 1e-3
+    holes = d2 == 0.0
+    assert abs(float(holes.float().mean()) - 0.25) < 0.01
+    dd = (d2 - d)[~holes]
+    assert abs(float(dd.std()) - 0.01) < 5e-4
+    g3, d3 = tsyn.degrade_sequence(g, d, seed=3, intensity_sigma=0.03,
+                                   depth_sigma=0.01, depth_dropout=0.25)
+    assert torch.equal(g2, g3) and torch.equal(d2, d3)
+    gc, dc = tsyn.degrade_sequence(torch.full((1, 8, 8), 0.999),
+                                   torch.full((1, 8, 8), 0.001), seed=0,
+                                   intensity_sigma=0.5, depth_sigma=0.5)
+    assert float(gc.max()) <= 1.0 and float(gc.min()) >= 0.0
+    assert float(dc.min()) >= 0.0 and bool((dc == 0.0).any())
