@@ -6,14 +6,26 @@ Run from the repository root:  python3 chip_smoke.py
 Phases (any failed check raises and the script exits non-zero):
   1. the card: torch.cuda must be available; prints its name and the
      ``nvidia-smi`` name / power limit line.
-  2. build the FAST-9 + NMS kernel from csrc/ with nvcc (timed).
-  3. the kernel against its plain PyTorch version on the card, at the four
-     fr1 pyramid shapes, on a rendered frame's levels and on uniform noise:
-     raw and NMS maps must be bit-identical; median times of 50 launches.
+  2. build the FAST-9 + NMS kernel from csrc/ with nvcc (timed), and its
+     build-time variants beside it, all nvcc runs started together; prints
+     what ``ptxas -v`` said of each kernel (registers, shared memory, spills).
+  3. the kernel against its plain PyTorch version on the card: the four fr1
+     pyramid levels in ONE launch, on a rendered frame's levels, on uniform
+     noise and on a uint8-quantised (tie-heavy) image, each level alone, two
+     ragged shapes, and nms_radius 0 and 5 through the generic instantiation:
+     raw and NMS maps must be bit-identical. The first port's 32x32-tile
+     kernel (four launches a frame) is held to the same and timed in turns
+     with the new one (plain, old, new, new, old): median of 50 calls each,
+     CUDA events behind a spin kernel; then per level alone, 20 calls back to
+     back, once after a flush of the L2, the floor of this way of timing (a
+     one-element fill), each kernel's own duration as torch.profiler records
+     it, the build-time variants on the frame and on noise, and builds that
+     leave the segment test, the maxima or the stores out (timing only). The
+     bound is computed from the bytes and the operations of this input.
   4. detect_and_describe at fr1 on the card against the CPU on one frame.
   5. the bench workload — fr1 config, 64-frame synthetic orbit rendered on
      the card, run_slam_final — once to warm up, then timed with the kernel
-     launch counter reset: 4 launches per frame, final ATE under the gate.
+     launch counter reset: 1 launch per frame, final ATE under the gate.
  5b. the same frames with every tracked frame a keyframe, so keyframe
      bookkeeping and the windowed, landmark-blocked BA run in the loop.
   6. the CLI: putslam_tpu_torch.run --synthetic 30 writes its five files
@@ -23,7 +35,7 @@ Phases (any failed check raises and the script exits non-zero):
   7. loop closure: fr1 config, a 64-frame leave-and-return trajectory
      rendered on the card, run_slam_final with loop closure off and on
      (the JAX LC test's settings: tail_skip 10, 64 keyframes; every
-     tracked frame a keyframe, as in 5b): 4 launches per frame in each, no
+     tracked frame a keyframe, as in 5b): 1 launch per frame in each, no
      edge off, at least one accepted edge on, final ATE under 0.05 m with
      it; host syncs per frame of each run (CUDA sync-debug warnings
      counted over run_slam).
@@ -33,7 +45,7 @@ Phases (any failed check raises and the script exits non-zero):
      of dense_schur, final chi² within 2 %; CUDA-event ms per call of
      each; and, unchecked, how far they part with every keyframe but the
      gauge free.
-  9. the bench workload with the EKF motion model on: 4 launches per
+  9. the bench workload with the EKF motion model on: 1 launch per
      frame, ATE under the gate.
  10. tracking VO (vo_version 1) on the bench orbit through vo.run_vo: one
      launch per frame, RANSAC accepted on more than half the steps, ATE
@@ -42,6 +54,7 @@ Then one JSON line describing the kernel, the nvidia-smi line, and the
 final status line.
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import io
@@ -75,6 +88,30 @@ SOLVER_CHI2_RTOL = 0.02
 SOLVER_WINDOW = 16
 TIMING_RUNS = 50
 SPIN_CYCLES = 20_000_000   # ~10 ms of the card's clock
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_OPS_PER_S = 67e12     # the same sheet, float32 outside the tensor cores
+L2_FLUSH_BYTES = 256 << 20  # five times the 50 MB L2
+RAGGED_SHAPES = ((33, 35), (65, 97))
+# build-time variants of csrc/fast_score_nms.cu, timed beside the default
+# (32x24 tiles, 128 threads, plain vector loads, sums only behind an arc)
+VARIANTS = {
+    "tile 32x32, 256 threads": ("FAST_TILE_H=32", "FAST_THREADS=256"),
+    "tile 64x32, 256 threads": ("FAST_TILE_W=64", "FAST_TILE_H=32",
+                                "FAST_THREADS=256"),
+    "tile 64x32, 1024 threads": ("FAST_TILE_W=64", "FAST_TILE_H=32",
+                                 "FAST_THREADS=1024"),
+    "tile 32x16, 128 threads": ("FAST_TILE_H=16",),
+    "cp.async staging": ("FAST_STAGE_CP_ASYNC=1",),
+    "sums for every pixel": ("FAST_EARLY_OUT=0",),
+    "compass pre-test": ("FAST_EARLY_OUT=2",),
+}
+# builds that leave work out, for timing only (their results are wrong)
+ABLATIONS = {
+    "no segment test": ("FAST_ABLATE=1",),
+    "no window maxima": ("FAST_ABLATE=2",),
+    "no stores": ("FAST_ABLATE=4",),
+    "launch and staging alone": ("FAST_ABLATE=7",),
+}
 
 
 def check(cond, msg):
@@ -90,25 +127,50 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, runs=TIMING_RUNS):
+def median_ms(fn, runs=TIMING_RUNS, reps=1, before=None):
     """Median device time of one call of ``fn`` (CUDA events), after a
     warm-up. A spin kernel queued first keeps the card busy while the host
     enqueues the events and the call, so the host's launch overhead does not
-    show as idle time between the events."""
+    show as idle time between the events. ``reps`` calls back to back share
+    one pair of events (their time is divided by ``reps``); ``before`` is
+    queued ahead of the spin kernel, outside the events (an L2 flush)."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(runs):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         torch.cuda._sleep(SPIN_CYCLES)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     times.sort()
     return times[len(times) // 2]
+
+
+def profiler_us(fn, match, calls=20):
+    """Mean device time in µs of the kernels whose name holds ``match``
+    over ``calls`` calls of ``fn``, as torch.profiler (CUPTI) records each
+    kernel's own duration: no event and no launch gap in it. None where the
+    profiler recorded no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if match in e.key)
+    return total / calls if total > 0 else None
 
 
 def count_syncs(fn):
@@ -178,47 +240,163 @@ def main() -> int:
     print(f"[1] device: {name} | nvidia-smi: {smi} | torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
 
-    # ---- 2. build ----------------------------------------------------------
+    # ---- 2. build: the library and its variants, all nvcc runs at once -----
     t0 = time.perf_counter()
-    lib = fast_cuda.build()
-    print(f"[2] built {os.path.relpath(lib)} in "
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        builds = [pool.submit(fast_cuda.build, d)
+                  for d in [(), *VARIANTS.values(), *ABLATIONS.values()]]
+        lib = builds[0].result()
+        for b in builds[1:]:
+            b.result()
+    print(f"[2] built {os.path.relpath(lib)} and {len(VARIANTS)} variants, "
+          f"{len(ABLATIONS)} ablations in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for line in fast_cuda.build_log().splitlines():
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
+            print(f"[2] {line.strip()}", flush=True)
 
     # ---- 3. kernel vs plain at the fr1 shapes ------------------------------
     cfg = tum_fr1_config()
     det = cfg.detector
+    thr, rad = det.fast_threshold, det.nms_radius
     shapes = detector._pyramid_shapes(cfg)
     frame_pose = synthetic.orbit_trajectory(N_FRAMES, radius=0.10,
                                             yaw_amp=0.1, device=dev)[0]
     gray0, depth0 = synthetic.render_frame(cfg.camera, frame_pose)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
+    frame_lv = [gray0] + [detector.resize(gray0, sh).contiguous()
+                          for sh in shapes[1:]]
+    noise_lv = [torch.rand(sh, generator=gen, device=dev) for sh in shapes]
+    quant_lv = [torch.round(x * 255.0) / 255.0 for x in noise_lv]
     max_err = 0.0
-    ms_kernel = ms_plain = 0.0
-    for lvl, shape in enumerate(shapes):
-        level = gray0 if lvl == 0 else detector.resize(gray0, shape).contiguous()
-        noise = torch.rand(shape, generator=gen, device=dev)
-        for tag, img in (("frame", level), ("uniform", noise)):
-            raw_k, nms_k = fast_cuda.fast_score_nms(img, det.fast_threshold,
-                                                    det.nms_radius)
-            raw_p = fast.fast_score_map(img, det.fast_threshold)
-            nms_p = fast.nms(raw_p, det.nms_radius)
-            torch.cuda.synchronize()
-            check(torch.equal(raw_k, raw_p), f"raw differs at {shape} {tag}")
-            check(torch.equal(nms_k, nms_p), f"nms differs at {shape} {tag}")
-            err = max(float((raw_k - raw_p).abs().max()),
-                      float((nms_k - nms_p).abs().max()))
-            max_err = max(max_err, err)
-            if tag == "frame":
-                tk = median_ms(lambda: fast_cuda.fast_score_nms(
-                    level, det.fast_threshold, det.nms_radius))
-                tp = median_ms(lambda: fast.nms(fast.fast_score_map(
-                    level, det.fast_threshold), det.nms_radius))
-                ms_kernel += tk
-                ms_plain += tp
-                print(f"[3] {shape[0]}x{shape[1]}: bit-exact (frame, uniform;"
-                      f" {int((nms_k > 0).sum())} maxima on the frame); "
-                      f"kernel {tk:.4f} ms, plain {tp:.4f} ms", flush=True)
+
+    def plain(levels, r=rad):
+        out = []
+        for img in levels:
+            raw = fast.fast_score_map(img, thr)
+            out.append((raw, fast.nms(raw, r)))
+        return out
+
+    def same(got, ref, what):
+        nonlocal max_err
+        torch.cuda.synchronize()
+        check(len(got) == len(ref), f"{what}: {len(got)} levels")
+        for lvl, ((raw_k, nms_k), (raw_p, nms_p)) in enumerate(zip(got, ref)):
+            check(torch.equal(raw_k, raw_p), f"raw differs: {what}, level {lvl}")
+            check(torch.equal(nms_k, nms_p), f"nms differs: {what}, level {lvl}")
+            max_err = max(max_err, float((raw_k - raw_p).abs().max()),
+                          float((nms_k - nms_p).abs().max()))
+
+    def old_frame(levels):
+        return [fast_cuda.fast_score_nms_tile32(x, thr, rad) for x in levels]
+
+    for tag, lv in (("frame", frame_lv), ("uniform", noise_lv),
+                    ("quantised", quant_lv)):
+        ref = plain(lv)
+        same(fast_cuda.fast_score_nms_levels(lv, thr, rad), ref,
+             f"one launch, {tag}")
+        same([fast_cuda.fast_score_nms(x, thr, rad) for x in lv], ref,
+             f"level by level, {tag}")
+        same(old_frame(lv), ref, f"32x32-tile kernel, {tag}")
+        for vname, defines in VARIANTS.items():
+            same(fast_cuda.launch_levels(lv, thr, rad, defines), ref,
+                 f"variant {vname}, {tag}")
+        print(f"[3] {tag}: one launch, level by level, the 32x32-tile kernel "
+              f"and {len(VARIANTS)} variants bit-exact at "
+              f"{' '.join(f'{h}x{w}' for h, w in shapes)} "
+              f"({sum(int((m > 0).sum()) for _, m in ref)} maxima)",
+              flush=True)
+    ragged = [torch.round(torch.rand(sh, generator=gen, device=dev) * 255.0)
+              / 255.0 for sh in RAGGED_SHAPES]
+    for r in (0, rad, 5):
+        same(fast_cuda.fast_score_nms_levels(ragged, thr, r), plain(ragged, r),
+             f"ragged, radius {r}")
+    print(f"[3] ragged {RAGGED_SHAPES}, tie-heavy: bit-exact at nms_radius 0, "
+          f"{rad} and 5", flush=True)
+
+    # timing in turns in this one call: plain, old, new, new, old
+    def new_frame():
+        return fast_cuda.fast_score_nms_levels(frame_lv, thr, rad)
+
+    n_pix = sum(h * w for h, w in shapes)
+    bytes_frame = 12 * n_pix          # 4 read, 8 written per pixel, once each
+    # fp32 operations a pixel: x255, 16 differences, 32 compares, 32 x
+    # (subtract, clamp, add), the sum of the two, (2r+1)^2 - 1 maxima, 2 keeps
+    ops_frame = n_pix * (1 + 16 + 32 + 96 + 1 + (2 * rad + 1) ** 2 - 1 + 2)
+    bytes_ms = 1e3 * bytes_frame / HBM_BYTES_PER_S
+    ops_ms = 1e3 * ops_frame / FP32_OPS_PER_S
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+    ms_plain = median_ms(lambda: plain(frame_lv))
+    turns = [median_ms(lambda: old_frame(frame_lv)), median_ms(new_frame),
+             median_ms(new_frame), median_ms(lambda: old_frame(frame_lv))]
+    ms_old = 0.5 * (turns[0] + turns[3])
+    ms_kernel = 0.5 * (turns[1] + turns[2])
+    print(f"[3] one frame ({n_pix} pixels; {bytes_frame} bytes = "
+          f"{bytes_ms:.5f} ms at {HBM_BYTES_PER_S / 1e12} TB/s, {ops_frame} "
+          f"fp32 operations = {ops_ms:.5f} ms at {FP32_OPS_PER_S / 1e12} "
+          f"TFLOP/s: bound {bound_ms:.5f} ms, by {bound_by}): plain "
+          f"{ms_plain:.4f} ms; old 4 launches {turns[0]:.5f} / "
+          f"{turns[3]:.5f} ms; new 1 launch {turns[1]:.5f} / {turns[2]:.5f} "
+          f"ms; old / new = {ms_old / ms_kernel:.2f}, new at "
+          f"{100 * bound_ms / ms_kernel:.1f} % of the bound (old "
+          f"{100 * bound_ms / ms_old:.1f} %)", flush=True)
+    for (h, w), img in zip(shapes, frame_lv):
+        b = 1e3 * 12 * h * w / HBM_BYTES_PER_S
+        tn = median_ms(lambda: fast_cuda.fast_score_nms(img, thr, rad))
+        to = median_ms(lambda: fast_cuda.fast_score_nms_tile32(img, thr, rad))
+        print(f"[3] {h}x{w} alone ({12 * h * w} bytes, bound {b:.5f} ms): "
+              f"new {tn:.5f} ms ({100 * b / tn:.1f} %), old {to:.5f} ms "
+              f"({100 * b / to:.1f} %)", flush=True)
+    b2b_new = median_ms(new_frame, runs=20, reps=20)
+    b2b_old = median_ms(lambda: old_frame(frame_lv), runs=20, reps=20)
+    flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+    cold_new = median_ms(new_frame, runs=20, before=flush_buf.zero_)
+    cold_old = median_ms(lambda: old_frame(frame_lv), runs=20,
+                         before=flush_buf.zero_)
+    del flush_buf
+    print(f"[3] one frame, 20 calls back to back: new {b2b_new:.5f} ms, old "
+          f"{b2b_old:.5f} ms per frame; after an L2 flush: new "
+          f"{cold_new:.5f} ms, old {cold_old:.5f} ms", flush=True)
+    one = torch.empty(1, device=dev)
+    print(f"[3] floor of this timing (a one-element fill between the "
+          f"events): {median_ms(one.zero_):.5f} ms alone, "
+          f"{median_ms(one.zero_, runs=20, reps=20):.5f} ms back to back",
+          flush=True)
+    us_new = profiler_us(new_frame, "fast_score_nms_kernel")
+    us_old = profiler_us(lambda: old_frame(frame_lv), "tile32")
+    us_lvl0 = profiler_us(lambda: fast_cuda.fast_score_nms(frame_lv[0], thr,
+                                                           rad),
+                          "fast_score_nms_kernel")
+
+    def us(x):
+        return "not measured" if x is None else f"{x:.2f} us"
+
+    print(f"[3] kernels' own durations (torch.profiler), one frame: new 1 "
+          f"launch {us(us_new)}, old 4 launches {us(us_old)}; new, 480x640 "
+          f"alone {us(us_lvl0)}", flush=True)
+    ms_noise = median_ms(lambda: fast_cuda.fast_score_nms_levels(
+        noise_lv, thr, rad), runs=30)
+    print(f"[3] default build: frame {median_ms(new_frame, runs=30):.5f} ms, "
+          f"uniform noise {ms_noise:.5f} ms", flush=True)
+    for vname, defines in VARIANTS.items():
+        tf = median_ms(lambda: fast_cuda.launch_levels(
+            frame_lv, thr, rad, defines), runs=30)
+        tn = median_ms(lambda: fast_cuda.launch_levels(
+            noise_lv, thr, rad, defines), runs=30)
+        tp = profiler_us(lambda: fast_cuda.launch_levels(
+            frame_lv, thr, rad, defines), "fast_score_nms_kernel")
+        print(f"[3] variant {vname}: frame {tf:.5f} ms, uniform noise "
+              f"{tn:.5f} ms; own duration on the frame {us(tp)}", flush=True)
+    for aname, defines in ABLATIONS.items():
+        tp = profiler_us(lambda: fast_cuda.launch_levels(
+            frame_lv, thr, rad, defines), "fast_score_nms_kernel")
+        t3 = profiler_us(lambda: fast_cuda.launch_levels(
+            frame_lv[3:], thr, rad, defines), "fast_score_nms_kernel")
+        print(f"[3] ablation (results wrong, timing only) {aname}: own "
+              f"duration on the frame {us(tp)}, on {shapes[3][0]}x"
+              f"{shapes[3][1]} alone {us(t3)}", flush=True)
 
     # ---- 4. detect_and_describe: card vs CPU -------------------------------
     f_gpu = detector.detect_and_describe(cfg, gray0, depth0)
@@ -259,8 +437,8 @@ def main() -> int:
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = fast_cuda.fast_score_nms.launches
-    check(launches == det.n_pyramid_levels * N_FRAMES,
-          f"kernel launches {launches} != {det.n_pyramid_levels * N_FRAMES}")
+    check(launches == N_FRAMES,
+          f"kernel launches {launches} != {N_FRAMES} (one per frame)")
     ate_before = ate_mod.ate_rmse_aligned_frames(gt, pb)
     ate_final = ate_mod.ate_rmse_aligned_frames(gt, pa)
     check(pa.shape == (N_FRAMES, 7) and bool(torch.isfinite(
@@ -344,7 +522,7 @@ def main() -> int:
             lambda: slam.run_slam_final(lc_cfg, grays_r, depths_r,
                                         init_pose=gt_r[0], device=dev),
             counter)
-        check(n_launch == det.n_pyramid_levels * LC_FRAMES,
+        check(n_launch == LC_FRAMES,
               f"LC {enabled}: kernel launches {n_launch}")
         check(bool(torch.isfinite(torch.as_tensor(pa_r)).all()),
               "LC run: trajectory not finite")
@@ -426,7 +604,7 @@ def main() -> int:
     (pb3, pa3, outs3, _), dt3, n3 = timed(
         lambda: slam.run_slam_final(ekf_cfg, grays, depths, init_pose=gt[0],
                                     device=dev), counter)
-    check(n3 == det.n_pyramid_levels * N_FRAMES, f"EKF run launches {n3}")
+    check(n3 == N_FRAMES, f"EKF run launches {n3}")
     ate3_b = ate_mod.ate_rmse_aligned_frames(gt, pb3)
     ate3_f = ate_mod.ate_rmse_aligned_frames(gt, pa3)
     check(ate3_b < ATE_GATE_M and ate3_f < ATE_GATE_M,
@@ -458,9 +636,17 @@ def main() -> int:
         "source": "putslam_tpu_torch/csrc/fast_score_nms.cu",
         "replaces": "putslam_tpu/ops/fast_pallas.py:82",
         "launches": launches,
+        "launches_per_frame": launches / N_FRAMES,
         "max_abs_err": max_err,
         "ms": ms_kernel,
         "plain_ms": ms_plain,
+        "prior_ms": ms_old,
+        "bytes": bytes_frame,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "device_us_profiler": us_new,
+        "prior_device_us_profiler": us_old,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,9 @@
-"""State bridge between the JAX package and the port, and the BRIEF bank.
+"""Config and state bridge between the JAX package and the port, and the
+BRIEF bank.
+
+``config_from_jax(cfg)`` maps the JAX package's ``SlamConfig`` (or one of its
+sub-configs, or the ``dataclasses.asdict`` of either) onto the port's own
+classes of ``putslam_tpu_torch/config.py``, field by field.
 
 ``from_numpy(tree, device)`` maps the JAX package's ``Features``,
 ``MapState``, ``GraphState``, ``SlamState`` (with the ``LCQueue`` and
@@ -15,10 +20,46 @@ device, built once per device from the numpy builders of ``ops/brief.py``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from putslam_tpu_torch import config as config_mod
+
 _BANKS: dict = {}
+
+
+def config_from_jax(cfg, cls=None):
+    """The JAX package's config object, or its ``dataclasses.asdict``, →
+    the port's class of the same name (``cls`` names the class for a dict;
+    default ``SlamConfig``). Raises ``TypeError`` on a field the port's copy
+    lacks; a field the source lacks keeps the port's default."""
+    if dataclasses.is_dataclass(cfg) and not isinstance(cfg, type):
+        cls = cls or getattr(config_mod, type(cfg).__name__, None)
+        if cls is None:
+            raise TypeError(f"config_from_jax: the port has no counterpart of "
+                            f"{type(cfg).__name__}")
+        values = {f.name: getattr(cfg, f.name)
+                  for f in dataclasses.fields(cfg)}
+    elif isinstance(cfg, dict):
+        cls = cls or config_mod.SlamConfig
+        values = cfg
+    else:
+        raise TypeError(f"config_from_jax: need a config dataclass or a dict, "
+                        f"got {type(cfg).__name__}")
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = sorted(set(values) - set(fields))
+    if unknown:
+        raise TypeError(f"config_from_jax: {cls.__name__} has no field "
+                        f"{', '.join(unknown)}")
+    out = {}
+    for name, value in values.items():
+        sub = fields[name].default_factory
+        if isinstance(sub, type) and dataclasses.is_dataclass(sub):
+            value = config_from_jax(value, sub)
+        out[name] = value
+    return cls(**out)
 
 
 def brief_bank(device) -> torch.Tensor:

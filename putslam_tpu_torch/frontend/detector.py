@@ -1,7 +1,8 @@
 """Multi-scale keypoint detection + description + depth lifting (torch).
 
-Port of ``putslam_tpu/frontend/detector.py``: a scale pyramid, FAST per
-level (the CUDA kernel on the card), the subtile grid cap, one fused
+Port of ``putslam_tpu/frontend/detector.py``: a scale pyramid, FAST + NMS
+of all its levels (one launch of the CUDA kernel on the card), the subtile
+grid cap per level, one fused
 steered-BRIEF matmul over every level's patches, and the lift of each
 keypoint to a camera-frame 3D point through undistortion with the depth
 gate. Output is a fixed-capacity ``Features`` batch.
@@ -15,7 +16,7 @@ import torch
 
 from putslam_tpu_torch.config import SlamConfig
 from putslam_tpu_torch.geometry import camera as camera_mod
-from putslam_tpu_torch.ops import brief, fast
+from putslam_tpu_torch.ops import brief, fast, fast_cuda
 
 
 class Features(NamedTuple):
@@ -103,16 +104,21 @@ def detect_and_describe(cfg: SlamConfig, gray: torch.Tensor,
     budgets = _level_budgets(cfg)
     dev = gray.device
 
+    # every level depends on ``gray`` alone, so the pyramid is built first
+    # and FAST + NMS of all its levels is one call (one launch on the card)
+    shapes = _pyramid_shapes(cfg)
+    levels = [gray.contiguous()] + [resize(gray, s).contiguous()
+                                    for s in shapes[1:]]
+    maps = fast_cuda.fast_score_nms_levels(levels, det.fast_threshold,
+                                           det.nms_radius)
+
     all_uv0, all_resp, all_oct, all_patch, all_valid = [], [], [], [], []
-    img = gray
-    for lvl, (Hl, Wl) in enumerate(_pyramid_shapes(cfg)):
-        if lvl > 0:
-            img = resize(gray, (Hl, Wl)).contiguous()
+    for lvl, (img, (Hl, Wl)) in enumerate(zip(levels, shapes)):
         scale = det.scale_factor ** lvl
         Nl = budgets[lvl]
         uv_l, resp, valid = fast.detect(
             img, det.fast_threshold, det.nms_radius, det.grid_rows,
-            det.grid_cols, Nl, grid_policy=det.grid_policy)
+            det.grid_cols, Nl, grid_policy=det.grid_policy, maps=maps[lvl])
         b = float(max(det.border // max(int(scale), 1), brief.PATCH // 2 + 1))
         inb = ((uv_l[:, 0] >= b) & (uv_l[:, 0] <= Wl - 1 - b)
                & (uv_l[:, 1] >= b) & (uv_l[:, 1] <= Hl - 1 - b))

@@ -2,9 +2,10 @@
 
 Port of ``putslam_tpu/ops/fast.py``. ``fast_score_map`` + ``nms`` are the
 plain PyTorch version of the FAST kernel; ``detect`` takes the score map and
-its NMS from ``ops.fast_cuda.fast_score_nms``, which launches the
-hand-written CUDA kernel for a CUDA tensor and runs the plain version for a
-CPU tensor. All outputs are fixed-capacity tensors + validity masks.
+its NMS from ``ops.fast_cuda``, which launches the hand-written CUDA kernel
+for CUDA tensors (one launch for all pyramid levels of a frame through
+``fast_score_nms_levels``) and runs the plain version for CPU tensors. All
+outputs are fixed-capacity tensors + validity masks.
 """
 
 from __future__ import annotations
@@ -126,17 +127,21 @@ def subpixel_refine(score: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
 
 def detect(gray: torch.Tensor, threshold: float, nms_radius: int,
            grid_rows: int, grid_cols: int, max_features: int,
-           grid_policy: str = "subtile"):
-    """FAST score + NMS (one kernel launch on CUDA) → grid cap → sub-pixel
-    refine on the raw score map. Returns (uv (K,2), response (K,),
-    valid (K,))."""
+           grid_policy: str = "subtile", maps=None):
+    """FAST score + NMS → grid cap → sub-pixel refine on the raw score map.
+    ``maps`` is this level's (raw, nms) pair where the caller already has it
+    from the one launch over all levels of the frame; without it the level
+    gets a launch of its own (the plain version on the CPU). Returns
+    (uv (K,2), response (K,), valid (K,))."""
     if grid_policy != "subtile":
         raise NotImplementedError(
             f"detector.grid_policy={grid_policy!r} is not ported yet "
             "(only 'subtile')")
-    from putslam_tpu_torch.ops.fast_cuda import fast_score_nms
+    if maps is None:
+        from putslam_tpu_torch.ops.fast_cuda import fast_score_nms
 
-    raw, s = fast_score_nms(gray, threshold, nms_radius)
+        maps = fast_score_nms(gray, threshold, nms_radius)
+    raw, s = maps
     uv, resp, valid = grid_topk(s, grid_rows, grid_cols, max_features)
     uv = torch.where(valid[:, None], subpixel_refine(raw, uv), uv)
     return uv, resp, valid

@@ -2,10 +2,14 @@
 
 The same numpy inputs go through the JAX package (on the CPU, as
 conftest.py forces) and through its PyTorch port; states cross over with
-putslam_tpu_torch.convert."""
+putslam_tpu_torch.convert. A test makes its config once, with the JAX
+package, and hands the port ``port_cfg(cfg)``: the same values in the port's
+own config classes."""
 
 import numpy as np
 import torch
+
+from putslam_tpu_torch.convert import config_from_jax as port_cfg  # noqa: F401
 
 torch.set_num_threads(1)   # tier-1 runs several xdist workers
 

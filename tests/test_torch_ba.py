@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import n, t
+from _torch_port import n, port_cfg, t
 
 from putslam_tpu.backend import factors as jfactors
 from putslam_tpu.backend import graph as jgraph
@@ -98,10 +98,10 @@ def test_gauss_newton_mm_matches_jax(window, block):
         jgraph.GraphState(*map(jnp.asarray, p["g"])), jnp.asarray(p["fixed_kf"]),
         jnp.asarray(p["lm_gen"]), jnp.asarray(p["kf_gen"]), cam=cam)
     got = topt.gauss_newton_mm(
-        bcfg, *(t(p[k]) for k in ("kf_pose", "kf_valid", "lm_pos",
+        port_cfg(bcfg), *(t(p[k]) for k in ("kf_pose", "kf_valid", "lm_pos",
                                   "lm_valid")),
         convert.from_numpy(p["g"], "cpu"), t(p["fixed_kf"]), t(p["lm_gen"]),
-        t(p["kf_gen"]), cam=cam)
+        t(p["kf_gen"]), cam=port_cfg(cam))
     chi2 = np.asarray(ref.chi2)
     assert chi2[-1] < chi2[0]                 # the step does descend
     np.testing.assert_allclose(n(got.chi2), chi2, rtol=1e-3)
@@ -125,7 +125,7 @@ def test_chi2_ratio_termination_matches_jax():
         jgraph.GraphState(*map(jnp.asarray, p["g"])), jnp.asarray(p["fixed_kf"]),
         jnp.asarray(p["lm_gen"]), jnp.asarray(p["kf_gen"]))
     got = topt.gauss_newton_mm(
-        bcfg, *(t(p[k]) for k in ("kf_pose", "kf_valid", "lm_pos",
+        port_cfg(bcfg), *(t(p[k]) for k in ("kf_pose", "kf_valid", "lm_pos",
                                   "lm_valid")),
         convert.from_numpy(p["g"], "cpu"), t(p["fixed_kf"]), t(p["lm_gen"]),
         t(p["kf_gen"]))
@@ -162,7 +162,8 @@ def test_unported_solver_raises():
                  dict(solver="sparse_cholesky")):
         bcfg = dataclasses.replace(BackendConfig(), **over)
         with pytest.raises(NotImplementedError):
-            topt.optimize_graph(bcfg, t(p["kf_pose"]), t(p["kf_valid"]),
+            topt.optimize_graph(port_cfg(bcfg), t(p["kf_pose"]),
+                                t(p["kf_valid"]),
                                 t(p["lm_pos"]), t(p["lm_valid"]),
                                 convert.from_numpy(p["g"], "cpu"),
                                 torch.as_tensor(p["fixed_kf"]))
@@ -177,10 +178,10 @@ def _run_both(solver, bcfg, p, cam=None):
               jnp.asarray(p["fixed_kf"]), jnp.asarray(p["lm_gen"]),
               jnp.asarray(p["kf_gen"]), cam=cam)
     got = topt.optimize_graph(
-        dataclasses.replace(bcfg, solver=solver),
+        port_cfg(dataclasses.replace(bcfg, solver=solver)),
         *(t(p[k]) for k in ("kf_pose", "kf_valid", "lm_pos", "lm_valid")),
         convert.from_numpy(p["g"], "cpu"), t(p["fixed_kf"]), t(p["lm_gen"]),
-        t(p["kf_gen"]), cam=cam)
+        t(p["kf_gen"]), cam=cam and port_cfg(cam))
     return ref, got
 
 
@@ -237,7 +238,7 @@ def test_port_solvers_agree():
                                    gn_iterations=6, robust_kernel="none",
                                    ba_window=0, pcg_iterations=32)
         sols[solver] = topt.optimize_graph(
-            bcfg, *(t(p[k]) for k in ("kf_pose", "kf_valid", "lm_pos",
+            port_cfg(bcfg), *(t(p[k]) for k in ("kf_pose", "kf_valid", "lm_pos",
                                       "lm_valid")),
             convert.from_numpy(p["g"], "cpu"), t(p["fixed_kf"]),
             t(p["lm_gen"]), t(p["kf_gen"]))

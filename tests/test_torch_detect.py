@@ -4,7 +4,7 @@ detect_and_describe on frames rendered by the JAX package."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from _torch_port import n, t
+from _torch_port import n, port_cfg, t
 
 from putslam_tpu.config import tiny_test_config
 from putslam_tpu.frontend import detector as jdet
@@ -53,7 +53,7 @@ def test_pyramid_level_matches_jax_resize(frames):
     import jax
 
     cfg, g, _ = frames
-    for shape in tdet._pyramid_shapes(cfg)[1:]:
+    for shape in tdet._pyramid_shapes(port_cfg(cfg))[1:]:
         ref = np.asarray(jax.image.resize(jnp.asarray(g[0]), shape, "linear"))
         np.testing.assert_allclose(n(tdet.resize(t(g[0]), shape)), ref,
                                    atol=1e-6, rtol=0)
@@ -66,7 +66,7 @@ def test_detect_and_describe_matches_jax(frames, i):
     refine); descriptor bits exact on keypoints both packages found."""
     cfg, g, d = frames
     fj = jdet.detect_and_describe(cfg, jnp.asarray(g[i]), jnp.asarray(d[i]))
-    ft = tdet.detect_and_describe(cfg, t(g[i]), t(d[i]))
+    ft = tdet.detect_and_describe(port_cfg(cfg), t(g[i]), t(d[i]))
     vj, vt = np.asarray(fj.valid), n(ft.valid)
     lvl0 = np.asarray(fj.octave) == 0
     np.testing.assert_array_equal(vt[lvl0], vj[lvl0])
@@ -79,3 +79,28 @@ def test_detect_and_describe_matches_jax(frames, i):
                                   np.asarray(fj.has_depth)[same])
     np.testing.assert_allclose(n(ft.xyz)[same], np.asarray(fj.xyz)[same],
                                atol=1e-5, rtol=0)
+
+
+def test_detect_and_describe_makes_one_call_for_all_levels(frames, monkeypatch):
+    """The pyramid is built first and FAST + NMS of every level is one call
+    of fast_score_nms_levels (one kernel launch on the card); the per-level
+    detect gets its maps handed in and calls nothing itself."""
+    from putslam_tpu_torch.ops import fast_cuda
+
+    cfg, g, d = frames
+    cfg = port_cfg(cfg)
+    calls = []
+    real = fast_cuda.fast_score_nms_levels
+
+    def spy(levels, threshold, nms_radius):
+        calls.append([tuple(x.shape) for x in levels])
+        return real(levels, threshold, nms_radius)
+
+    def never(*a, **k):
+        raise AssertionError("a level made a call of its own")
+
+    monkeypatch.setattr(fast_cuda, "fast_score_nms_levels", spy)
+    monkeypatch.setattr(fast_cuda, "fast_score_nms", never)
+    ft = tdet.detect_and_describe(cfg, t(g[0]), t(d[0]))
+    assert calls == [tdet._pyramid_shapes(cfg)]
+    assert int(ft.valid.sum()) > 50

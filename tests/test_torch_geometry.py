@@ -4,7 +4,7 @@ Tolerance: float32, ≤ 1e-6 absolute (≤ 1e-5 for the 8-step undistort)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from _torch_port import n, t
+from _torch_port import n, port_cfg, t
 
 from putslam_tpu.config import CameraConfig
 from putslam_tpu.geometry import camera as jcam
@@ -58,6 +58,7 @@ def test_se3_matches_jax(name):
 
 
 FR1 = CameraConfig()
+PFR1 = port_cfg(FR1)
 
 
 def test_camera_matches_jax():
@@ -66,16 +67,16 @@ def test_camera_matches_jax():
                   -1).astype(np.float32)
     z = rng.uniform(0.05, 7.0, 512).astype(np.float32)
     und_j = np.asarray(jcam.undistort_pixels(FR1, jnp.asarray(uv)))
-    und_t = n(tcam.undistort_pixels(FR1, t(uv)))
+    und_t = n(tcam.undistort_pixels(PFR1, t(uv)))
     np.testing.assert_allclose(und_t, und_j, atol=1e-5, rtol=0)
     xyz_j = np.asarray(jcam.unproject(FR1, jnp.asarray(und_j), jnp.asarray(z)))
-    xyz_t = n(tcam.unproject(FR1, t(und_j), t(z)))
+    xyz_t = n(tcam.unproject(PFR1, t(und_j), t(z)))
     np.testing.assert_allclose(xyz_t, xyz_j, atol=1e-6, rtol=0)
     np.testing.assert_allclose(
-        n(tcam.project(FR1, t(xyz_j))),
+        n(tcam.project(PFR1, t(xyz_j))),
         np.asarray(jcam.project(FR1, jnp.asarray(xyz_j))), atol=1e-6, rtol=1e-6)
     np.testing.assert_array_equal(
-        n(tcam.depth_valid_mask(FR1, t(z))),
+        n(tcam.depth_valid_mask(PFR1, t(z))),
         np.asarray(jcam.depth_valid_mask(FR1, jnp.asarray(z))))
     img = rng.uniform(0, 5, (480, 640)).astype(np.float32)
     np.testing.assert_array_equal(

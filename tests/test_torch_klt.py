@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import n, t
+from _torch_port import n, port_cfg, t
 
 from putslam_tpu.config import TrackerConfig, tiny_test_config
 from putslam_tpu.io import synthetic as jsyn
@@ -80,7 +80,7 @@ def test_track_matches_jax(tcfg):
     pts, valid = _track_points()
     ref = jklt.track(tcfg, jnp.asarray(g[2]), jnp.asarray(g[3]),
                      jnp.asarray(pts), jnp.asarray(valid))
-    got = tklt.track(tcfg, t(g[2]), t(g[3]), t(pts), t(valid))
+    got = tklt.track(port_cfg(tcfg), t(g[2]), t(g[3]), t(pts), t(valid))
     assert _check_track(got, ref).sum() >= 20
 
 
@@ -93,8 +93,8 @@ def test_refine_patch_alignment_matches_jax():
     ref = jklt.refine_patch_alignment(tcfg, jnp.asarray(g[2]),
                                       jnp.asarray(g[3]), jnp.asarray(pts),
                                       jnp.asarray(init), jnp.asarray(valid))
-    got = tklt.refine_patch_alignment(tcfg, t(g[2]), t(g[3]), t(pts),
-                                      t(init), t(valid))
+    got = tklt.refine_patch_alignment(port_cfg(tcfg), t(g[2]), t(g[3]),
+                                      t(pts), t(init), t(valid))
     assert _check_track(got, ref).sum() >= 20
 
 
@@ -122,6 +122,7 @@ def test_vo_step_tracking_matches_jax(patch_refine):
     RANSAC accepts from step 3 on. Masks and tracks are exact but for a free
     slot 0, which only the port refills (Queue 3l)."""
     cfg = _tracking_cfg(patch_refine)
+    pcfg = port_cfg(cfg)
     g, d, _ = _frames()
     js = jvo.init_tracking(cfg, g[0], d[0])
     n_ok = n_refilled = 0
@@ -129,7 +130,7 @@ def test_vo_step_tracking_matches_jax(patch_refine):
         ts = convert.from_numpy(jax.tree.map(np.asarray, js), "cpu")
         key = jax.random.PRNGKey(i)
         js2, jr = jvo.vo_step_tracking(cfg, key, js, g[i], d[i])
-        ts2, tr = tvo.vo_step_tracking(cfg, ts, t(g[i]), t(d[i]),
+        ts2, tr = tvo.vo_step_tracking(pcfg, ts, t(g[i]), t(d[i]),
                                        u=_uniforms(cfg, key))
         n_ok += int(jr.ok)
         np.testing.assert_allclose(n(tr.rel_pose), np.asarray(jr.rel_pose),
@@ -154,8 +155,8 @@ def test_refill_fills_free_slots_in_order():
     slot 0 first, which the JAX package's CPU run leaves empty (Queue 3l).
     Each refilled slot holds a detection's pixel and lifted point."""
     cfg = _tracking_cfg()
-    cfg = cfg.replace(tracker=dataclasses.replace(cfg.tracker,
-                                                  min_tracked_features=300))
+    cfg = port_cfg(cfg.replace(tracker=dataclasses.replace(
+        cfg.tracker, min_tracked_features=300)))
     g, d, _ = _frames()
     ts = tvo.init_tracking(cfg, t(g[1]), t(d[1]))
     valid = ts.valid.clone()
@@ -187,13 +188,13 @@ def test_tracking_vo_chain_matches_jax():
         key, sub = jax.random.split(key)
         draws.append(_uniforms(cfg, sub))
     got_poses, got_stats = tvo.vo_sequence_tracking(
-        cfg, t(g), t(d), init_pose=t(poses[0]), draws=draws)
+        port_cfg(cfg), t(g), t(d), init_pose=t(poses[0]), draws=draws)
     np.testing.assert_allclose(n(got_poses), ref_poses, atol=1e-4)
     for f in ("n_matches", "n_inliers", "ok"):
         np.testing.assert_array_equal(n(getattr(got_stats, f)),
                                       np.asarray(getattr(ref_stats, f)))
     assert ref_stats.ok.mean() > 0.5
-    p2, s2 = tvo.run_vo(cfg, g, d, init_pose=poses[0], device="cpu")
+    p2, s2 = tvo.run_vo(port_cfg(cfg), g, d, init_pose=poses[0], device="cpu")
     assert p2.shape == (8, 7) and np.isfinite(p2).all()
     assert s2.ok.shape == (7,)
     assert not torch.is_tensor(p2)

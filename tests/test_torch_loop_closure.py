@@ -12,7 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import n, t
+from _torch_port import n, port_cfg, t
 
 from putslam_tpu.config import tiny_test_config
 from putslam_tpu.io import synthetic as jsyn
@@ -141,7 +141,7 @@ def test_verify_candidate_matches_jax():
                                            jnp.int32(a), jnp.int32(b), sub)
             u = t(jax.random.uniform(sub, (k, H), maxval=1.0))
             got = tverify.verify_candidate(
-                cfg, ts.map, ts.graph, torch.tensor(a, dtype=torch.int32),
+                port_cfg(cfg), ts.map, ts.graph, torch.tensor(a, dtype=torch.int32),
                 torch.tensor(b, dtype=torch.int32), u=u)
             assert bool(got.ok) == bool(ref.ok), (a, b)
             assert int(got.n_inliers) == int(ref.n_inliers), (a, b)

@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import n, t
+from _torch_port import n, port_cfg, t
 
 from putslam_tpu.backend import graph as jgraph
 from putslam_tpu.config import tiny_test_config
@@ -21,6 +21,7 @@ from putslam_tpu_torch.backend import graph as tgraph
 from putslam_tpu_torch.slam_map import features_map as tfm
 
 CFG = tiny_test_config()
+PCFG = port_cfg(CFG)
 
 
 def assert_tree_close(got, ref, atol=1e-6):
@@ -62,7 +63,7 @@ def test_guided_match(world, scale):
     st, feat, poses = world
     pose = jnp.asarray(poses[2])
     ref = jfm.guided_match(CFG, st.map, pose, feat, radius_scale=scale)
-    got = tfm.guided_match(CFG, to_port(st.map), t(poses[2]), to_port(feat),
+    got = tfm.guided_match(PCFG, to_port(st.map), t(poses[2]), to_port(feat),
                            radius_scale=scale)
     assert int(ref.valid.sum()) > 10
     assert_tree_close(got, ref)
@@ -93,7 +94,7 @@ def test_add_landmarks(world, n_free):
                           < 0.3)
     ref = jfm.add_landmarks(CFG, m, jnp.asarray(poses[2]), feat, matched,
                             jnp.int32(4))
-    got = tfm.add_landmarks(CFG, to_port(m), t(poses[2]), to_port(feat),
+    got = tfm.add_landmarks(PCFG, to_port(m), t(poses[2]), to_port(feat),
                             t(matched), torch.tensor(4, dtype=torch.int32))
     assert_tree_close(got, ref)
 
@@ -105,7 +106,7 @@ def test_update_matched_landmarks(world):
     ref = jfm.update_matched_landmarks(CFG, st.map, pose + jnp.asarray(
         [2.5, 0, 0, 0, 0, 0, 0]), feat, gm, jnp.int32(3))
     got = tfm.update_matched_landmarks(
-        CFG, to_port(st.map), t(poses[2]) + torch.tensor(
+        PCFG, to_port(st.map), t(poses[2]) + torch.tensor(
             [2.5, 0, 0, 0, 0, 0, 0]), to_port(feat), to_port(gm),
         torch.tensor(3, dtype=torch.int32))
     assert int(np.asarray(ref.lm_slot_used).sum()) > int(
@@ -127,7 +128,7 @@ def test_add_keyframe_and_window(world, n_kf):
                            size=(K, K)).astype(np.float32)))
     ref, ridx = jfm.add_keyframe(CFG, m, jnp.asarray(poses[3]),
                                  jnp.float32(0.7))
-    got, gidx = tfm.add_keyframe(CFG, to_port(m), t(poses[3]), 0.7)
+    got, gidx = tfm.add_keyframe(PCFG, to_port(m), t(poses[3]), 0.7)
     assert int(gidx) == int(ridx)
     assert_tree_close(got, ref)
     for w in (1, 4):
@@ -144,7 +145,7 @@ def test_covisibility_and_compress(world):
     np.testing.assert_allclose(
         n(tfm.covisibility_ratio(to_port(gm), to_port(m), 0)),
         np.asarray(jfm.covisibility_ratio(gm, m, 0)), atol=1e-7)
-    assert_tree_close(tfm.compress_map(CFG, to_port(m), 250),
+    assert_tree_close(tfm.compress_map(PCFG, to_port(m), 250),
                       jfm.compress_map(CFG, m, 250))
 
 

@@ -6,7 +6,7 @@ and predicted_pose over a sequence of steps. Tolerance 1e-6 absolute +
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from _torch_port import n, t
+from _torch_port import n, port_cfg, t
 
 from putslam_tpu.config import MotionModelConfig
 from putslam_tpu.geometry import se3 as jse3
@@ -14,6 +14,7 @@ from putslam_tpu.motion import ekf as jekf
 from putslam_tpu_torch.motion import ekf as tekf
 
 CFG = MotionModelConfig(decay=0.98)
+PCFG = port_cfg(CFG)
 TOL = dict(atol=1e-6, rtol=1e-5)
 
 
@@ -37,17 +38,17 @@ def test_predict_correct_sequence_matches_jax(flip):
     rng = np.random.default_rng(0)
     pose0 = _meas(rng, 0, False)
     js = jekf.init(CFG, jnp.asarray(pose0))
-    ts = tekf.init(CFG, t(pose0))
+    ts = tekf.init(PCFG, t(pose0))
     _close(ts, js)
     for i in range(1, 12):
         js = jekf.predict(CFG, js, 1.0 / 30)
-        ts = tekf.predict(CFG, ts, 1.0 / 30)
+        ts = tekf.predict(PCFG, ts, 1.0 / 30)
         _close(ts, js)
         np.testing.assert_allclose(n(tekf.predicted_pose(ts)),
                                    np.asarray(jekf.predicted_pose(js)), **TOL)
         z = _meas(rng, i, flip and i % 2 == 1)
         js = jekf.correct(CFG, js, jnp.asarray(z))
-        ts = tekf.correct(CFG, ts, t(z))
+        ts = tekf.correct(PCFG, ts, t(z))
         _close(ts, js)
     assert np.asarray(js.x)[6] > 0        # the state kept its hemisphere
 
@@ -63,12 +64,12 @@ def test_predict_jacobian_with_spin_matches_jax():
     P = (np.eye(13) * 1e-2 + 1e-4).astype(np.float32)
     ref = jekf.predict(CFG, jekf.EKFState(jnp.asarray(x), jnp.asarray(P)),
                        1.0)
-    got = tekf.predict(CFG, tekf.EKFState(t(x), t(P)), 1.0)
+    got = tekf.predict(PCFG, tekf.EKFState(t(x), t(P)), 1.0)
     _close(got, ref)
 
 
 def test_init_without_pose_matches_jax():
-    _close(tekf.init(CFG), jekf.init(CFG))
+    _close(tekf.init(PCFG), jekf.init(CFG))
 
 
 @pytest.mark.parametrize("w", [[0.0, 0.0, 0.0], [1e-5, -2e-5, 1e-5],
@@ -85,6 +86,6 @@ def test_closed_form_jacobian_equals_autodiff(w):
     x[10:13] = w
     for dt in (1.0, 1.0 / 30):
         auto = torch.func.jacfwd(
-            lambda v: tekf._transition(CFG, v, dt))(t(x))
-        closed = tekf._transition_jacobian(CFG, t(x), dt)
+            lambda v: tekf._transition(PCFG, v, dt))(t(x))
+        closed = tekf._transition_jacobian(PCFG, t(x), dt)
         np.testing.assert_allclose(n(closed), n(auto), **TOL)

@@ -5,6 +5,7 @@ import json
 
 import numpy as np
 import pytest
+from _torch_port import port_cfg
 
 from putslam_tpu_torch import run
 
@@ -65,8 +66,8 @@ def test_run_statistics_equal_the_jax_writer(tmp_path):
     cfg = tiny_test_config()
     poses = np.asarray(jsyn.orbit_trajectory(6, radius=0.10, yaw_amp=0.1))
     g, d = (np.asarray(x) for x in jsyn.render_sequence(cfg.camera, poses))
-    _, _, outs, _ = tslam.run_slam_final(cfg, g, d, init_pose=poses[0],
-                                         device="cpu")
+    _, _, outs, _ = tslam.run_slam_final(port_cfg(cfg), g, d,
+                                         init_pose=poses[0], device="cpu")
     jtiming.write_run_statistics(str(tmp_path / "jax.txt"), outs)
     ttiming.write_run_statistics(str(tmp_path / "port.txt"), outs)
     assert (tmp_path / "port.txt").read_text() == \

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import n, t
+from _torch_port import n, port_cfg, t
 
 from putslam_tpu.io import synthetic as jsyn
 from putslam_tpu.models import slam as jslam
@@ -60,6 +60,7 @@ def slice_config():
 
 def test_slice_follows_jax_frame_by_frame():
     cfg = slice_config()
+    pcfg = port_cfg(cfg)
     T = 12
     poses = np.asarray(jsyn.orbit_trajectory(T, radius=0.10, yaw_amp=0.1))
     g, d = jsyn.render_sequence(cfg.camera, jnp.asarray(poses))
@@ -72,7 +73,7 @@ def test_slice_follows_jax_frame_by_frame():
         draws, key = jax_draws(cfg, js.key)
         js, jo = jslam.slam_step(cfg, js, g[i], d[i])
         assert np.array_equal(np.asarray(js.key), np.asarray(key))
-        ts, to = tslam.slam_step(cfg, ts, t(g[i]), t(d[i]), draws=draws)
+        ts, to = tslam.slam_step(pcfg, ts, t(g[i]), t(d[i]), draws=draws)
         np.testing.assert_allclose(n(to.pose), np.asarray(jo.pose), atol=1e-4,
                                    err_msg=f"frame {i}")
         for f in ("is_keyframe", "ba_ran", "n_landmarks", "vo_ok", "map_ok",
@@ -135,6 +136,7 @@ def test_loop_closure_follows_jax_frame_by_frame():
     candidates and accepts loop-closure edges; the port makes the same
     queue, the same verdicts and the same edges on every frame."""
     cfg = revisit_lc_config()
+    pcfg = port_cfg(cfg)
     T = 24
     poses = np.asarray(jsyn.revisit_trajectory(T, sweep=0.6))
     g, d = (np.asarray(x) for x in jsyn.render_sequence(cfg.camera,
@@ -145,7 +147,7 @@ def test_loop_closure_follows_jax_frame_by_frame():
         draws, key = jax_draws(cfg, js.key)
         js, jo = jslam.slam_step(cfg, js, g[i], d[i])
         assert np.array_equal(np.asarray(js.key), np.asarray(key))
-        ts, to = tslam.slam_step(cfg, ts, t(g[i]), t(d[i]), draws=draws)
+        ts, to = tslam.slam_step(pcfg, ts, t(g[i]), t(d[i]), draws=draws)
         _check_frame(i, to, jo)
         for f in ("kf_a", "kf_b"):
             np.testing.assert_array_equal(n(getattr(ts.lc_queue, f)),
@@ -172,6 +174,7 @@ def test_motion_model_follows_jax_frame_by_frame():
     cfg = tiny_test_config()
     cfg = cfg.replace(motion_model=dataclasses.replace(cfg.motion_model,
                                                        enabled=True))
+    pcfg = port_cfg(cfg)
     T = 12
     poses = np.asarray(jsyn.orbit_trajectory(T, radius=0.10, yaw_amp=0.1))
     g, d = (np.array(x) for x in jsyn.render_sequence(cfg.camera,
@@ -183,7 +186,7 @@ def test_motion_model_follows_jax_frame_by_frame():
     for i in range(1, T):
         draws, key = jax_draws(cfg, js.key)
         js, jo = jslam.slam_step(cfg, js, g[i], d[i])
-        ts, to = tslam.slam_step(cfg, ts, t(g[i]), t(d[i]), draws=draws)
+        ts, to = tslam.slam_step(pcfg, ts, t(g[i]), t(d[i]), draws=draws)
         _check_frame(i, to, jo)
         np.testing.assert_allclose(n(ts.ekf.x), np.asarray(js.ekf.x),
                                    atol=1e-4, err_msg=f"frame {i}")
@@ -196,7 +199,7 @@ def test_motion_model_follows_jax_frame_by_frame():
 
 def test_unported_options_raise():
     """Options still left for later slices raise at slam_init."""
-    cfg = slice_config()
+    cfg = port_cfg(slice_config())
     for over in (dict(map=dataclasses.replace(cfg.map, use_uncertainty=True)),
                  dict(backend=dataclasses.replace(cfg.backend, error_type=1)),
                  dict(backend=dataclasses.replace(cfg.backend,
@@ -227,8 +230,8 @@ def test_orbit30_golden_gates():
     poses = jsyn.orbit_trajectory(30, radius=0.15, yaw_amp=0.15)
     g, d = (np.asarray(x) for x in jsyn.render_sequence(cfg.camera, poses))
     gt = np.asarray(poses)
-    pb, pa, _, _ = tslam.run_slam_final(cfg, g, d, init_pose=gt[0],
-                                        device="cpu")
+    pb, pa, _, _ = tslam.run_slam_final(port_cfg(cfg), g, d,
+                                        init_pose=gt[0], device="cpu")
     port = (tate.ate_rmse_aligned_frames(gt, pb),
             tate.ate_rmse_aligned_frames(gt, pa))
     jb, ja, _, _ = jslam.run_slam_final(cfg, g, d, init_pose=gt[0])
@@ -255,21 +258,22 @@ def test_golden_table():
         golden = {k: v for k, v in json.load(f).items()
                   if not k.startswith("_")}
     cfg = base_cfg()
+    pcfg = port_cfg(cfg)
     port = {}
     poses = jsyn2.orbit_trajectory(30, radius=0.15, yaw_amp=0.15)
     g, d = (np.asarray(x) for x in jsyn2.render_sequence(cfg.camera, poses))
     gt = np.asarray(poses)
-    est_vo, _ = tvo.run_vo(cfg, g, d, init_pose=gt[0], device="cpu")
+    est_vo, _ = tvo.run_vo(pcfg, g, d, init_pose=gt[0], device="cpu")
     port["orbit30_vo"] = tate.ate_rmse_aligned_frames(gt, est_vo)
-    pb, pa, _, _ = tslam.run_slam_final(cfg, g, d, init_pose=gt[0],
+    pb, pa, _, _ = tslam.run_slam_final(pcfg, g, d, init_pose=gt[0],
                                         device="cpu")
     port["orbit30_slam"] = tate.ate_rmse_aligned_frames(gt, pb)
     port["orbit30_slam_final"] = tate.ate_rmse_aligned_frames(gt, pa)
 
-    cfg_lc = cfg.replace(
+    cfg_lc = port_cfg(cfg.replace(
         map=dataclasses.replace(cfg.map, max_keyframes=64),
         loop_closure=dataclasses.replace(cfg.loop_closure, enabled=True,
-                                         tail_skip=10))
+                                         tail_skip=10)))
     poses_r = jsyn2.revisit_trajectory(64, sweep=1.2)
     gr, dr = (np.asarray(x) for x in jsyn2.render_sequence(cfg.camera,
                                                            poses_r))
@@ -282,7 +286,7 @@ def test_golden_table():
     g2, d2 = jsyn2.degrade_sequence(g, d, seed=1, intensity_sigma=0.03,
                                     depth_dropout=0.10, depth_sigma=0.005,
                                     blur=1)
-    _, pa_d, _, _ = tslam.run_slam_final(cfg, np.asarray(g2), np.asarray(d2),
+    _, pa_d, _, _ = tslam.run_slam_final(pcfg, np.asarray(g2), np.asarray(d2),
                                          init_pose=gt[0], device="cpu")
     port["orbit30_slam_degraded_final"] = tate.ate_rmse_aligned_frames(gt,
                                                                        pa_d)

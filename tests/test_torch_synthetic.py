@@ -13,13 +13,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_port import n, t
+from _torch_port import n, port_cfg, t
 
 from putslam_tpu.config import tiny_test_config
 from putslam_tpu.io import synthetic as jsyn
 from putslam_tpu_torch.io import synthetic as tsyn
 
 CAM = tiny_test_config().camera
+PCAM = port_cfg(CAM)
 ORBIT = np.asarray(jsyn.orbit_trajectory(12, radius=0.10, yaw_amp=0.1))
 
 
@@ -79,7 +80,7 @@ def _wall_reference(pose, ss=2):
 def test_render_frame_matches_jax(i):
     pose = ORBIT[i]
     gj, dj = jsyn.render_frame(CAM, jnp.asarray(pose))
-    gt, dt = tsyn.render_frame(CAM, t(pose))
+    gt, dt = tsyn.render_frame(PCAM, t(pose))
     np.testing.assert_allclose(n(dt), np.asarray(dj), atol=1e-5, rtol=0)
     close = np.abs(n(gt) - _wall_reference(pose)) <= 1e-5
     assert close.mean() >= 0.999, close.mean()
@@ -88,14 +89,14 @@ def test_render_frame_matches_jax(i):
 def test_axis_aligned_frame_matches_jax_render():
     pose = np.array([0.05, -0.02, -0.4, 1.0, 0.0, 0.0, 0.0], np.float32)
     gj, dj = jsyn.render_frame(CAM, jnp.asarray(pose))
-    gt, dt = tsyn.render_frame(CAM, t(pose))
+    gt, dt = tsyn.render_frame(PCAM, t(pose))
     close = np.abs(n(gt) - np.asarray(gj)) <= 1e-5
     assert close.mean() >= 0.999, close.mean()
     np.testing.assert_allclose(n(dt), np.asarray(dj), atol=1e-5, rtol=0)
 
 
 def test_render_sequence_shapes():
-    g, d = tsyn.render_sequence(CAM, tsyn.orbit_trajectory(2))
+    g, d = tsyn.render_sequence(PCAM, tsyn.orbit_trajectory(2))
     assert g.shape == d.shape == (2, CAM.height, CAM.width)
     assert bool(torch.isfinite(g).all()) and float(g.min()) >= 0.0
 

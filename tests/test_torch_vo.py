@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from _torch_port import n, t
+from _torch_port import n, port_cfg, t
 
 from putslam_tpu.config import tiny_test_config
 from putslam_tpu.frontend import detector as jdet
@@ -82,7 +82,7 @@ def test_ransac_same_draws_matches_jax(outliers):
     u = jax.random.uniform(key, (cfg.used_pairs, cfg.n_hypotheses), maxval=1.0)
     ref = jransac.estimate(cfg, None, key, jnp.asarray(p), jnp.asarray(q),
                            jnp.asarray(valid))
-    got = transac.estimate(cfg, None, t(p), t(q), t(valid), u=t(u))
+    got = transac.estimate(port_cfg(cfg), None, t(p), t(q), t(valid), u=t(u))
     np.testing.assert_allclose(n(got.pose), np.asarray(ref.pose), atol=1e-5)
     for f in ("inliers", "n_inliers", "ok"):
         np.testing.assert_array_equal(n(getattr(got, f)),
@@ -101,8 +101,8 @@ def test_vo_step_matches_jax():
     u = jax.random.uniform(key, (cfg.ransac.used_pairs,
                                  cfg.ransac.n_hypotheses), maxval=1.0)
     ref = jvo.vo_step(cfg, key, fa, fb)
-    got = tvo.vo_step(cfg, convert.from_numpy(jax.tree.map(np.asarray, fa),
-                                              "cpu"),
+    got = tvo.vo_step(port_cfg(cfg),
+                      convert.from_numpy(jax.tree.map(np.asarray, fa), "cpu"),
                       convert.from_numpy(jax.tree.map(np.asarray, fb), "cpu"),
                       u=t(u))
     assert bool(ref.ok)
