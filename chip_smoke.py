@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Smoke test of the PyTorch port (putslam_tpu_torch) on one CUDA card.
 
-Run from the repository root:  python3 chip_smoke.py
+Run from the repository root:  python3 chip_smoke.py [--dump-map NPZ]
 
 Phases (any failed check raises and the script exits non-zero):
   1. the card: torch.cuda must be available; prints its name and the
@@ -50,10 +50,28 @@ Phases (any failed check raises and the script exits non-zero):
  10. tracking VO (vo_version 1) on the bench orbit through vo.run_vo: one
      launch per frame, RANSAC accepted on more than half the steps, ATE
      under 0.15 m.
+ 11. the uncertainty path, keyframe-dense as 5b: map.use_uncertainty with
+     the normal-shaped sensor model, backend.use_obs_info (the BA whitens
+     with the stored 3x3 information matrices), the Mahalanobis RANSAC
+     (error_version 3, gate 16 squared sigmas): 1 launch per frame, a non-zero symmetric obs_info on
+     every valid observation, final ATE under the gate; frames/s beside
+     5b's, host syncs per frame, the same run at the config's default gate
+     (printed, not checked), the ms of one pose_covariances call on the
+     final map (CUDA events) and its count of non-finite blocks. Then one
+     BA call with the reprojection factor (error_type 1) on that map: chi²
+     falls, dense_schur_mm and dense_schur agree, and the poses stay within
+     3e-2 of the Euclidean solve's (the 2D factor leaves depth free); one
+     with the whitening: chi² falls, poses within 2e-3.
+ 12. the front-end options on the bench workload: the exact grid cap with
+     the LDB descriptor and ratio acceptance, and multi-mate guided
+     matching (max_mates 3): 1 launch per frame, ATE under the gate,
+     frames/s beside phase 5's; LDB descriptor bits on one frame, card
+     against CPU.
 Then one JSON line describing the kernel, the nvidia-smi line, and the
 final status line.
 """
 
+import argparse
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -83,6 +101,16 @@ LC_FRAMES = 64
 LC_ATE_GATE_M = 0.05
 KLT_ATE_GATE_M = 0.15
 SOLVER_POSE_TOL = 2e-4
+# the Mahalanobis gate of the uncertainty path: squared sigmas, the JAX
+# package's own test value (tests/test_uncertainty_parity.py:95). The
+# config's default, 2e-4, is a squared distance in metres for the RANSAC
+# calls that get no information matrices, and 0.014 sigma for the map's,
+# which then accepts no pose
+MAHALANOBIS_GATE = 16.0
+# how far the reprojection BA may move the poses from the Euclidean solve's:
+# the 2D factor leaves depth free, and on the phase-11 map its optimum lies
+# 1.3e-2 away (in the JAX package as in the port, all three solvers)
+REPROJ_POSE_TOL = 3e-2
 SOLVER_CHI2_RTOL = 0.02
 # free keyframes in phase 8 (the in-loop BA's window mask)
 SOLVER_WINDOW = 16
@@ -219,7 +247,224 @@ def run_cli(run_mod, args, files):
         return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
+def uncertainty_config(cfg):
+    """``cfg`` keyframe-dense (as phase 5b) with the uncertainty path on:
+    information matrices of the sensor model shaped by the surface normals,
+    the BA whitening with them, the Mahalanobis RANSAC at a gate of
+    ``MAHALANOBIS_GATE`` squared sigmas."""
+    return cfg.replace(
+        map=dataclasses.replace(cfg.map, min_keyframe_matches=10_000,
+                                use_uncertainty=True,
+                                uncertainty_model="normal"),
+        backend=dataclasses.replace(cfg.backend, use_obs_info=True),
+        ransac=dataclasses.replace(
+            cfg.ransac, error_version=3,
+            inlier_threshold_mahalanobis=MAHALANOBIS_GATE))
+
+
+def phase_uncertainty(cfg, grays, depths, gt, dev, ref_s, dump_map=None):
+    """Phase 11. ``ref_s``: the seconds phase 5b took in this call;
+    ``dump_map``: a path to write the final map and graph to (npz)."""
+    from putslam_tpu_torch.backend import optimize as opt_mod
+    from putslam_tpu_torch.eval import ate as ate_mod
+    from putslam_tpu_torch.models import slam
+    from putslam_tpu_torch.ops import fast_cuda
+    from putslam_tpu_torch.slam_map import features_map as fm
+
+    n_frames = grays.shape[0]
+    ucfg = uncertainty_config(cfg)
+    (pb, pa, outs, state), dt, n_launch = timed(
+        lambda: slam.run_slam_final(ucfg, grays, depths, init_pose=gt[0],
+                                    device=dev), fast_cuda.fast_score_nms)
+    check(n_launch == n_frames,
+          f"uncertainty run: kernel launches {n_launch} != {n_frames}")
+    n_ba = int(outs.ba_ran.sum())
+    check(n_ba >= 2, f"uncertainty run ran {n_ba} BA calls")
+    g = state.graph
+    info = g.obs_info[g.obs_valid]
+    check(info.shape[0] > 0, "uncertainty run stored no observation")
+    peak = info.abs().amax(dim=(-1, -2))
+    check(bool((peak > 0).all()) and bool(torch.isfinite(info).all()),
+          "a valid observation has a zero or non-finite obs_info")
+    asym = float(((info - info.transpose(-1, -2)).abs().amax(dim=(-1, -2))
+                  / peak).max())
+    check(asym < 1e-4, f"obs_info asymmetric by {asym:.2e} of its peak")
+    ate_b = ate_mod.ate_rmse_aligned_frames(gt, pb)
+    ate_f = ate_mod.ate_rmse_aligned_frames(gt, pa)
+    check(bool(torch.isfinite(torch.as_tensor(pa)).all()),
+          "uncertainty run: trajectory not finite")
+    check(ate_f < ATE_GATE_M, f"uncertainty final ATE {ate_f:.5f} m over "
+          f"the gate {ATE_GATE_M} m")
+    _, n_sync = count_syncs(lambda: slam.run_slam(
+        ucfg, grays, depths, init_pose=gt[0], device=dev))
+    print(f"[11] uncertainty path (normal model, use_obs_info, Mahalanobis "
+          f"RANSAC), keyframe-dense: {dt:.3f} s, {n_frames / dt:.2f} SLAM "
+          f"frames/s, {1e3 * dt / n_frames:.2f} ms/frame (5b in this call: "
+          f"{n_frames / ref_s:.2f} frames/s, {1e3 * ref_s / n_frames:.2f} "
+          f"ms/frame); launches {n_launch}; keyframes "
+          f"{int(outs.is_keyframe.sum())}, BA calls {n_ba}, map ok on "
+          f"{int(outs.map_ok.sum())} of {n_frames - 1} frames, median map "
+          f"inliers {float(torch.as_tensor(outs.n_map_inliers).float().median()):.0f}; "
+          f"{info.shape[0]} observations with obs_info (asymmetry "
+          f"{asym:.1e}); ATE before final {ate_b:.5f} m, final {ate_f:.5f} "
+          f"m; host syncs per frame in run_slam "
+          f"{n_sync / (n_frames - 1):.2f}", flush=True)
+
+    # the same run at the config's default gate (2e-4), printed and not
+    # checked: the map RANSAC then accepts next to no pose
+    dcfg = ucfg.replace(ransac=dataclasses.replace(
+        ucfg.ransac, inlier_threshold_mahalanobis=cfg.ransac
+        .inlier_threshold_mahalanobis))
+    _, pa_d, outs_d, _ = slam.run_slam_final(dcfg, grays, depths,
+                                             init_pose=gt[0], device=dev)
+    print(f"[11] at the default Mahalanobis gate "
+          f"{cfg.ransac.inlier_threshold_mahalanobis:g} (not checked): map "
+          f"ok on {int(outs_d.map_ok.sum())} of {n_frames - 1} frames, VO ok "
+          f"on {int(outs_d.vo_ok.sum())}, final ATE "
+          f"{ate_mod.ate_rmse_aligned_frames(gt, pa_d):.5f} m; at "
+          f"{MAHALANOBIS_GATE:g} above: VO ok on {int(outs.vo_ok.sum())}",
+          flush=True)
+
+    m = state.map
+    seqs = torch.where(m.kf_valid, m.kf_seq,
+                       torch.full_like(m.kf_seq, 2 ** 31 - 1))
+    gauge = torch.zeros_like(m.kf_valid)
+    gauge[torch.argmin(seqs)] = True
+    window_fixed = fm.active_window_fixed(m, SOLVER_WINDOW) | gauge
+    if dump_map:
+        import numpy as np
+
+        os.makedirs(os.path.dirname(dump_map) or ".", exist_ok=True)
+        np.savez_compressed(
+            dump_map, gauge=gauge.cpu().numpy(),
+            window_fixed=window_fixed.cpu().numpy(),
+            **{f"map_{k}": v.cpu().numpy() for k, v in m._asdict().items()
+               if torch.is_tensor(v)},
+            **{f"graph_{k}": v.cpu().numpy() for k, v in g._asdict().items()
+               if torch.is_tensor(v)})
+        print(f"[11] wrote the final map and graph to {dump_map}", flush=True)
+
+    def covariances(fixed):
+        return opt_mod.pose_covariances(
+            ucfg.backend, m.kf_pose, m.kf_valid, m.lm_pos, m.lm_valid, g,
+            fixed, lm_gen=m.lm_gen, kf_gen=m.kf_gen, cam=cfg.camera)
+
+    for label, fixed in (("every keyframe but the gauge free", gauge),
+                         (f"the newest {SOLVER_WINDOW} free", window_fixed)):
+        cov = covariances(fixed)
+        free = m.kf_valid & ~fixed
+        bad = int((~torch.isfinite(cov[free]).all(dim=-1).all(dim=-1)).sum())
+        check(cov.shape == (m.kf_pose.shape[0], 6, 6)
+              and bool((cov[~free] == 0).all()),
+              "pose_covariances: wrong shape or a frozen block not zero")
+        ms = median_ms(lambda fixed=fixed: covariances(fixed), runs=5)
+        sig = float(cov[free][:, :3, :3].diagonal(dim1=-1, dim2=-2)
+                    .clamp(min=0).sqrt().nanmedian()) if bad < int(
+                        free.sum()) else float("nan")
+        print(f"[11] pose_covariances, {label} ({int(free.sum())} blocks of "
+              f"K={m.kf_pose.shape[0]}, a {6 * m.kf_pose.shape[0]}-square "
+              f"solve): {ms:.3f} ms a call, {bad} non-finite blocks, median "
+              f"translation sigma {1e3 * sig:.3f} mm", flush=True)
+
+    def solve(**over):
+        bcfg = dataclasses.replace(cfg.backend, gn_iterations=6,
+                                   robust_kernel="none", ba_window=0, **over)
+        return opt_mod.optimize_graph(
+            bcfg, m.kf_pose, m.kf_valid, m.lm_pos, m.lm_valid, g,
+            window_fixed, lm_gen=m.lm_gen, kf_gen=m.kf_gen, cam=cfg.camera)
+
+    eucl = solve()
+    whit = solve(use_obs_info=True)
+    repr_ = solve(error_type=1)
+    repr_ds = solve(error_type=1, solver="dense_schur")
+    chi = [float(x) for x in repr_.chi2]
+    check(all(x == x for x in chi) and chi[-1] < chi[0],
+          f"reprojection BA: chi2 did not fall: {chi}")
+    dsolver = float((repr_.kf_pose - repr_ds.kf_pose)[m.kf_valid].abs().max())
+    check(dsolver < SOLVER_POSE_TOL
+          and abs(chi[-1] - float(repr_ds.chi2[-1])) < SOLVER_CHI2_RTOL * chi[-1],
+          f"reprojection BA: dense_schur_mm {dsolver:.2e} from dense_schur, "
+          f"chi2 {chi[-1]} vs {float(repr_ds.chi2[-1])}")
+    dpose = float((repr_.kf_pose - eucl.kf_pose)[m.kf_valid].abs().max())
+    check(dpose < REPROJ_POSE_TOL, f"reprojection BA poses {dpose:.2e} from "
+          "the Euclidean solve's")
+    dwhit = float((whit.kf_pose - eucl.kf_pose)[m.kf_valid].abs().max())
+    check(float(whit.chi2[-1]) < float(whit.chi2[0]) and dwhit < 2e-3,
+          f"whitened BA: chi2 {whit.chi2.tolist()}, poses {dwhit:.2e} from "
+          "the Euclidean solve's")
+    print(f"[11] one BA call on that map ({cfg.backend.solver}, 6 iterations, "
+          f"{int((m.kf_valid & ~window_fixed).sum())} keyframes free): "
+          f"reprojection factor chi2 {chi[0]:.6g} -> {chi[-1]:.6g} (px/sigma)"
+          f"^2, poses within {dpose:.2e} of the Euclidean solve's (its chi2 "
+          f"{float(eucl.chi2[0]):.6g} -> {float(eucl.chi2[-1]):.6g}) and "
+          f"{dsolver:.2e} of dense_schur's; whitened with obs_info chi2 "
+          f"{float(whit.chi2[0]):.6g} -> {float(whit.chi2[-1]):.6g}, poses "
+          f"within {dwhit:.2e}", flush=True)
+
+
+def phase_frontend_options(cfg, grays, depths, gt, dev, ref_s):
+    """Phase 12. ``ref_s``: the seconds phase 5 took in this call."""
+    from putslam_tpu_torch.eval import ate as ate_mod
+    from putslam_tpu_torch.frontend import detector
+    from putslam_tpu_torch.models import slam
+    from putslam_tpu_torch.ops import fast_cuda
+
+    n_frames = grays.shape[0]
+    variants = {
+        "exact grid cap + LDB + ratio acceptance": cfg.replace(
+            detector=dataclasses.replace(cfg.detector, grid_policy="exact",
+                                         descriptor="ldb"),
+            matcher=dataclasses.replace(cfg.matcher, acceptance="ratio")),
+        "max_mates 3": cfg.replace(
+            matcher=dataclasses.replace(cfg.matcher, max_mates=3)),
+    }
+    for label, vcfg in variants.items():
+        # the first run builds the LDB bank and warms the new code paths
+        slam.run_slam(vcfg, grays[:4], depths[:4], init_pose=gt[0],
+                      device=dev)
+        (pb, pa, outs, _), dt, n_launch = timed(
+            lambda vcfg=vcfg: slam.run_slam_final(
+                vcfg, grays, depths, init_pose=gt[0], device=dev),
+            fast_cuda.fast_score_nms)
+        check(n_launch == n_frames,
+              f"{label}: kernel launches {n_launch} != {n_frames}")
+        ate_b = ate_mod.ate_rmse_aligned_frames(gt, pb)
+        ate_f = ate_mod.ate_rmse_aligned_frames(gt, pa)
+        check(bool(torch.isfinite(torch.as_tensor(pa)).all()),
+              f"{label}: trajectory not finite")
+        check(ate_b < ATE_GATE_M and ate_f < ATE_GATE_M,
+              f"{label}: ATE {ate_b:.5f} / {ate_f:.5f} m over the gate")
+        print(f"[12] bench with {label}: {dt:.3f} s, {n_frames / dt:.2f} "
+              f"SLAM frames/s, {1e3 * dt / n_frames:.2f} ms/frame (phase 5 "
+              f"in this call: {n_frames / ref_s:.2f} frames/s); launches "
+              f"{n_launch}; VO ok {int(outs.vo_ok.sum())}, map ok "
+              f"{int(outs.map_ok.sum())} of {n_frames - 1}, median map "
+              f"inliers {float(torch.as_tensor(outs.n_map_inliers).float().median()):.0f}; "
+              f"ATE before final {ate_b:.5f} m, final {ate_f:.5f} m",
+              flush=True)
+
+    ldb_cfg = variants["exact grid cap + LDB + ratio acceptance"]
+    f_gpu = detector.detect_and_describe(ldb_cfg, grays[0], depths[0])
+    f_cpu = detector.detect_and_describe(ldb_cfg, grays[0].cpu(),
+                                         depths[0].cpu())
+    both = (f_gpu.valid & f_cpu.valid.to(dev)
+            & (torch.abs(f_gpu.uv - f_cpu.uv.to(dev)).amax(-1) < 1e-3))
+    share = int(both.sum()) / max(int(f_cpu.valid.sum()), 1)
+    check(share >= 0.99, f"exact grid cap: {share:.4f} of the CPU's "
+          "keypoints found on the card")
+    bits = float((f_gpu.desc[both] == f_cpu.desc.to(dev)[both]).float().mean())
+    check(bits >= 0.995, f"LDB descriptor bits {bits:.4f} < 0.995")
+    print(f"[12] LDB descriptors, exact grid cap, card vs CPU on one frame: "
+          f"{int(both.sum())} of {int(f_cpu.valid.sum())} keypoints shared, "
+          f"descriptor bits {bits:.5f} equal", flush=True)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dump-map", metavar="NPZ", help="write the final map "
+                    "and graph of phase 11 there, to hold a solver against "
+                    "the JAX package on the same state on a CPU")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA "
               "card", file=sys.stderr)
@@ -629,6 +874,10 @@ def main() -> int:
           f"{ok_frac:.3f} of the steps, median tracked "
           f"{float(torch.as_tensor(stats4.n_matches).float().median()):.0f};"
           f" ATE {ate4:.5f} m", flush=True)
+
+    # ---- 11. the uncertainty path, 12. the front-end options ---------------
+    phase_uncertainty(cfg, grays, depths, gt, dev, dt2, args.dump_map)
+    phase_frontend_options(cfg, grays, depths, gt, dev, dt)
 
     print(json.dumps({"kernels": [{
         "name": "fast_score_nms",

@@ -1,6 +1,7 @@
 """Factor residuals, closed-form Jacobians and robust kernels — port of
-``putslam_tpu/backend/factors.py`` for the 3D Euclidean observation factor
-(``error_type=0``) and the pose-pose relative-motion factor.
+``putslam_tpu/backend/factors.py``: the 3D Euclidean observation factor
+(``error_type=0``), the 2D reprojection factor (``error_type=1``) and the
+pose-pose relative-motion factor.
 """
 
 from __future__ import annotations
@@ -26,14 +27,55 @@ def obs_jacobians(kf_pose, lm_world):
     return J_pose, R.transpose(-1, -2)
 
 
-def assemble_obs_terms(kf_p, lm_p, z_cam, error_type: int):
+def _guarded_z(p_cam):
+    z = p_cam[..., 2]
+    return torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
+
+
+def _project(p_cam, fu: float, fv: float):
+    """Pinhole projection to *centred* pixel offsets (the principal point
+    cancels in the residual)."""
+    z = _guarded_z(p_cam)
+    return torch.stack([fu * p_cam[..., 0] / z, fv * p_cam[..., 1] / z],
+                       dim=-1)
+
+
+def reproj_residual(kf_pose, lm_world, z_cam, fu: float, fv: float):
+    """r = π(T_kf⁻¹(l_world)) − π(z_cam): (...,7), (...,3), (...,3) →
+    (...,2) pixels. The measurement is the projection of the stored
+    camera-frame point, so one edge store serves both factor types."""
+    p_cam = se3.apply(se3.inverse(kf_pose), lm_world)
+    return _project(p_cam, fu, fv) - _project(z_cam, fu, fv)
+
+
+def reproj_jacobians(kf_pose, lm_world, fu: float, fv: float):
+    """The projection Jacobian J_π = [[fu/z, 0, −fu·x/z²], [0, fv/z,
+    −fv·y/z²]] chained with the 3D-point Jacobians: (...,2,6), (...,2,3)."""
+    p_cam = se3.apply(se3.inverse(kf_pose), lm_world)
+    x, y = p_cam[..., 0], p_cam[..., 1]
+    z = _guarded_z(p_cam)
+    zero = torch.zeros_like(z)
+    J_pi = torch.stack([
+        torch.stack([fu / z, zero, -fu * x / (z * z)], dim=-1),
+        torch.stack([zero, fv / z, -fv * y / (z * z)], dim=-1),
+    ], dim=-2)
+    Jp3, Jl3 = obs_jacobians(kf_pose, lm_world)
+    return J_pi @ Jp3, J_pi @ Jl3
+
+
+def assemble_obs_terms(kf_p, lm_p, z_cam, error_type: int,
+                       fu: float = 1.0, fv: float = 1.0):
     """Residuals + Jacobians for a batch of pose-landmark edges:
-    r (M,3), Jp (M,3,6), Jl (M,3,3)."""
-    if error_type != 0:
-        raise NotImplementedError(
-            f"backend.error_type={error_type} is not ported yet")
-    r = obs_residual(kf_p, lm_p, z_cam)
-    Jp, Jl = obs_jacobians(kf_p, lm_p)
+    0 → 3D Euclidean (r (M,3), Jp (M,3,6), Jl (M,3,3)),
+    1 → 2D reprojection (r (M,2), Jp (M,2,6), Jl (M,2,3))."""
+    if error_type == 0:
+        r = obs_residual(kf_p, lm_p, z_cam)
+        Jp, Jl = obs_jacobians(kf_p, lm_p)
+    elif error_type == 1:
+        r = reproj_residual(kf_p, lm_p, z_cam, fu, fv)
+        Jp, Jl = reproj_jacobians(kf_p, lm_p, fu, fv)
+    else:
+        raise ValueError(f"unknown error_type {error_type}")
     return r, Jp, Jl
 
 

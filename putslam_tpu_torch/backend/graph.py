@@ -65,10 +65,12 @@ def init_graph(max_observations: int, max_pose_pose: int,
 
 
 def add_observations(g: GraphState, kf_idx, lm_idx, xyz, weight, mask,
-                     gen=None, kf_gen=None) -> GraphState:
+                     gen=None, kf_gen=None, info=None) -> GraphState:
     """Append the masked observations. Slots go dead-first: until the store
     has ever filled, the append cursor; after that, invalid slots first,
-    then the oldest valid ones in append order (FIFO)."""
+    then the oldest valid ones in append order (FIFO). ``info``: optional
+    (N, 3, 3) full information matrices (the uncertainty mode); zeros are
+    stored without it."""
     M = g.obs_capacity
     m32 = mask.to(torch.int32)
     rank = torch.cumsum(m32, dim=0) - 1
@@ -89,7 +91,7 @@ def add_observations(g: GraphState, kf_idx, lm_idx, xyz, weight, mask,
         obs_gen=set_rows(g.obs_gen, slot, gen if gen is not None else zeros_i),
         obs_kfgen=set_rows(g.obs_kfgen, slot,
                            kf_gen if kf_gen is not None else zeros_i),
-        obs_info=set_rows(g.obs_info, slot, 0.0),
+        obs_info=set_rows(g.obs_info, slot, 0.0 if info is None else info),
         obs_seq=set_rows(g.obs_seq, slot, (g.n_obs + rank).to(torch.int32)),
         obs_valid=set_rows(g.obs_valid, slot, True),
         n_obs=g.n_obs + n_new,

@@ -51,15 +51,64 @@ SOLVERS = ("dense_schur", "dense_schur_mm", "pcg")
 
 
 def check_backend_config(bcfg: BackendConfig) -> None:
-    """Raise NotImplementedError for the backend options not ported."""
+    """Raise NotImplementedError for a solver the port does not have, and
+    ValueError for an unknown factor type."""
     if bcfg.solver not in SOLVERS:
         raise NotImplementedError(
             f"backend.solver={bcfg.solver!r} is not ported yet")
-    if bcfg.error_type != 0:
-        raise NotImplementedError(
-            f"backend.error_type={bcfg.error_type} is not ported yet")
-    if bcfg.use_obs_info:
-        raise NotImplementedError("backend.use_obs_info is not ported yet")
+    if bcfg.error_type not in (0, 1):
+        raise ValueError(f"unknown error_type {bcfg.error_type}")
+
+
+def _focal(cam: CameraConfig):
+    """Intrinsics of the reprojection factor (525 px without a camera)."""
+    return (cam.fu, cam.fv) if cam is not None else (525.0, 525.0)
+
+
+def _whitening_chol(g: GraphState):
+    """Per-observation whitening factor L with Info = L·Lᵀ. Observations
+    stored without a full information matrix (``obs_info`` all zero: states
+    made with ``use_uncertainty=False``) fall back to their scalar weight,
+    √obs_w·I, instead of being annihilated by chol(0)."""
+    tr = (g.obs_info[..., 0, 0] + g.obs_info[..., 1, 1]
+          + g.obs_info[..., 2, 2])
+    eye3 = torch.eye(3, dtype=g.obs_info.dtype, device=g.obs_info.device)
+    scalar = torch.sqrt(torch.clamp(g.obs_w, min=0.0))[:, None, None] * eye3
+    return torch.where((tr > 0.0)[:, None, None], chol3x3(g.obs_info), scalar)
+
+
+def _whitens(bcfg: BackendConfig) -> bool:
+    return bcfg.use_obs_info and bcfg.error_type == 0
+
+
+def _info_weights(bcfg: BackendConfig, g: GraphState, gate):
+    """Information weight of each observation: the gate alone where the
+    stored 3×3 information whitens the residual, gate / σ_px² for the
+    reprojection factor (pixels, never the metres⁻² ``obs_w``), else
+    ``obs_w`` · gate."""
+    if _whitens(bcfg):
+        return gate.to(g.obs_w.dtype)
+    if bcfg.error_type == 1:
+        return gate.to(g.obs_w.dtype) / (bcfg.obs_pixel_sigma ** 2)
+    return g.obs_w * gate
+
+
+def _obs_terms(bcfg: BackendConfig, g: GraphState, kf_p, lm_p, gate, Lw,
+               cam: CameraConfig):
+    """Residuals, Jacobians, weights and weighted squared errors of the
+    observations at the gathered poses and landmarks: (r, Jp, Jl, w, sq).
+    ``Lw``: the whitening factors, or None without ``use_obs_info``."""
+    r, Jp, Jl = factors.assemble_obs_terms(kf_p, lm_p, g.obs_xyz,
+                                           bcfg.error_type, *_focal(cam))
+    if Lw is not None:
+        r = torch.einsum("msr,ms->mr", Lw, r)
+        Jp = torch.einsum("msr,msj->mrj", Lw, Jp)
+        Jl = torch.einsum("msr,msj->mrj", Lw, Jl)
+    w_info = _info_weights(bcfg, g, gate)
+    sq = w_info * torch.sum(r * r, dim=-1)
+    w = w_info * factors.robust_weight(sq, bcfg.robust_kernel,
+                                       bcfg.robust_delta)
+    return r, Jp, Jl, w, sq
 
 
 def _obs_gate(g: GraphState, lm_valid, lm_gen, kf_gen):
@@ -77,9 +126,16 @@ def _final_sq_errors(bcfg: BackendConfig, kf_pose, lm_pos, lm_valid,
                      cam: CameraConfig = None):
     """Per-observation weighted squared errors at a state (the prune
     signal), without Jacobians."""
-    r = factors.obs_residual(kf_pose[g.obs_kf], lm_pos[g.obs_lm], g.obs_xyz)
-    gate = _obs_gate(g, lm_valid, lm_gen, kf_gen)
-    return g.obs_w * gate * torch.sum(r * r, dim=-1)
+    kf_p = kf_pose[g.obs_kf]
+    lm_p = lm_pos[g.obs_lm]
+    if bcfg.error_type == 0:
+        r = factors.obs_residual(kf_p, lm_p, g.obs_xyz)
+    else:
+        r = factors.reproj_residual(kf_p, lm_p, g.obs_xyz, *_focal(cam))
+    if _whitens(bcfg):
+        r = torch.einsum("msr,ms->mr", _whitening_chol(g), r)
+    w_info = _info_weights(bcfg, g, _obs_gate(g, lm_valid, lm_gen, kf_gen))
+    return w_info * torch.sum(r * r, dim=-1)
 
 
 def _segment_sum(x, idx, n: int):
@@ -95,17 +151,15 @@ def _gather_pad(x, idx):
 
 
 def _assemble_obs(bcfg: BackendConfig, kf_pose, lm_pos, lm_valid,
-                  g: GraphState, lm_gen, kf_gen):
+                  g: GraphState, lm_gen, kf_gen, cam: CameraConfig = None):
     """Residuals, Jacobians, robust weights and weighted squared errors of
-    every pose-landmark observation: (r, Jp, Jl, w, sq)."""
-    r, Jp, Jl = factors.assemble_obs_terms(kf_pose[g.obs_kf],
-                                           lm_pos[g.obs_lm], g.obs_xyz,
-                                           bcfg.error_type)
-    w_info = g.obs_w * _obs_gate(g, lm_valid, lm_gen, kf_gen)
-    sq = w_info * torch.sum(r * r, dim=-1)
-    w = w_info * factors.robust_weight(sq, bcfg.robust_kernel,
-                                       bcfg.robust_delta)
-    return r, Jp, Jl, w, sq
+    every pose-landmark observation: (r, Jp, Jl, w, sq). The factor type
+    follows ``bcfg.error_type``; with ``bcfg.use_obs_info`` the stored 3×3
+    information matrices whiten the 3D residual and Jacobians (r' = Lᵀr
+    with Info = L·Lᵀ)."""
+    return _obs_terms(bcfg, g, kf_pose[g.obs_kf], lm_pos[g.obs_lm],
+                      _obs_gate(g, lm_valid, lm_gen, kf_gen),
+                      _whitening_chol(g) if _whitens(bcfg) else None, cam)
 
 
 def _pp_terms(bcfg: BackendConfig, g: GraphState, kf_pose, kf_gen):
@@ -133,20 +187,27 @@ def _damped_ll_inverse(H_ll, lam: float):
     return inv3x3(H_ll + (lam * (1.0 + tr_ll))[:, None, None] * eye3)
 
 
-def _solve_reduced(S, b_red, dead, lam: float):
-    """Gauge-fix (identity rows for ``dead`` (n,) slots), symmetrise, damp
-    by λ·max|diag| and solve S·dc = b by Cholesky. A failed factorisation
-    gives NaN (as ``lax.linalg.cholesky``), and a non-finite or ≥ 1e3 step
-    is replaced by zero: never an exception, never a host sync."""
-    n6 = S.shape[0]
+def _gauge_fixed(S, dead, lam: float):
+    """The reduced system with identity rows for the ``dead`` (n,) slots,
+    symmetrised and damped by λ·max|diag|."""
     frozen6 = dead.repeat_interleave(6)
     S = torch.where(frozen6[:, None] | frozen6[None, :], torch.zeros_like(S),
                     S)
     S = S + torch.diag(frozen6.to(S.dtype))
     S = 0.5 * (S + S.T)
     max_diag = torch.clamp(torch.max(torch.abs(torch.diagonal(S))), min=1.0)
-    S = S + (lam * max_diag) * torch.eye(n6, dtype=S.dtype, device=S.device)
-    b_red = torch.where(frozen6, torch.zeros_like(b_red), b_red)
+    return S + (lam * max_diag) * torch.eye(S.shape[0], dtype=S.dtype,
+                                            device=S.device)
+
+
+def _solve_reduced(S, b_red, dead, lam: float):
+    """Gauge-fix (identity rows for ``dead`` (n,) slots), symmetrise, damp
+    by λ·max|diag| and solve S·dc = b by Cholesky. A failed factorisation
+    gives NaN (as ``lax.linalg.cholesky``), and a non-finite or ≥ 1e3 step
+    is replaced by zero: never an exception, never a host sync."""
+    S = _gauge_fixed(S, dead, lam)
+    b_red = torch.where(dead.repeat_interleave(6), torch.zeros_like(b_red),
+                        b_red)
     Lc, info = torch.linalg.cholesky_ex(S)
     Lc = torch.where(info != 0, torch.full_like(Lc, math.nan), Lc)
     dc = torch.cholesky_solve(b_red[:, None], Lc)[:, 0]
@@ -186,7 +247,7 @@ def gauss_newton(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
     chi2s = []
     for _ in range(bcfg.gn_iterations):
         r, Jp, Jl, w, sq = _assemble_obs(bcfg, kf_pose, lm_pos, lm_valid, g,
-                                         lm_gen, kf_gen)
+                                         lm_gen, kf_gen, cam)
         chi2 = torch.sum(sq)
         H_cc = torch.zeros((K * K, 6, 6), dtype=f32, device=dev)
         H_cc.index_add_(0, kf * K + kf,
@@ -252,7 +313,7 @@ def gauss_newton_pcg(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos,
     chi2s = []
     for _ in range(bcfg.gn_iterations):
         r, Jp, Jl, w, sq = _assemble_obs(bcfg, kf_pose, lm_pos, lm_valid, g,
-                                         lm_gen, kf_gen)
+                                         lm_gen, kf_gen, cam)
         chi2 = torch.sum(sq)
         B = torch.einsum("m,mri,mrj->mij", w, Jp, Jl)            # (M, 6, 3)
         H_cc_diag = _segment_sum(torch.einsum("m,mri,mrj->mij", w, Jp, Jp),
@@ -393,16 +454,12 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
     # a dropped landmark (sentinel LC) contributes nothing at all
     gate = _obs_gate(g, lm_valid, lm_gen, kf_gen) & (cl_obs < LC)
     ck_obs = torch.where(cl_obs < LC, ck_obs, torch.full_like(ck_obs, KC))
+    Lw = _whitening_chol(g) if _whitens(bcfg) else None
 
     def do_iteration(kf_pose, lm_pos_c):
         kf_p = kf_pose[g.obs_kf]
         lm_p = _gather_pad(lm_pos_c, cl_obs)
-        r, Jp, Jl = factors.assemble_obs_terms(kf_p, lm_p, g.obs_xyz,
-                                               bcfg.error_type)
-        w_info = g.obs_w * gate
-        sq = w_info * torch.sum(r * r, dim=-1)
-        w = w_info * factors.robust_weight(sq, bcfg.robust_kernel,
-                                           bcfg.robust_delta)
+        r, Jp, Jl, w, sq = _obs_terms(bcfg, g, kf_p, lm_p, gate, Lw, cam)
         chi2 = torch.sum(sq)
 
         C = torch.einsum("m,mri,mra->mia", w, Jp, Jl)           # (M, 6, 3)
@@ -487,3 +544,52 @@ def optimize_graph(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
           "pcg": gauss_newton_pcg}[bcfg.solver]
     return fn(bcfg, kf_pose, kf_valid, lm_pos, lm_valid, g, fixed_kf, lm_gen,
               kf_gen, cam=cam)
+
+
+def prune_mask_from_errors(bcfg: BackendConfig, sq_err, threshold: float):
+    """Edges whose weighted squared error exceeds ``threshold`` (the chi²
+    edge pruning)."""
+    return sq_err > threshold
+
+
+def pose_covariances(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
+                     g: GraphState, fixed_kf, lm_gen=None, kf_gen=None,
+                     cam: CameraConfig = None):
+    """Marginal 6×6 pose covariances: the diagonal blocks of S⁻¹, S the
+    reduced camera system at the current estimate (pose-pose edges
+    included, the Schur subtrahend from the bfloat16-rounded coupling of
+    ``schur_subtrahend_mm``). Returns (K, 6, 6); fixed and invalid keyframes
+    get zero blocks. Where S is not positive definite every free block is
+    NaN (what the reference's silent Cholesky gives), never an exception."""
+    check_backend_config(bcfg)
+    dev = kf_pose.device
+    K = kf_pose.shape[0]
+    L = lm_pos.shape[0]
+    lam = bcfg.damping
+    kf = g.obs_kf.long()
+    lm = g.obs_lm.long()
+    r, Jp, Jl, w, _ = _assemble_obs(bcfg, kf_pose, lm_pos, lm_valid, g,
+                                    lm_gen, kf_gen, cam)
+    C = torch.einsum("m,mri,mra->mia", w, Jp, Jl)
+    H_cc = torch.zeros((K * K, 6, 6), dtype=kf_pose.dtype, device=dev)
+    H_cc.index_add_(0, kf * K + kf, torch.einsum("m,mri,mrj->mij", w, Jp, Jp))
+    H_ll = _segment_sum(torch.einsum("m,mri,mrj->mij", w, Jl, Jl), lm, L)
+    r6, Ji, Jj, wpp, _ = _pp_terms(bcfg, g, kf_pose, kf_gen)
+    pi = g.pp_i.long()
+    pj = g.pp_j.long()
+    for a, b, Ja, Jb in ((pi, pi, Ji, Ji), (pj, pj, Jj, Jj),
+                         (pi, pj, Ji, Jj), (pj, pi, Jj, Ji)):
+        H_cc.index_add_(0, a * K + b,
+                        torch.einsum("e,eri,erj->eij", wpp, Ja, Jb))
+    Linv = chol3x3(_damped_ll_inverse(H_ll, lam))
+    F = torch.einsum("mia,mab->mib", C, Linv[lm])
+    S = (H_cc.view(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
+         - schur_subtrahend_mm(kf, lm, F, K, L))
+    frozen = fixed_kf | ~kf_valid
+    S = _gauge_fixed(S, frozen, lam)
+    Lc, info = torch.linalg.cholesky_ex(S)
+    Lc = torch.where(info != 0, torch.full_like(Lc, math.nan), Lc)
+    S_inv = torch.cholesky_solve(
+        torch.eye(K * 6, dtype=S.dtype, device=dev), Lc)
+    diag = torch.einsum("kikj->kij", S_inv.view(K, 6, K, 6))
+    return torch.where(frozen[:, None, None], torch.zeros_like(diag), diag)

@@ -14,8 +14,9 @@ same names and fields, on ``device``. ``to_numpy(tree)`` maps back to numpy.
 JAX's ``SlamState.key`` has no counterpart (the port holds its
 ``torch.Generator`` outside the state) and is skipped.
 
-``brief_bank(device)`` is the fused steered-BRIEF constant, bf16 on the
-device, built once per device from the numpy builders of ``ops/brief.py``.
+``brief_bank(device, kind)`` is the fused descriptor constant (steered BRIEF
+or LDB), bf16 on the device, made once per kind and device from the numpy
+banks of ``ops/brief.py``.
 """
 
 from __future__ import annotations
@@ -62,15 +63,20 @@ def config_from_jax(cfg, cls=None):
     return cls(**out)
 
 
-def brief_bank(device) -> torch.Tensor:
-    device = torch.device(device)
-    bank = _BANKS.get(device)
+def brief_bank(device, kind: str = "brief", fused: bool = True
+               ) -> torch.Tensor:
+    """The descriptor bank of ``kind`` ("brief" or "ldb") as bf16 on
+    ``device``: the fused constant (blurred tests + moment columns), or with
+    ``fused=False`` the unblurred test columns alone."""
+    key = (torch.device(device), kind, fused)
+    bank = _BANKS.get(key)
     if bank is None:
-        from putslam_tpu_torch.ops.brief import make_fused_bank
+        from putslam_tpu_torch.ops import brief
 
-        bank = torch.as_tensor(make_fused_bank()).to(device=device,
-                                                     dtype=torch.bfloat16)
-        _BANKS[device] = bank
+        make = brief.make_fused_bank if fused else brief.make_test_bank
+        bank = torch.as_tensor(make(kind)).to(device=key[0],
+                                              dtype=torch.bfloat16)
+        _BANKS[key] = bank
     return bank
 
 

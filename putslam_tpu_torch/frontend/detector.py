@@ -1,9 +1,9 @@
 """Multi-scale keypoint detection + description + depth lifting (torch).
 
 Port of ``putslam_tpu/frontend/detector.py``: a scale pyramid, FAST + NMS
-of all its levels (one launch of the CUDA kernel on the card), the subtile
-grid cap per level, one fused
-steered-BRIEF matmul over every level's patches, and the lift of each
+of all its levels (one launch of the CUDA kernel on the card), the grid cap
+per level (subtile or exact), one fused descriptor matmul (steered BRIEF or
+LDB) over every level's patches, and the lift of each
 keypoint to a camera-frame 3D point through undistortion with the depth
 gate. Output is a fixed-capacity ``Features`` batch.
 """
@@ -98,9 +98,10 @@ def detect_and_describe(cfg: SlamConfig, gray: torch.Tensor,
     cfg.detector.max_features."""
     det = cfg.detector
     cam = cfg.camera
-    if det.descriptor != "brief":
+    if det.descriptor not in brief.KINDS:
         raise NotImplementedError(
-            f"detector.descriptor={det.descriptor!r} is not ported yet")
+            f"detector.descriptor={det.descriptor!r} is not known "
+            f"(one of {brief.KINDS})")
     budgets = _level_budgets(cfg)
     dev = gray.device
 
@@ -133,7 +134,8 @@ def detect_and_describe(cfg: SlamConfig, gray: torch.Tensor,
     resp = torch.cat(all_resp)
     octv = torch.cat(all_oct)
     valid = torch.cat(all_valid)
-    desc, ang = brief.describe_patches(torch.cat(all_patch))
+    desc, ang = brief.describe_patches(torch.cat(all_patch),
+                                       kind=det.descriptor)
     desc = torch.where(valid[:, None], desc, torch.zeros_like(desc))
 
     z = camera_mod.sample_depth(depth, uv0)

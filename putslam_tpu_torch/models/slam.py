@@ -2,7 +2,8 @@
 
 Port of ``putslam_tpu/models/slam.py`` (without the playback mode). One
 ``slam_step`` runs: detection, frame-to-frame VO (with the EKF prior where
-VO fails, when ``motion_model.enabled``), guided map matching with the
+VO fails, when ``motion_model.enabled``), guided map matching (one mate per
+landmark, or up to ``matcher.max_mates`` with RANSAC arbitrating) with the
 absolute-pose RANSAC and its widening retry ladder, the drift-budget
 correction gate, the keyframe decision and bookkeeping, loop closure (when
 ``loop_closure.enabled``: BoW signature and scoring on keyframes, one
@@ -10,7 +11,11 @@ queued candidate popped and verified per frame, its correction edge added
 before the BA), the periodic bundle adjustment, map compression, the
 re-anchor of the live pose on the last keyframe and the EKF correction.
 ``run_slam_final`` adds the end-of-run full-graph polish, the trajectory
-repair and the re-anchored trajectory.
+repair and the re-anchored trajectory. With ``map.use_uncertainty`` every
+observation carries the 3×3 information matrix of the depth-sensor model
+(plain, or shrunk along the surface normal or the image gradient), which
+the Mahalanobis RANSAC (``error_version=3``) and the BA
+(``backend.use_obs_info``) read.
 
 Where the JAX package branches on device values with ``lax.cond`` (retry,
 keyframe bookkeeping, loop-closure verification, BA), this port branches on
@@ -21,8 +26,9 @@ keyframes only.
 
 RANSAC draws come from an explicit ``torch.Generator``, or — for a test
 that replays the JAX package's key chain — from ``draws``, a mapping with
-one (used_pairs, H) uniform tensor per RANSAC call of the frame: ``vo``,
-``map``, ``retry0``, ``retry1`` and, with loop closure, ``lc``.
+one (used_pairs, H) uniform tensor per RANSAC call of the frame: ``vo``
+(and ``vo_retry`` with ``matcher.retry_hamming_slack > 0``), ``map``,
+``retry0``, ``retry1`` and, with loop closure, ``lc``.
 
 ``LCQueue`` (``loopclosure/bow.py``) and ``EKFState`` (``motion/ekf.py``)
 are re-exported here.
@@ -43,12 +49,14 @@ from putslam_tpu_torch.config import SlamConfig
 from putslam_tpu_torch.frontend import ransac as ransac_mod
 from putslam_tpu_torch.frontend.detector import Features, detect_and_describe
 from putslam_tpu_torch.geometry import se3
+from putslam_tpu_torch.geometry import uncertainty as uncertainty_mod
 from putslam_tpu_torch.loopclosure import bow
 from putslam_tpu_torch.loopclosure import verify as lc_verify
 from putslam_tpu_torch.loopclosure.bow import LCQueue  # noqa: F401
 from putslam_tpu_torch.models import vo as vo_mod
 from putslam_tpu_torch.motion import ekf as ekf_mod
 from putslam_tpu_torch.motion.ekf import EKFState  # noqa: F401
+from putslam_tpu_torch.ops import rgbd
 from putslam_tpu_torch.slam_map import features_map as fm
 from putslam_tpu_torch.utils.device import as_tensor, resolve_device
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows, take_row
@@ -88,20 +96,23 @@ class SlamOutputs(NamedTuple):
     anchor_pose: torch.Tensor   # (7,) the anchor keyframe pose at emit time
 
 
+UNCERTAINTY_MODELS = ("sensor", "normal", "gradient")
+
+
 def check_config(cfg: SlamConfig) -> None:
-    """Raise NotImplementedError for every option this port lacks."""
+    """Raise NotImplementedError for an option value the port does not
+    know (a solver, grid policy, descriptor, acceptance or uncertainty
+    model by another name)."""
     vo_mod.check_vo_config(cfg)
     opt_mod.check_backend_config(cfg.backend)
-    unported = [
-        (cfg.map.use_uncertainty, "map.use_uncertainty"),
-        (cfg.matcher.max_mates > 1, "matcher.max_mates > 1"),
-        (cfg.matcher.acceptance != "hamming",
-         "matcher.acceptance != 'hamming'"),
-    ]
-    bad = [name for cond, name in unported if cond]
-    if bad:
+    if cfg.matcher.acceptance not in fm.ACCEPTANCES:
         raise NotImplementedError(
-            f"not ported to putslam_tpu_torch yet: {', '.join(bad)}")
+            f"matcher.acceptance={cfg.matcher.acceptance!r} is not known "
+            f"(one of {fm.ACCEPTANCES})")
+    if cfg.map.uncertainty_model not in UNCERTAINTY_MODELS:
+        raise NotImplementedError(
+            f"map.uncertainty_model={cfg.map.uncertainty_model!r} is not "
+            f"known (one of {UNCERTAINTY_MODELS})")
 
 
 def _obs_info(cfg: SlamConfig) -> float:
@@ -109,6 +120,54 @@ def _obs_info(cfg: SlamConfig) -> float:
     Euclidean RANSAC gate."""
     sigma = cfg.ransac.inlier_threshold_euclidean / 2.0
     return 1.0 / (sigma * sigma)
+
+
+def _full_obs_info(cfg: SlamConfig, uv, xyz, dirs=None):
+    """Per-observation 3×3 information matrices from the depth-sensor noise
+    model, or None when the engine runs with scalar weights
+    (``add_observations`` then stores zeros). ``dirs``: optional (N, 3)
+    anisotropy directions (surface normals or image-gradient directions,
+    per ``cfg.map.uncertainty_model``): the covariance is shrunk along them
+    before the inversion; zero rows leave the sensor model as it is."""
+    if not cfg.map.use_uncertainty:
+        return None
+    z = torch.clamp(xyz[..., 2], min=cfg.camera.min_depth)
+    cov = uncertainty_mod.point_covariance(cfg.camera, uv, z)
+    if dirs is not None:
+        if cfg.map.uncertainty_model == "normal":
+            shaped = uncertainty_mod.normal_scaled_covariance(
+                cov, dirs, cfg.map.scale_uncertainty_normal)
+        else:
+            shaped = uncertainty_mod.gradient_scaled_covariance(
+                cov, dirs, cfg.map.scale_uncertainty_gradient)
+        have = torch.linalg.norm(dirs, dim=-1) > 1e-6
+        cov = torch.where(have[:, None, None], shaped, cov)
+    return uncertainty_mod.inv3x3(cov)
+
+
+def _obs_dirs(cfg: SlamConfig, gray, depth, feat: Features):
+    """(N, 3) anisotropy directions of the configured uncertainty model, or
+    None for the plain sensor model: surface normals sampled at the feature
+    pixels, or lifted image-gradient directions."""
+    model = cfg.map.uncertainty_model
+    if not cfg.map.use_uncertainty or model == "sensor":
+        return None
+    if model == "normal":
+        nm = rgbd.surface_normals(cfg.camera, depth)            # (H, W, 3)
+        iu = torch.clamp(torch.round(feat.uv[:, 0]).long(), 0,
+                         cfg.camera.width - 1)
+        iv = torch.clamp(torch.round(feat.uv[:, 1]).long(), 0,
+                         cfg.camera.height - 1)
+        return nm[iv, iu]
+    if model == "gradient":
+        z = torch.clamp(feat.xyz[..., 2], min=cfg.camera.min_depth)
+        return rgbd.gradient_directions_3d(cfg.camera, gray, feat.uv, z)
+    raise ValueError(model)
+
+
+def _rows(x, idx):
+    """``x[idx]``, or None for no ``x``."""
+    return None if x is None else x[idx]
 
 
 def _landmark_indices_for(m: fm.MapState, pose, feat: Features):
@@ -146,7 +205,9 @@ def slam_init(cfg: SlamConfig, gray, depth, init_pose=None,
         g, kf_idx.expand(N), lm_idx, feat.xyz,
         torch.full((N,), _obs_info(cfg), dtype=torch.float32, device=dev),
         feat.has_depth & (lm_dist < 1e-4),
-        gen=m.lm_gen[lm_idx], kf_gen=m.kf_gen[kf_idx].expand(N))
+        gen=m.lm_gen[lm_idx], kf_gen=m.kf_gen[kf_idx].expand(N),
+        info=_full_obs_info(cfg, feat.uv_undist, feat.xyz,
+                            _obs_dirs(cfg, gray, depth, feat)))
     K = cfg.map.max_keyframes
     V = cfg.loop_closure.vocab_size
     Q = cfg.loop_closure.queue_capacity
@@ -189,10 +250,14 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
 
     feat = detect_and_describe(cfg, gray, depth)
     N = feat.capacity
+    obs_dirs = _obs_dirs(cfg, gray, depth, feat)
 
     # ---- 1. frame-to-frame VO prediction --------------------------------
     degraded = state.health < cfg.matcher.degraded_health_ratio
-    vo_res = vo_mod.vo_step(cfg, state.prev_feat, feat, u=uniforms("vo"))
+    vo_res = vo_mod.vo_step(
+        cfg, state.prev_feat, feat, u=uniforms("vo"), generator=generator,
+        force_retry=degraded,
+        u_retry=None if draws is None else draws.get("vo_retry"))
     pose_pred = se3.compose(state.pose, vo_res.rel_pose)
     ekf_pred = state.ekf
     if cfg.motion_model.enabled:
@@ -203,18 +268,54 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
                                 ekf_mod.predicted_pose(ekf_pred))
 
     # ---- 2. guided map matching + absolute-pose RANSAC, retry ladder ----
-    def run_guided(scale, u, thr_scale=1.0):
-        rcfg = cfg.ransac if thr_scale == 1.0 else dataclasses.replace(
-            cfg.ransac, inlier_threshold_euclidean=(
-                cfg.ransac.inlier_threshold_euclidean * thr_scale))
-        gm_s = fm.guided_match(cfg, m0, pose_pred, feat, radius_scale=scale)
+    def run_guided(scale, u, hamming_slack=0.0, thr_scale=1.0):
+        rcfg = vo_mod.widened_ransac(cfg.ransac, thr_scale)
+        if cfg.matcher.max_mates > 1:
+            # multi-mate band acceptance: every landmark contributes up to
+            # max_mates candidate pairs and RANSAC arbitrates
+            pr = fm.guided_match_pairs(cfg, m0, pose_pred, feat,
+                                       radius_scale=scale,
+                                       hamming_slack=hamming_slack)
+            fi = pr.feat_idx.long()
+            lm = pr.lm_idx.long()
+            p_s = feat.xyz[fi]                                    # (P, 3)
+            info_s = _full_obs_info(cfg, feat.uv_undist[fi], p_s,
+                                    _rows(obs_dirs, fi))
+            res_c = ransac_mod.estimate(rcfg, cfg.camera, p_s, m0.lm_pos[lm],
+                                        pr.valid, u=u, info=info_s)
+            inl = res_c.inliers & pr.valid
+            i32 = dict(dtype=torch.int32, device=dev)
+            # off entries point at landmark 0 with a neutral value; amax /
+            # amin over duplicates is deterministic
+            inliers_L = torch.zeros((L,), **i32).scatter_reduce(
+                0, lm, inl.to(torch.int32), "amax") > 0
+            inf = torch.full_like(pr.dist, np.inf)
+            # representative mate per landmark: its best-distance inlier pair
+            bestd = torch.full((L,), np.inf, dtype=pr.dist.dtype,
+                               device=dev).scatter_reduce(
+                0, lm, torch.where(inl, pr.dist, inf), "amin")
+            rep = inl & (pr.dist == bestd[lm])
+            fidx_L = torch.full((L,), -1, **i32).scatter_reduce(
+                0, lm, torch.where(rep, pr.feat_idx,
+                                   torch.full_like(pr.feat_idx, -1)), "amax")
+            valid_L = torch.zeros((L,), **i32).scatter_reduce(
+                0, lm, pr.valid.to(torch.int32), "amax") > 0
+            gm_s = fm.GuidedMatchResult(fidx_L, bestd, valid_L,
+                                        pr.n_candidates)
+            return gm_s, res_c._replace(inliers=inliers_L)
+        gm_s = fm.guided_match(cfg, m0, pose_pred, feat, radius_scale=scale,
+                               hamming_slack=hamming_slack)
         # compact the matched landmarks to the feature capacity
         sel = nonzero_fixed(gm_s.valid, N, -1)
         on = sel >= 0
         safe_lm = torch.clamp(sel, min=0)
-        idx_s = torch.clamp(gm_s.feat_idx[safe_lm], 0, N - 1)
-        res_c = ransac_mod.estimate(rcfg, cfg.camera, feat.xyz[idx_s],
-                                    m0.lm_pos[safe_lm], on, u=u)
+        idx_s = torch.clamp(gm_s.feat_idx[safe_lm], 0, N - 1).long()
+        p_s = feat.xyz[idx_s]
+        # per-match sensor information feeds the Mahalanobis error model
+        info_s = _full_obs_info(cfg, feat.uv_undist[idx_s], p_s,
+                                _rows(obs_dirs, idx_s))
+        res_c = ransac_mod.estimate(rcfg, cfg.camera, p_s, m0.lm_pos[safe_lm],
+                                    on, u=u, info=info_s)
         inliers_L = set_rows(torch.zeros((L,), dtype=torch.bool, device=dev),
                              torch.where(on, sel, torch.full_like(sel, L)),
                              res_c.inliers & on)
@@ -228,8 +329,11 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
         need_retry = (~res_map.ok) | degraded | \
             (res_map.inlier_ratio < cfg.matcher.retry_inlier_ratio)
         if bool(need_retry):
+            # each widening also relaxes the Hamming gate and the RANSAC
+            # inlier thresholds
             gm2, res2 = run_guided(
                 scale, uniforms(f"retry{attempt}"),
+                hamming_slack=(attempt + 1) * cfg.matcher.retry_hamming_slack,
                 thr_scale=cfg.matcher.retry_threshold_growth ** (attempt + 1))
             # rescue only: adopt the widened pass when the strict one failed
             better = res2.ok & ~res_map.ok
@@ -284,7 +388,9 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
             g, kf_idx_new.expand(L),
             torch.arange(L, dtype=torch.int32, device=dev), p_cam,
             torch.full((L,), _obs_info(cfg), dtype=torch.float32, device=dev),
-            matched_lm, gen=m.lm_gen, kf_gen=m.kf_gen[kf_idx_new].expand(L))
+            matched_lm, gen=m.lm_gen, kf_gen=m.kf_gen[kf_idx_new].expand(L),
+            info=_full_obs_info(cfg, feat.uv_undist[fidx], p_cam,
+                                _rows(obs_dirs, fidx)))
         rel_kf = se3.relative(state.last_kf_pose, pose_new)
         add_pp = (n_matched < cfg.map.max_measurements_pose_to_pose) \
             if cfg.map.add_pose_to_pose_edges else False

@@ -1,7 +1,9 @@
 """Frame-to-frame visual odometry.
 
 Port of ``putslam_tpu/models/vo.py``. Version 0: detect → describe →
-Hamming matmul cross-check matching → lift to 3D → RANSAC. Version 1
+Hamming matmul cross-check matching → lift to 3D → RANSAC, with the
+widened-gate rescue of a failed match when ``retry_hamming_slack > 0``.
+Version 1
 (tracking): pyramidal KLT of the previous frame's features → lift →
 RANSAC, refilling lost tracks from a fresh level-0 FAST detection. Both
 have the translation sanity gate that turns implausible jumps into the
@@ -27,7 +29,7 @@ from putslam_tpu_torch.frontend.detector import Features, detect_and_describe
 from putslam_tpu_torch.geometry import camera as camera_mod
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.ops import fast as fast_mod
-from putslam_tpu_torch.ops import klt, matching
+from putslam_tpu_torch.ops import brief, klt, matching
 from putslam_tpu_torch.utils.device import as_tensor, resolve_device
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows
 
@@ -41,46 +43,83 @@ class VOStepResult(NamedTuple):
 
 
 def check_vo_config(cfg: SlamConfig) -> None:
-    """Raise for the VO options this port does not implement yet."""
+    """Raise NotImplementedError for a VO version, grid policy or descriptor
+    the port does not know, ValueError for an unknown RANSAC error model."""
     if cfg.vo_version not in (0, 1):
         raise NotImplementedError(
             f"vo_version={cfg.vo_version} is not ported yet")
-    if cfg.matcher.retry_hamming_slack > 0:
+    if cfg.ransac.error_version not in (0, 1, 2, 3, 4):
+        raise ValueError(
+            f"unsupported error_version {cfg.ransac.error_version}")
+    if cfg.detector.grid_policy not in fast_mod.GRID_POLICIES:
         raise NotImplementedError(
-            "matcher.retry_hamming_slack > 0 is not ported yet")
-    if cfg.ransac.error_version != 0:
+            f"detector.grid_policy={cfg.detector.grid_policy!r} is not known "
+            f"(one of {fast_mod.GRID_POLICIES})")
+    if cfg.detector.descriptor not in brief.KINDS:
         raise NotImplementedError(
-            f"ransac.error_version={cfg.ransac.error_version} is not ported yet")
-    if cfg.ransac.quality_tau > 0.0:
-        raise NotImplementedError("ransac.quality_tau > 0 is not ported yet")
-    if cfg.detector.grid_policy != "subtile":
-        raise NotImplementedError(
-            f"detector.grid_policy={cfg.detector.grid_policy!r} is not "
-            "ported yet")
-    if cfg.detector.descriptor != "brief":
-        raise NotImplementedError(
-            f"detector.descriptor={cfg.detector.descriptor!r} is not ported "
-            "yet")
+            f"detector.descriptor={cfg.detector.descriptor!r} is not known "
+            f"(one of {brief.KINDS})")
+
+
+def widened_ransac(rcfg, growth: float):
+    """``rcfg`` with its three inlier thresholds scaled by ``growth`` (the
+    gate of a retry on a degraded frame)."""
+    if growth == 1.0:
+        return rcfg
+    return dataclasses.replace(
+        rcfg,
+        inlier_threshold_euclidean=rcfg.inlier_threshold_euclidean * growth,
+        inlier_threshold_reprojection=(rcfg.inlier_threshold_reprojection
+                                       * growth),
+        inlier_threshold_mahalanobis=(rcfg.inlier_threshold_mahalanobis
+                                      * growth))
 
 
 def vo_step(cfg: SlamConfig, prev: Features, curr: Features,
             u: Optional[torch.Tensor] = None,
-            generator: Optional[torch.Generator] = None) -> VOStepResult:
+            generator: Optional[torch.Generator] = None,
+            force_retry=False,
+            u_retry: Optional[torch.Tensor] = None) -> VOStepResult:
     """Relative pose of the current frame w.r.t. the previous one:
     T minimising ‖T·xyz_curr − xyz_prev‖ (new_pose = prev_pose ∘ T).
-    ``u``: optional RANSAC uniforms, else drawn from ``generator``."""
+    ``u``: optional RANSAC uniforms, else drawn from ``generator``.
+
+    With ``matcher.retry_hamming_slack > 0`` a failed or starved match (or
+    ``force_retry``, a bool or 0-d tensor) runs once more with the Hamming
+    gate widened by the slack and the RANSAC thresholds by
+    ``retry_threshold_growth`` (uniforms ``u_retry``), and the second result
+    is adopted only when the strict pass failed outright. The decision to
+    run it is made on the host (one sync), where the JAX package has a
+    ``lax.cond``."""
+    mc = cfg.matcher
     dist = matching.hamming_matrix(prev.desc, curr.desc, prev.valid, curr.valid)
-    m = matching.mutual_nn(dist, cfg.matcher.max_hamming)
-    p = curr.xyz[m.idx_b]
-    q = prev.xyz
-    valid = m.valid & prev.has_depth & curr.has_depth[m.idx_b]
-    res = ransac_mod.estimate(cfg.ransac, cfg.camera, p, q, valid, u=u,
-                              generator=generator)
+
+    def match_and_estimate(max_hamming, rcfg, uniforms):
+        m = matching.mutual_nn(dist, max_hamming)
+        p = curr.xyz[m.idx_b]
+        valid = m.valid & prev.has_depth & curr.has_depth[m.idx_b]
+        res = ransac_mod.estimate(rcfg, cfg.camera, p, prev.xyz, valid,
+                                  u=uniforms, generator=generator)
+        return torch.sum(valid).to(torch.int32), res
+
+    n_matches, res = match_and_estimate(mc.max_hamming, cfg.ransac, u)
+    if mc.retry_hamming_slack > 0:
+        starved = (~res.ok) | (res.inlier_ratio < mc.retry_inlier_ratio) \
+            | force_retry
+        if bool(starved):
+            n2, r2 = match_and_estimate(
+                mc.max_hamming + mc.retry_hamming_slack,
+                widened_ransac(cfg.ransac, mc.retry_threshold_growth),
+                u_retry)
+            better = r2.ok & ~res.ok
+            n_matches = torch.where(better, n2, n_matches)
+            res = type(res)(*(torch.where(better, a, b)
+                              for a, b in zip(r2, res)))
     too_far = torch.linalg.norm(se3.translation(res.pose)) > cfg.max_vo_translation
     rel = torch.where(too_far, se3.identity(dtype=res.pose.dtype,
                                             device=res.pose.device), res.pose)
-    return VOStepResult(rel, torch.sum(valid).to(torch.int32), res.n_inliers,
-                        res.inlier_ratio, res.ok & ~too_far)
+    return VOStepResult(rel, n_matches, res.n_inliers, res.inlier_ratio,
+                        res.ok & ~too_far)
 
 
 def detect_sequence(cfg: SlamConfig, grays, depths):

@@ -86,14 +86,22 @@ def grid_topk(score: torch.Tensor, grid_rows: int, grid_cols: int,
     tiles = tiles.reshape(nsh * nsw, sub_h * sub_w)
     tile_best = torch.amax(tiles, dim=1)
     tile_arg = torch.argmax(tiles, dim=1)      # first maximum, as jnp.argmax
-    s =torch.arange(nsh * nsw, device=score.device)
+    s = torch.arange(nsh * nsw, device=score.device)
     cy = (s // nsw) * sub_h + tile_arg // sub_w
     cx = (s % nsw) * sub_w + tile_arg % sub_w
 
-    k = min(max_features, tile_best.shape[0])
-    top_scores, order = torch.sort(tile_best, descending=True, stable=True)
+    return _global_cap(tile_best, cx, cy, max_features)
+
+
+def _global_cap(cand_score, cand_x, cand_y, max_features: int):
+    """The global top-``max_features`` of the flat candidates, by a stable
+    descending sort (equal scores lowest index first, as ``lax.top_k``),
+    padded to ``max_features`` slots."""
+    k = min(max_features, cand_score.shape[0])
+    top_scores, order = torch.sort(cand_score, descending=True, stable=True)
     top_scores, top_idx = top_scores[:k], order[:k]
-    uv = torch.stack([cx[top_idx].float(), cy[top_idx].float()], dim=-1)
+    uv = torch.stack([cand_x[top_idx].float(), cand_y[top_idx].float()],
+                     dim=-1)
     valid = top_scores > 0.0
     uv = torch.where(valid[:, None], uv, torch.full_like(uv, -1.0))
     if k < max_features:
@@ -102,6 +110,32 @@ def grid_topk(score: torch.Tensor, grid_rows: int, grid_cols: int,
         top_scores = F.pad(top_scores, (0, pad))
         valid = F.pad(valid, (0, pad))
     return uv, torch.where(valid, top_scores, torch.zeros_like(top_scores)), valid
+
+
+def grid_topk_exact(score: torch.Tensor, grid_rows: int, grid_cols: int,
+                    max_features: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact per-cell top-k: every grid cell keeps its ``k_cell`` strongest
+    responses (a stable descending sort of the whole cell, so ties and the
+    zeros of an empty cell come lowest index first, as ``lax.top_k`` gives
+    them), then the global top-``max_features``. Same outputs as
+    ``grid_topk``."""
+    H, W = score.shape
+    k_cell = -(-max_features // (grid_rows * grid_cols)) * 2
+    cell_h = -(-H // grid_rows)
+    cell_w = -(-W // grid_cols)
+    padded = F.pad(score, (0, cell_w * grid_cols - W, 0, cell_h * grid_rows - H))
+    cells = padded.reshape(grid_rows, cell_h, grid_cols, cell_w)
+    cells = cells.permute(0, 2, 1, 3).reshape(grid_rows * grid_cols,
+                                              cell_h * cell_w)
+    k_cell = min(k_cell, cell_h * cell_w)
+    c_scores, c_arg = torch.sort(cells, dim=1, descending=True, stable=True)
+    c_scores, c_arg = c_scores[:, :k_cell], c_arg[:, :k_cell]
+    cidx = torch.arange(grid_rows * grid_cols, device=score.device)[:, None]
+    cy = (cidx // grid_cols) * cell_h + c_arg // cell_w
+    cx = (cidx % grid_cols) * cell_w + c_arg % cell_w
+    return _global_cap(c_scores.reshape(-1), cx.reshape(-1), cy.reshape(-1),
+                       max_features)
 
 
 def subpixel_refine(score: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
@@ -125,6 +159,9 @@ def subpixel_refine(score: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
                              torch.clamp(ov, -0.5, 0.5)], dim=-1)
 
 
+GRID_POLICIES = ("subtile", "exact")
+
+
 def detect(gray: torch.Tensor, threshold: float, nms_radius: int,
            grid_rows: int, grid_cols: int, max_features: int,
            grid_policy: str = "subtile", maps=None):
@@ -132,16 +169,18 @@ def detect(gray: torch.Tensor, threshold: float, nms_radius: int,
     ``maps`` is this level's (raw, nms) pair where the caller already has it
     from the one launch over all levels of the frame; without it the level
     gets a launch of its own (the plain version on the CPU). Returns
-    (uv (K,2), response (K,), valid (K,))."""
-    if grid_policy != "subtile":
+    ``grid_policy``: "subtile" (one winner per subtile) or "exact" (per-cell
+    top-k). Returns (uv (K,2), response (K,), valid (K,))."""
+    if grid_policy not in GRID_POLICIES:
         raise NotImplementedError(
-            f"detector.grid_policy={grid_policy!r} is not ported yet "
-            "(only 'subtile')")
+            f"detector.grid_policy={grid_policy!r} is not known "
+            f"(one of {GRID_POLICIES})")
     if maps is None:
         from putslam_tpu_torch.ops.fast_cuda import fast_score_nms
 
         maps = fast_score_nms(gray, threshold, nms_radius)
     raw, s = maps
-    uv, resp, valid = grid_topk(s, grid_rows, grid_cols, max_features)
+    cap = grid_topk if grid_policy == "subtile" else grid_topk_exact
+    uv, resp, valid = cap(s, grid_rows, grid_cols, max_features)
     uv = torch.where(valid[:, None], subpixel_refine(raw, uv), uv)
     return uv, resp, valid

@@ -81,6 +81,9 @@ class GuidedMatchResult(NamedTuple):
     n_candidates: torch.Tensor  # () int32 — landmarks with any candidate
 
 
+ACCEPTANCES = ("hamming", "ratio")
+
+
 def _guided_distances(cfg: SlamConfig, m: MapState, pose_guess,
                       feat: Features, radius_scale: float) -> torch.Tensor:
     """(L, N) gated descriptor distances: 3D sphere gate + octave window +
@@ -104,15 +107,100 @@ def _guided_distances(cfg: SlamConfig, m: MapState, pose_guess,
     return torch.where(gate, desc_dist, torch.full_like(desc_dist, math.inf))
 
 
-def guided_match(cfg: SlamConfig, m: MapState, pose_guess, feat: Features,
-                 radius_scale: float = 1.0) -> GuidedMatchResult:
-    """Best frame feature per landmark under the sphere and octave gates,
-    accepted by the absolute Hamming gate (``acceptance="hamming"``)."""
+class GuidedMatchPairs(NamedTuple):
+    """Multi-mate matchXYZ output: a flat (landmark, feature) pair list."""
+
+    lm_idx: torch.Tensor        # (P,) int32
+    feat_idx: torch.Tensor      # (P,) int32
+    dist: torch.Tensor          # (P,) float32
+    valid: torch.Tensor         # (P,) bool
+    n_candidates: torch.Tensor  # () int32 landmarks with any candidate
+
+
+def guided_match_pairs(cfg: SlamConfig, m: MapState, pose_guess,
+                       feat: Features, radius_scale: float = 1.0,
+                       hamming_slack: float = 0.0) -> GuidedMatchPairs:
+    """Band-acceptance multi-mate guided matching: per landmark the best
+    ``cfg.matcher.max_mates`` candidates with ratio·dist ≤ best (and under
+    the absolute Hamming gate) become pairs; the flat pair list is compacted
+    by match quality to ``2 × feat.capacity`` entries for the absolute-pose
+    RANSAC. Off entries point at landmark 0 and feature 0 with dist inf.
+
+    Ties come lowest index first, as ``lax.top_k`` gives them: the k mates
+    of a landmark by k rounds of first-maximum, the compaction by a stable
+    descending sort."""
     mc = cfg.matcher
+    L = m.capacity
+    N = feat.capacity
+    k = max(int(mc.max_mates), 1)
+    dev = m.lm_pos.device
+    dist = _guided_distances(cfg, m, pose_guess, feat, radius_scale)
+    finite = torch.isfinite(dist)
+    best = torch.amin(torch.where(finite, dist, torch.full_like(dist, 1e9)),
+                      dim=1, keepdim=True)
+    band = finite & (mc.matching_xyz_acceptance_ratio * dist <= best) \
+        & (dist <= mc.max_hamming + hamming_slack)
+    neg_inf = torch.full_like(dist, -math.inf)
+    negd = torch.where(band, -dist, neg_inf)
+    vals, idxs = [], []
+    for _ in range(k):
+        v, i = torch.max(negd, dim=1, keepdim=True)      # first maximum
+        vals.append(v)
+        idxs.append(i)
+        negd = negd.scatter(1, i, -math.inf)
+    vals = torch.cat(vals, dim=1)                                    # (L, k)
+    pair_ok = torch.isfinite(vals).reshape(-1)                       # (L·k,)
+    pair_lm = torch.arange(L, dtype=torch.int32,
+                           device=dev).repeat_interleave(k)
+    pair_feat = torch.cat(idxs, dim=1).reshape(-1).to(torch.int32)
+    pair_dist = (-vals).reshape(-1)
+    P = 2 * N
+    sel_negd = torch.where(pair_ok, -pair_dist,
+                           torch.full_like(pair_dist, -math.inf))
+    top_vals, sel = torch.sort(sel_negd, descending=True, stable=True)
+    top_vals, sel = top_vals[:P], sel[:P]
+    if sel.shape[0] < P:
+        pad = P - sel.shape[0]
+        sel = torch.nn.functional.pad(sel, (0, pad))
+        top_vals = torch.nn.functional.pad(top_vals, (0, pad),
+                                           value=-math.inf)
+    on = torch.isfinite(top_vals)
+    zero = torch.zeros_like(pair_lm[sel])
+    return GuidedMatchPairs(
+        lm_idx=torch.where(on, pair_lm[sel], zero),
+        feat_idx=torch.where(on, pair_feat[sel], zero),
+        dist=torch.where(on, -top_vals, torch.full_like(top_vals, math.inf)),
+        valid=on,
+        n_candidates=torch.sum(torch.any(finite, dim=1)).to(torch.int32))
+
+
+def guided_match(cfg: SlamConfig, m: MapState, pose_guess, feat: Features,
+                 radius_scale: float = 1.0,
+                 hamming_slack: float = 0.0) -> GuidedMatchResult:
+    """Best frame feature per landmark under the sphere and octave gates,
+    accepted by the absolute Hamming gate (``acceptance="hamming"``) or,
+    with ``acceptance="ratio"``, only where it also beats the second-best
+    candidate by the acceptance ratio (a single candidate is distinct).
+    ``hamming_slack`` widens the absolute gate."""
+    mc = cfg.matcher
+    if mc.acceptance not in ACCEPTANCES:
+        raise NotImplementedError(
+            f"matcher.acceptance={mc.acceptance!r} is not known "
+            f"(one of {ACCEPTANCES})")
     dist = _guided_distances(cfg, m, pose_guess, feat, radius_scale)
     best_idx = torch.argmin(dist, dim=1).to(torch.int32)
-    best = torch.amin(dist, dim=1)
-    ok = torch.isfinite(best) & (best <= mc.max_hamming)
+    if mc.acceptance == "ratio":
+        two = torch.topk(torch.where(torch.isfinite(dist), dist,
+                                     torch.full_like(dist, 1e9)),
+                         2, dim=1, largest=False, sorted=True).values
+        best, second = two[:, 0], two[:, 1]
+        distinct = (best <= mc.matching_xyz_acceptance_ratio * second) \
+            | (second >= 1e9)
+        ok = (best < 1e9) & (best <= mc.max_hamming + hamming_slack) \
+            & distinct
+    else:
+        best = torch.amin(dist, dim=1)
+        ok = torch.isfinite(best) & (best <= mc.max_hamming + hamming_slack)
     n_cand = torch.sum(torch.any(torch.isfinite(dist), dim=1)).to(torch.int32)
     return GuidedMatchResult(best_idx,
                              torch.where(ok, best, torch.full_like(best, math.inf)),
@@ -159,7 +247,7 @@ def add_landmarks(cfg: SlamConfig, m: MapState, pose, feat: Features,
     fresh = torch.zeros_like(m.lm_slot_used[:1])
     fresh[:, 0] = True
     used = set_rows(m.lm_slot_used, slot, fresh)
-    gen =set_rows(m.lm_gen, slot, m.lm_gen[torch.clamp(slot, max=L - 1)] + 1)
+    gen = set_rows(m.lm_gen, slot, m.lm_gen[torch.clamp(slot, max=L - 1)] + 1)
     return m._replace(
         lm_pos=set_rows(m.lm_pos, slot, xyz_w[safe_cand]),
         lm_desc=torch.cat([desc[:, None], m.lm_desc[:, 1:]], dim=1),

@@ -12,6 +12,14 @@ import torch
 from putslam_tpu_torch.convert import config_from_jax as port_cfg  # noqa: F401
 
 torch.set_num_threads(1)   # tier-1 runs several xdist workers
+try:
+    # numpy's BLAS too: building an LDB bank makes thousands of small
+    # matrix-vector products, and six workers with a pool of threads each
+    # take 100 s for what one thread does in a second
+    import threadpoolctl
+    threadpoolctl.threadpool_limits(1, "blas")
+except ImportError:
+    pass
 
 
 def t(x, dtype=None):

@@ -81,6 +81,44 @@ def test_detect_and_describe_matches_jax(frames, i):
                                atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("policy,kind", [("exact", "brief"),
+                                         ("subtile", "ldb"),
+                                         ("exact", "ldb")])
+def test_detect_and_describe_options_match_jax(frames, policy, kind):
+    """The exact grid cap and the LDB descriptor through the detector, held
+    as the default path is: level-0 keypoints exact, ≥ 99 % of all levels
+    identical, descriptor bits exact where both found the keypoint."""
+    import dataclasses
+
+    cfg, g, d = frames
+    cfg = cfg.replace(detector=dataclasses.replace(
+        cfg.detector, grid_policy=policy, descriptor=kind))
+    fj = jdet.detect_and_describe(cfg, jnp.asarray(g[1]), jnp.asarray(d[1]))
+    ft = tdet.detect_and_describe(port_cfg(cfg), t(g[1]), t(d[1]))
+    vj, vt = np.asarray(fj.valid), n(ft.valid)
+    lvl0 = np.asarray(fj.octave) == 0
+    np.testing.assert_array_equal(vt[lvl0], vj[lvl0])
+    np.testing.assert_array_equal(n(ft.uv)[lvl0], np.asarray(fj.uv)[lvl0])
+    same = vj & vt & (np.abs(n(ft.uv) - np.asarray(fj.uv)).max(-1) < 1e-3)
+    assert vj.sum() > 50
+    assert same.sum() >= 0.99 * max(vj.sum(), vt.sum()), (same.sum(), vj.sum())
+    np.testing.assert_array_equal(n(ft.desc)[same], np.asarray(fj.desc)[same])
+    base = tdet.detect_and_describe(port_cfg(frames[0]), t(g[1]), t(d[1]))
+    assert not np.array_equal(n(base.desc), n(ft.desc)) or \
+        not np.array_equal(n(base.uv), n(ft.uv))
+
+
+def test_detect_and_describe_rejects_unknown_names(frames):
+    import dataclasses
+
+    cfg, g, d = frames
+    for over in (dict(descriptor="orb"), dict(grid_policy="anms")):
+        bad = port_cfg(cfg.replace(detector=dataclasses.replace(
+            cfg.detector, **over)))
+        with pytest.raises(NotImplementedError):
+            tdet.detect_and_describe(bad, t(g[0]), t(d[0]))
+
+
 def test_detect_and_describe_makes_one_call_for_all_levels(frames, monkeypatch):
     """The pyramid is built first and FAST + NMS of every level is one call
     of fast_score_nms_levels (one kernel launch on the card); the per-level

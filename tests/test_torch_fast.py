@@ -174,6 +174,27 @@ def test_access_width_follows_pitch_and_alignment():
 
 
 def test_detect_rejects_unported_grid_policy():
-    with pytest.raises(NotImplementedError):
-        tfast.detect(t(_image((96, 128), False)), 20.0, 3, 3, 4, 96,
-                     grid_policy="exact")
+    """Both policies of the JAX package run; a policy by another name is
+    what is left to reject."""
+    img = t(_image((96, 128), False))
+    for policy in ("quadtree", ""):
+        with pytest.raises(NotImplementedError):
+            tfast.detect(img, 20.0, 3, 3, 4, 96, grid_policy=policy)
+    for policy in tfast.GRID_POLICIES:
+        uv, resp, valid = tfast.detect(img, 20.0, 3, 3, 4, 96,
+                                       grid_policy=policy)
+        assert uv.shape == (96, 2) and int(valid.sum()) > 0
+
+
+@pytest.mark.parametrize("quantised", [False, True])
+def test_detect_exact_policy_matches_jax(quantised):
+    """detect(grid_policy="exact") on a random and on a uint8-quantised
+    (tie-heavy) image: keypoints, responses and masks exactly equal."""
+    img = _image((96, 128), quantised)
+    ref = jfast.detect(jnp.asarray(img), 20.0, 3, 3, 4, 96,
+                       grid_policy="exact")
+    got = tfast.detect(t(img), 20.0, 3, 3, 4, 96,
+                       grid_policy="exact")
+    assert int(np.asarray(ref[2]).sum()) > 10
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(n(a), np.asarray(b))

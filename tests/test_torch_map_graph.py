@@ -187,6 +187,37 @@ def test_add_observations(prefill):
                       jgraph.prune_observations(ref, jnp.asarray(drop)))
 
 
+@pytest.mark.parametrize("prefill", [0, 4000])
+def test_add_observations_stores_info(prefill):
+    """``info=``: the (N, 3, 3) matrices land in the slots of their
+    observations (masked rows nowhere), exactly; without it the slots are
+    zeroed. The state with stored matrices crosses convert both ways."""
+    rng = np.random.default_rng(4)
+    g = jgraph.init_graph(CFG.backend.max_observations,
+                          CFG.backend.max_pose_pose_edges)
+    g = g._replace(obs_info=jnp.asarray(rng.normal(
+        size=g.obs_info.shape).astype(np.float32)))
+    if prefill:
+        g = g._replace(obs_valid=jnp.asarray(
+            np.arange(g.obs_capacity) < prefill), n_obs=jnp.int32(prefill),
+            obs_seq=jnp.arange(g.obs_capacity, dtype=jnp.int32))
+    kf, lm, xyz, w, mask, gen, kfg = _obs_batch(rng, 512, 32)
+    info = rng.normal(size=(512, 3, 3)).astype(np.float32)
+    for inf in (info, None):
+        ref = jgraph.add_observations(
+            g, *map(jnp.asarray, (kf, lm, xyz, w, mask)), gen=jnp.asarray(gen),
+            kf_gen=jnp.asarray(kfg),
+            info=None if inf is None else jnp.asarray(inf))
+        got = tgraph.add_observations(
+            to_port(g), *map(t, (kf, lm, xyz, w, mask)), gen=t(gen),
+            kf_gen=t(kfg), info=None if inf is None else t(inf))
+        assert_tree_close(got, ref, atol=0)
+    back = convert.to_numpy(got)
+    np.testing.assert_array_equal(back.obs_info, np.asarray(ref.obs_info))
+    stored = np.asarray(ref.obs_info)
+    assert (np.abs(stored).sum(axis=(1, 2)) == 0).sum() == int(mask.sum())
+
+
 @pytest.mark.parametrize("n_pp,valid", [(0, True), (66, True), (5, False)])
 def test_add_pose_pose(n_pp, valid):
     """n_pp=66 > E=64 wraps the ring; valid=False drops the append."""

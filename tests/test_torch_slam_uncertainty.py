@@ -1,0 +1,14 @@
+"""The slice as a whole with the uncertainty paths (the sensor-noise information matrices shaped by
+surface normals or image gradients, the Mahalanobis RANSAC, the whitened BA;
+the reprojection factor): the port's
+slam_step against the JAX engine frame by frame, as test_torch_slam.py does
+for the main path. Tolerances: test_torch_slam.follow_option_case."""
+
+import pytest
+from test_torch_slam import OPTION_CASES, follow_option_case
+
+
+@pytest.mark.parametrize(
+    "case", [c for c in sorted(OPTION_CASES) if c.startswith(('a_', 'b_', 'c_'))])
+def test_options_follow_jax_frame_by_frame(case, monkeypatch):
+    follow_option_case(case, monkeypatch)

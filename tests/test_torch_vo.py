@@ -111,3 +111,112 @@ def test_vo_step_matches_jax():
     for f in ("n_matches", "n_inliers", "ok"):
         np.testing.assert_array_equal(n(getattr(got, f)),
                                       np.asarray(getattr(ref, f)))
+
+
+def _retry_draws(cfg, key):
+    """The uniforms of vo_step's two RANSAC calls when the rescue branch is
+    compiled in (putslam_tpu/models/vo.py:59-60: the key is split once
+    more, the strict pass draws from the first half, the rescue from the
+    second)."""
+    shape = (cfg.ransac.used_pairs, cfg.ransac.n_hypotheses)
+    k1, k2 = jax.random.split(key)
+    return (t(jax.random.uniform(k1, shape, maxval=1.0)),
+            t(jax.random.uniform(k2, shape, maxval=1.0)))
+
+
+def _degraded_pair(cfg):
+    """Two frames whose depth noise (σ 20 mm) defeats an 8 mm RANSAC gate."""
+    poses = jsyn.orbit_trajectory(3, radius=0.04, yaw_amp=0.03)
+    g, d = jsyn.render_sequence(cfg.camera, poses)
+    noisy = np.asarray(d) + np.random.default_rng(0).normal(
+        0, 0.02, np.asarray(d).shape).astype(np.float32)
+    return [jdet.detect_and_describe(cfg, jnp.asarray(g[i]),
+                                     jnp.asarray(noisy[i])) for i in (0, 1)]
+
+
+@pytest.mark.parametrize("force", [False, True])
+@pytest.mark.parametrize("strict_gate", [0.008, None])
+def test_vo_step_hamming_slack_rescue_matches_jax(strict_gate, force):
+    """retry_hamming_slack=16 with an 8× threshold growth. With the strict
+    8 mm gate the first pass fails on the noisy frames and the widened one
+    is adopted; with the default gate the first pass holds and the rescue
+    runs only when forced, and is not adopted. Pose ≤ 1e-5, counts exact."""
+    import dataclasses
+
+    cfg = tiny_test_config()
+    rc = cfg.ransac if strict_gate is None else dataclasses.replace(
+        cfg.ransac, inlier_threshold_euclidean=strict_gate)
+    cfg = cfg.replace(ransac=rc, matcher=dataclasses.replace(
+        cfg.matcher, retry_hamming_slack=16.0, retry_threshold_growth=8.0))
+    f0, f1 = _degraded_pair(cfg)
+    key = jax.random.PRNGKey(4)
+    u, u_retry = _retry_draws(cfg, key)
+    ref = jvo.vo_step(cfg, key, f0, f1, force_retry=force)
+    p0, p1 = (convert.from_numpy(jax.tree.map(np.asarray, f), "cpu")
+              for f in (f0, f1))
+    got = tvo.vo_step(port_cfg(cfg), p0, p1, u=u, u_retry=u_retry,
+                      force_retry=force)
+    off = cfg.replace(matcher=dataclasses.replace(
+        cfg.matcher, retry_hamming_slack=0.0, retry_threshold_growth=1.0))
+    strict = tvo.vo_step(port_cfg(off), p0, p1, u=u)
+    assert bool(ref.ok)
+    assert bool(strict.ok) == (strict_gate is None)    # the rescue rescued
+    np.testing.assert_allclose(n(got.rel_pose), np.asarray(ref.rel_pose),
+                               atol=1e-5)
+    for f in ("n_matches", "n_inliers", "ok"):
+        np.testing.assert_array_equal(n(getattr(got, f)),
+                                      np.asarray(getattr(ref, f)))
+    if strict_gate is None:         # rescue-only: the strict result stays
+        np.testing.assert_array_equal(n(got.rel_pose), n(strict.rel_pose))
+    # a 0-d tensor forces the retry as the bool does
+    got_t = tvo.vo_step(port_cfg(cfg), p0, p1, u=u, u_retry=u_retry,
+                        force_retry=t(np.asarray(force)))
+    np.testing.assert_array_equal(n(got_t.rel_pose), n(got.rel_pose))
+
+
+def test_widened_ransac_scales_the_three_thresholds():
+    rc = port_cfg(tiny_test_config().ransac)
+    assert tvo.widened_ransac(rc, 1.0) is rc
+    w = tvo.widened_ransac(rc, 4.0)
+    for f in ("inlier_threshold_euclidean", "inlier_threshold_reprojection",
+              "inlier_threshold_mahalanobis"):
+        assert getattr(w, f) == 4.0 * getattr(rc, f)
+    assert w.n_hypotheses == rc.n_hypotheses
+
+
+@pytest.mark.parametrize("over", [
+    dict(ransac=dict(error_version=1)),
+    dict(ransac=dict(error_version=2, quality_tau=10.0)),
+    dict(ransac=dict(error_version=4)),
+    dict(detector=dict(grid_policy="exact")),
+    dict(matcher=dict(retry_hamming_slack=16.0, retry_threshold_growth=2.0)),
+])
+def test_run_vo_accepts_the_options(over):
+    """run_vo of the port with each option on the first 5 frames of a
+    30-frame orbit: a finite trajectory within 2 cm of the truth."""
+    import dataclasses
+
+    cfg = tiny_test_config()
+    cfg = cfg.replace(**{k: dataclasses.replace(getattr(cfg, k), **v)
+                         for k, v in over.items()})
+    poses = np.asarray(jsyn.orbit_trajectory(30, radius=0.10,
+                                             yaw_amp=0.1))[:5]
+    g, d = (np.asarray(x) for x in jsyn.render_sequence(cfg.camera,
+                                                        jnp.asarray(poses)))
+    est, _ = tvo.run_vo(port_cfg(cfg), g, d, init_pose=poses[0], device="cpu")
+    est = n(est)
+    assert est.shape == (5, 7) and np.all(np.isfinite(est))
+    assert np.abs(est[:, :3] - poses[:, :3]).max() < 0.02
+    assert np.abs(est[-1, :3] - est[0, :3]).max() > 0.01       # it moved
+
+
+def test_check_vo_config_rejects_unknown_values():
+    import dataclasses
+
+    cfg = tiny_test_config()
+    with pytest.raises(ValueError):
+        tvo.check_vo_config(port_cfg(cfg.replace(ransac=dataclasses.replace(
+            cfg.ransac, error_version=5))))
+    with pytest.raises(NotImplementedError):
+        tvo.check_vo_config(port_cfg(cfg).replace(vo_version=2))
+    tvo.check_vo_config(port_cfg(cfg))

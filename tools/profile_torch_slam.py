@@ -3,6 +3,7 @@
 
 Usage (repository root, one card):
     python tools/profile_torch_slam.py [--frames 33] [--out results]
+                                       [--uncertainty]
 
 Runs the bench workload (fr1 config, synthetic orbit radius 0.10 / yaw 0.1,
 rendered on the card) through ``run_slam`` twice — as is, and with every
@@ -11,6 +12,10 @@ count, so the keyframe bookkeeping and the in-loop BA run) — under
 ``torch.profiler``. Prints, per workload, the wall time per frame, the
 card's busy share (summed kernel time over wall time) and the kernels by
 device time; writes the same as JSON to ``<out>/profile_torch_slam.json``.
+With ``--uncertainty`` a third workload: the keyframe-dense run with the
+uncertainty path on (``map.use_uncertainty`` with the normal-shaped sensor
+model, ``backend.use_obs_info``, the Mahalanobis RANSAC at a gate of 16
+squared sigmas).
 """
 
 import argparse
@@ -31,6 +36,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=33)
     ap.add_argument("--out", default="results")
+    ap.add_argument("--uncertainty", action="store_true",
+                    help="also profile the keyframe-dense uncertainty run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -53,6 +60,14 @@ def main():
         "keyframe_dense": cfg.replace(map=dataclasses.replace(
             cfg.map, min_keyframe_matches=10_000)),
     }
+    if args.uncertainty:
+        dense = workloads["keyframe_dense"]
+        workloads["keyframe_dense_uncertainty"] = dense.replace(
+            map=dataclasses.replace(dense.map, use_uncertainty=True,
+                                    uncertainty_model="normal"),
+            backend=dataclasses.replace(dense.backend, use_obs_info=True),
+            ransac=dataclasses.replace(dense.ransac, error_version=3,
+                                       inlier_threshold_mahalanobis=16.0))
     report = {"device": smi, "frames": args.frames, "workloads": {}}
     for name, wcfg in workloads.items():
         slam.run_slam(wcfg, grays, depths, init_pose=gt0, device=dev)  # warm
