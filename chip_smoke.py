@@ -67,6 +67,34 @@ Phases (any failed check raises and the script exits non-zero):
      matching (max_mates 3): 1 launch per frame, ATE under the gate,
      frames/s beside phase 5's; LDB descriptor bits on one frame, card
      against CPU.
+ 13. the file player: a 128-frame handheld sequence (fr1_desk's dynamics,
+     ``handheld_trajectory(128, seed=3)``) rendered on the card, written to
+     disk in TUM layout with ``tum.write_tum_dataset`` and a camera.json
+     (under data/, removed at the end), read back (frame count, the
+     first frame equal to the rendered one to the PNG quantisation, 1/255
+     and 1/5000 m), then played through the CLI, ``run --dataset``: the five
+     files, 1 launch per frame, final ATE under the gate; frames/s with and
+     without the read, the decoder that ran (native or python), keyframes
+     and BA calls the covisibility rule made by itself.
+ 14. the host map archive and the global BA: ``run --dataset --global-ba``
+     on that sequence at the defaults of ``global_bundle_adjust``: every
+     keyframe archived, every archived edge on an archived vertex, the
+     polished trajectory finite and its ATE no worse than 1.2 x the
+     unpolished + 1e-4; then 64 of its frames keyframe-dense on a 32-slot
+     keyframe ring that wraps (``run_slam_global``, chunks of 16): more than
+     32 keyframes archived, all that were made. Per absorb its ms and host
+     syncs, per window the ms of host assembly and of the solve, and the
+     count of windows whose solve moved no keyframe.
+ 15. the state tools: the bench run stopped after frame 32, written with
+     ``checkpoint.save_state`` (the generator's state beside it), loaded
+     into a fresh ``slam_init`` state and continued: equal to the
+     uninterrupted run; ``run_playback`` on the bench orbit with the true
+     poses, keyframe-dense: keyframes and landmarks grow, the emitted poses
+     stay on the given ones (median under 15 mm, worst under 80 mm: the map
+     RANSAC's correction and the BA's re-anchoring move them), and with
+     every correction refused and no BA they equal the given ones to 1e-5;
+     phase 5b's final graph through ``g2o.export_graph`` and
+     ``import_graph``: the same vertices and edges.
 Then one JSON line describing the kernel, the nvidia-smi line, and the
 final status line.
 """
@@ -74,10 +102,12 @@ final status line.
 import argparse
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -114,6 +144,27 @@ REPROJ_POSE_TOL = 3e-2
 SOLVER_CHI2_RTOL = 0.02
 # free keyframes in phase 8 (the in-loop BA's window mask)
 SOLVER_WINDOW = 16
+# the file-played handheld sequence (phase 13) and the ring that wraps (14)
+FILE_FRAMES = 128
+WRAP_FRAMES, WRAP_RING, WRAP_CHUNK = 64, 32, 16
+# the reference test's bound on the globally polished trajectory
+# (tests/test_round4.py:250)
+GBA_ATE_FACTOR, GBA_ATE_SLACK = 1.2, 1e-4
+# playback: the emitted pose is the given one moved by the map RANSAC's
+# accepted correction and by the BA's re-anchoring of its keyframe. On this
+# orbit (radius 0.10 m) the emitted poses were 6.3-6.8 mm from the given ones
+# at the median and 22.9-47.5 mm at most in four calls: the median's gate is
+# twice the measured one, the worst frame's is the engine's own bound on an
+# accepted correction (max_map_correction, 0.08 m). The plain run of phase
+# 5b, on its own VO, lies as close to the truth on this orbit (6.7 mm at the
+# median), so these gates alone would pass a playback that ignored the given
+# poses: the second playback refuses every map correction
+# (max_map_correction 0) and runs no BA, so that nothing moves the
+# prediction, and must emit the given poses to float32 rounding
+PLAYBACK_MEDIAN_TOL_M = 0.015
+PLAYBACK_MAX_TOL_M = 0.08
+PLAYBACK_EXACT_TOL = 1e-5
+CHECKPOINT_FRAME = 32
 TIMING_RUNS = 50
 SPIN_CYCLES = 20_000_000   # ~10 ms of the card's clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -226,8 +277,19 @@ def timed(fn, launches):
     return out, time.perf_counter() - t0, launches.launches
 
 
-def run_cli(run_mod, args, files):
-    """run.main(args + --out tmp) → its JSON report; checks the files."""
+def frames_processed(n, chunk):
+    """Frames that ``run_slam`` detects on for an ``n``-frame sequence moved
+    in chunks of ``chunk``: the tail chunk is padded with copies of its last
+    frame (trimmed from the outputs), and each is one kernel launch."""
+    if not chunk or n - 1 <= chunk:
+        return n
+    return 1 + -(-(n - 1) // chunk) * chunk
+
+
+def run_cli(run_mod, args, files, extras=None):
+    """run.main(args + --out tmp) → its JSON report; checks the files.
+    ``extras``: a dict that receives ``stages`` (times.txt: stage → total
+    seconds) and ``stats`` (statistics.txt: key → value)."""
     with tempfile.TemporaryDirectory() as tmp:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -244,6 +306,14 @@ def run_cli(run_mod, args, files):
                            "keyframes", "ba_runs", "map_inliers_median",
                            "map_matches_median", "landmarks_final"],
                   f"statistics.txt keys {keys}")
+        if extras is not None:
+            with open(os.path.join(tmp, "times.txt")) as f:
+                extras["stages"] = {
+                    line.split(":")[0]: float(line.split("(total ")[1].split()[0])
+                    for line in f}
+            with open(os.path.join(tmp, "statistics.txt")) as f:
+                extras["stats"] = {k: float(v) for k, v in
+                                   (line.split() for line in f)}
         return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
@@ -459,12 +529,467 @@ def phase_frontend_options(cfg, grays, depths, gt, dev, ref_s):
           f"descriptor bits {bits:.5f} equal", flush=True)
 
 
+FIVE_FILES = ("VO_trajectory.res", "graph_trajectory.res", "fps.res",
+              "times.txt", "statistics.txt")
+
+
+def phase_file_player(cfg, dev, root, ref_s):
+    """Phase 13. Writes the handheld sequence under ``root`` and plays it
+    through the CLI. ``ref_s``: the seconds phase 5 took in this call for
+    its 64 frames. Returns (rendered grays, depths, ground truth, launches,
+    the CLI report)."""
+    import numpy as np
+
+    from putslam_tpu_torch import run as run_mod
+    from putslam_tpu_torch.io import native_loader, synthetic, tum
+    from putslam_tpu_torch.ops import fast_cuda
+
+    n = FILE_FRAMES
+    t0 = time.perf_counter()
+    poses = synthetic.handheld_trajectory(n, seed=3, device=dev)
+    grays, depths = synthetic.render_sequence(cfg.camera, poses)
+    gt = poses.cpu().numpy()
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    step_t = float(np.median(np.linalg.norm(np.diff(gt[:, :3], axis=0),
+                                            axis=1)))
+    t0 = time.perf_counter()
+    tum.write_tum_dataset(root, grays.cpu().numpy(), depths.cpu().numpy(), gt,
+                          depth_scale=cfg.camera.depth_image_scale)
+    with open(os.path.join(root, "camera.json"), "w") as f:
+        json.dump({"fu": cfg.camera.fu, "fv": cfg.camera.fv,
+                   "cu": cfg.camera.cu, "cv": cfg.camera.cv,
+                   "k1": 0.0, "k2": 0.0, "p1": 0.0, "p2": 0.0, "k3": 0.0,
+                   "width": cfg.camera.width, "height": cfg.camera.height,
+                   "depth_image_scale": cfg.camera.depth_image_scale}, f)
+    t_write = time.perf_counter() - t0
+    size_mb = sum(os.path.getsize(os.path.join(d, x))
+                  for d, _, xs in os.walk(root) for x in xs) / 1e6
+
+    ds = tum.TumDataset(root, depth_scale=cfg.camera.depth_image_scale)
+    check(len(ds) == n, f"file player: {len(ds)} associated frames of {n}")
+    frames = iter(ds)
+    first = next(frames)
+    frames.close()
+    for probe, loader in ((first, ds.loader), (ds[0], "python")):
+        dg = float(np.abs(probe.gray - grays[0].cpu().numpy()).max())
+        dd = float(np.abs(probe.depth - depths[0].cpu().numpy()).max())
+        check(dg <= 1 / 255 and dd <= 1 / cfg.camera.depth_image_scale,
+              f"first frame read back ({loader}) off by {dg:.2e} gray, "
+              f"{dd:.2e} m depth")
+    t0 = time.perf_counter()
+    for _ in ds:
+        pass
+    t_read = time.perf_counter() - t0
+    native = ds.loader
+    t0 = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    t_read_py = time.perf_counter() - t0
+    try:
+        ctypes.CDLL(native_loader._SO_PATH)
+        why = "its library loads"
+    except OSError as e:
+        why = f"its library does not load: {e}"
+    print(f"[13] handheld sequence, {n} frames at {cfg.camera.width}x"
+          f"{cfg.camera.height} (median step {1e3 * step_t:.2f} mm a frame): "
+          f"rendered in {t_render:.2f} s, written in {t_write:.2f} s "
+          f"({1e3 * t_write / n:.1f} ms a frame, {size_mb:.1f} MB); read "
+          f"back: iterating ({native} loader; the native loader: {why}) "
+          f"{1e3 * t_read / n:.2f} ms a frame, indexing (python decoder) "
+          f"{1e3 * t_read_py / n:.2f} ms a frame; first frame within "
+          f"1/255 and 1/{cfg.camera.depth_image_scale:g} m of the rendered "
+          f"one", flush=True)
+
+    # warm-up on a few frames, then the timed run through the CLI
+    run_cli(run_mod, ["--dataset", root, "--max-frames", "4"], FIVE_FILES)
+    extras = {}
+    torch.cuda.synchronize()
+    fast_cuda.fast_score_nms.launches = 0
+    report = run_cli(run_mod, ["--dataset", root], FIVE_FILES, extras)
+    launches = fast_cuda.fast_score_nms.launches
+    check(report["frames"] == n, f"file player ran {report['frames']} frames")
+    n_det = frames_processed(n, 64)      # the CLI's default --chunk
+    check(launches == n_det,
+          f"file player: kernel launches {launches} != {n_det}")
+    check(report["loader"] in ("native", "python"), "no loader reported")
+    stats, stages = extras["stats"], extras["stages"]
+    slam_s, read_s = stages["slam_total"], stages["dataset"]
+    ate = report["ate_rmse_m"]
+    check(ate == ate and report["ate_before_final_m"] == report[
+        "ate_before_final_m"], "file player: ATE not finite")
+    check(ate < ATE_GATE_M, f"file player final ATE {ate:.5f} m over the "
+          f"gate {ATE_GATE_M} m (map ok on {stats['map_ok_fraction']:.3f} of "
+          f"the frames)")
+    print(f"[13] run --dataset (loader {report['loader']}): {report}; "
+          f"{n / slam_s:.2f} SLAM frames/s without the read "
+          f"({1e3 * slam_s / n:.2f} ms/frame), {n / (slam_s + read_s):.2f} "
+          f"with it (read and decode {1e3 * read_s / n:.2f} ms a frame); "
+          f"phase 5 in this call {N_FRAMES / ref_s:.2f} frames/s; launches "
+          f"{launches} ({n} frames and {n_det - n} padded copies of the last "
+          f"in the tail chunk); keyframes {int(stats['keyframes'])} (n_kf "
+          f"{int(stats['keyframes']) + 1} of a {cfg.map.max_keyframes}-slot "
+          f"ring), BA calls {int(stats['ba_runs'])}, VO ok "
+          f"{stats['vo_ok_fraction']:.3f}, map ok "
+          f"{stats['map_ok_fraction']:.3f}, median map inliers "
+          f"{stats['map_inliers_median']:.0f}, landmarks "
+          f"{int(stats['landmarks_final'])}", flush=True)
+    return grays, depths, gt, launches, report
+
+
+@contextlib.contextmanager
+def recorded_archive():
+    """Wraps ``MapArchive.absorb`` and ``global_bundle_adjust`` for the
+    ``with`` block: every absorb is timed (between two synchronisations) and
+    its host syncs counted, and the archive and the last absorbed state's
+    ``n_kf`` are remembered. Inside ``global_bundle_adjust`` every windowed
+    solve (``gauss_newton_mm``) is recorded: its free keyframes and
+    observations, the ms of host work since the solve before it (the
+    window's assembly and upload) and of the solve to its last kernel, and
+    whether any free keyframe moved."""
+    from putslam_tpu_torch.backend import optimize as opt_mod
+    from putslam_tpu_torch.slam_map import archive as archive_mod
+
+    rec = {"absorbs": [], "windows": [], "archive": None, "n_kf": None,
+           "gba_s": 0.0}
+    real_absorb = archive_mod.MapArchive.absorb
+    real_gba = archive_mod.global_bundle_adjust
+    real_solve = opt_mod.gauss_newton_mm
+    mark = [0.0]
+
+    def solve(bcfg, kf_pose, kf_valid, lm_pos, lm_valid, g, fixed, **kw):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = real_solve(bcfg, kf_pose, kf_valid, lm_pos, lm_valid, g, fixed,
+                         **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        free = kf_valid & ~fixed
+        rec["windows"].append(dict(
+            n_free=int(free.sum()), n_obs=int(g.n_obs),
+            assemble_ms=1e3 * (t1 - mark[0]), solve_ms=1e3 * (t2 - t1),
+            moved=not torch.equal(res.kf_pose[free], kf_pose[free])))
+        mark[0] = time.perf_counter()
+        return res
+
+    def absorb(self, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, n_sync = count_syncs(lambda: real_absorb(self, state))
+        rec["absorbs"].append((1e3 * (time.perf_counter() - t0), n_sync))
+        rec["archive"], rec["n_kf"] = self, int(state.map.n_kf)
+
+    def gba(cfg, archive, **kw):
+        t0 = mark[0] = time.perf_counter()
+        opt_mod.gauss_newton_mm = solve
+        try:
+            out = real_gba(cfg, archive, **kw)
+        finally:
+            opt_mod.gauss_newton_mm = real_solve
+        rec["gba_s"] += time.perf_counter() - t0
+        return out
+
+    archive_mod.MapArchive.absorb = absorb
+    archive_mod.global_bundle_adjust = gba
+    try:
+        yield rec
+    finally:
+        archive_mod.MapArchive.absorb = real_absorb
+        archive_mod.global_bundle_adjust = real_gba
+
+
+def check_archive(rec, what):
+    """Every keyframe made is archived and every archived edge points at an
+    archived vertex. Returns the dense arrays."""
+    archive = rec["archive"]
+    check(archive is not None and rec["absorbs"], f"{what}: no absorb ran")
+    check(archive.n_keyframes() == rec["n_kf"],
+          f"{what}: {archive.n_keyframes()} keyframes archived, n_kf "
+          f"{rec['n_kf']}")
+    kf, lm, (obs_kf, obs_lm, *_), (pp_i, pp_j, *_) = archive.dense()
+    check(len(obs_kf) > 0 and obs_kf.min() >= 0 and obs_kf.max() < len(kf)
+          and obs_lm.min() >= 0 and obs_lm.max() < len(lm),
+          f"{what}: an archived observation points outside the archive")
+    check(len(pp_i) == 0 or (min(pp_i.min(), pp_j.min()) >= 0
+                             and max(pp_i.max(), pp_j.max()) < len(kf)),
+          f"{what}: an archived pose-pose edge points outside the archive")
+    return kf, lm, obs_kf, pp_i
+
+
+def print_archive(tag, rec, dense):
+    kf, lm, obs_kf, pp_i = dense
+    ms = sorted(a[0] for a in rec["absorbs"])
+    syncs = sorted({a[1] for a in rec["absorbs"]})
+    win = rec["windows"]
+    stalled = sum(not w["moved"] and w["n_free"] > 0 for w in win)
+    print(f"[14] {tag}: archive {len(kf)} keyframes, {len(lm)} landmarks, "
+          f"{len(obs_kf)} observations, {len(pp_i)} pose-pose edges; "
+          f"{len(ms)} absorbs, {ms[0]:.2f} / {ms[len(ms) // 2]:.2f} / "
+          f"{ms[-1]:.2f} ms (min / median / max), host syncs per absorb "
+          f"{syncs}; global BA {rec['gba_s']:.3f} s, {len(win)} windows: "
+          + "; ".join(f"window {i}: {w['n_free']} free, {w['n_obs']} "
+                      f"observations, assembly and upload "
+                      f"{w['assemble_ms']:.1f} ms, solve {w['solve_ms']:.1f} "
+                      f"ms, {'moved' if w['moved'] else 'moved no keyframe'}"
+                      for i, w in enumerate(win))
+          + f"; windows with free keyframes that moved none: {stalled} of "
+          f"{len(win)}",
+          flush=True)
+
+
+def phase_archive(cfg, dev, root, grays, depths, gt, ref_report):
+    """Phase 14. ``root``: phase 13's sequence on disk; ``grays``,
+    ``depths``, ``gt``: the same frames as rendered; ``ref_report``: phase
+    13's CLI report. Returns the kernel launches of the two runs."""
+    from putslam_tpu_torch import run as run_mod
+    from putslam_tpu_torch.eval import ate as ate_mod
+    from putslam_tpu_torch.models import slam
+    from putslam_tpu_torch.ops import fast_cuda
+
+    n = FILE_FRAMES
+    with recorded_archive() as rec:
+        extras = {}
+        torch.cuda.synchronize()
+        fast_cuda.fast_score_nms.launches = 0
+        report = run_cli(run_mod, ["--dataset", root, "--global-ba"],
+                         FIVE_FILES, extras)
+        launches = fast_cuda.fast_score_nms.launches
+    n_det = frames_processed(n, 64)
+    check(launches == n_det,
+          f"--global-ba: kernel launches {launches} != {n_det}")
+    dense = check_archive(rec, "--global-ba")
+    before, after = report["ate_before_final_m"], report["ate_rmse_m"]
+    check(after == after and before == before, "--global-ba: ATE not finite")
+    check(after <= GBA_ATE_FACTOR * before + GBA_ATE_SLACK,
+          f"--global-ba: polished ATE {after} against {before} unpolished")
+    check(after < ATE_GATE_M, f"--global-ba final ATE {after} over the gate")
+    slam_s = extras["stages"]["slam_total"]
+    print(f"[14] run --dataset --global-ba: {report}; {n / slam_s:.2f} SLAM "
+          f"frames/s with the absorbs and the global BA (phase 13's "
+          f"run_slam_final: {ref_report['fps']}); launches {launches}; ATE "
+          f"unpolished {before:.5f} m, polished {after:.5f} m (phase 13's "
+          f"ring-bounded final optimisation: "
+          f"{ref_report['ate_rmse_m']:.5f} m)", flush=True)
+    print_archive(f"{n} frames, chunks of 64, the covisibility rule's own "
+                  "keyframes", rec, dense)
+
+    # a keyframe ring that wraps: every tracked frame a keyframe, 32 slots,
+    # chunks short enough that no chunk appends more than the ring holds
+    wcfg = cfg.replace(map=dataclasses.replace(
+        cfg.map, max_keyframes=WRAP_RING, min_keyframe_matches=10_000))
+    w = WRAP_FRAMES
+    with recorded_archive() as rec:
+        (pb, pa, outs, state, _), dt, n_launch = timed(
+            lambda: slam.run_slam_global(
+                wcfg, grays[:w], depths[:w], init_pose=gt[0],
+                chunk_size=WRAP_CHUNK, device=dev), fast_cuda.fast_score_nms)
+    w_det = frames_processed(w, WRAP_CHUNK)
+    check(n_launch == w_det,
+          f"wrapped ring: kernel launches {n_launch} != {w_det}")
+    dense = check_archive(rec, "wrapped ring")
+    n_kf = int(state.map.n_kf)
+    check(n_kf > WRAP_RING and len(dense[0]) == n_kf,
+          f"wrapped ring: n_kf {n_kf}, archived {len(dense[0])}, ring "
+          f"{WRAP_RING}")
+    check(int(state.map.kf_valid.sum()) <= WRAP_RING, "ring over capacity")
+    check(bool(torch.isfinite(torch.as_tensor(pa)).all()),
+          "wrapped ring: polished trajectory not finite")
+    ate_b = ate_mod.ate_rmse_aligned_frames(gt[:w], pb)
+    ate_a = ate_mod.ate_rmse_aligned_frames(gt[:w], pa)
+    check(ate_a <= GBA_ATE_FACTOR * ate_b + GBA_ATE_SLACK,
+          f"wrapped ring: polished ATE {ate_a} against {ate_b} unpolished")
+    print(f"[14] {w} frames keyframe-dense on a {WRAP_RING}-slot ring, "
+          f"chunks of {WRAP_CHUNK}: {dt:.3f} s, {w / dt:.2f} frames/s with "
+          f"absorbs and global BA; launches {n_launch}; n_kf {n_kf}, "
+          f"{int(state.map.kf_valid.sum())} in the ring, "
+          f"{len(dense[0])} archived; BA calls {int(outs.ba_ran.sum())}; ATE "
+          f"unpolished {ate_b:.5f} m, polished {ate_a:.5f} m", flush=True)
+    print_archive("wrapped ring", rec, dense)
+    return launches, n_launch
+
+
+def phase_state_tools(cfg, dev, grays, depths, gt, dense_state, dense_poses,
+                      tmp):
+    """Phase 15. ``grays``, ``depths``, ``gt``: the bench orbit;
+    ``dense_state``, ``dense_poses``: phase 5b's final state and its
+    trajectory as the loop emitted it; ``tmp``: a directory for the
+    files. Returns the kernel launches of the checkpointed run and of the
+    playback."""
+    import numpy as np
+
+    from putslam_tpu_torch.io import g2o
+    from putslam_tpu_torch.models import slam
+    from putslam_tpu_torch.ops import fast_cuda
+    from putslam_tpu_torch.utils import checkpoint
+    from putslam_tpu_torch.utils.checkpoint import _leaves
+
+    n, k = grays.shape[0], CHECKPOINT_FRAME
+    counter = fast_cuda.fast_score_nms
+
+    # ---- checkpoint and resume. The RANSAC draws come from a
+    # torch.Generator that lives outside the state: its get_state() is
+    # carried beside the checkpoint and set on the resuming generator
+    def start():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return slam.slam_init(cfg, grays[0], depths[0],
+                              torch.as_tensor(gt[0], device=dev),
+                              device=dev), gen
+
+    torch.cuda.synchronize()
+    counter.launches = 0
+    state, gen = start()
+    state, _ = slam.slam_sequence(cfg, state, grays[1:k + 1], depths[1:k + 1],
+                                  generator=gen)
+    path = os.path.join(tmp, "frame32.npz")
+    t0 = time.perf_counter()
+    checkpoint.save_state(path, state)
+    t_save = time.perf_counter() - t0
+    gen_state = gen.get_state()
+    full_state, full_outs = slam.slam_sequence(
+        cfg, state, grays[k + 1:], depths[k + 1:], generator=gen)
+    n_ckpt = counter.launches
+    check(n_ckpt == n, f"checkpointed run: kernel launches {n_ckpt} != {n}")
+    fresh, gen2 = start()
+    t0 = time.perf_counter()
+    resumed = checkpoint.load_state(path, fresh)
+    t_load = time.perf_counter() - t0
+    check(all(v.device == fresh.pose.device for _, v in _leaves(resumed)),
+          "loaded state not on the card")
+    gen2.set_state(gen_state)
+    res_state, res_outs = slam.slam_sequence(
+        cfg, resumed, grays[k + 1:], depths[k + 1:], generator=gen2)
+    for (name, a), (_, b) in zip(
+            list(_leaves(res_outs)) + list(_leaves(res_state)),
+            list(_leaves(full_outs)) + list(_leaves(full_state))):
+        check(torch.equal(a, b), f"resumed run differs from the "
+              f"uninterrupted one in {name} by "
+              f"{float((a.double() - b.double()).abs().max()):.3e}")
+    print(f"[15] checkpoint after frame {k} ({os.path.getsize(path) / 1e6:.2f}"
+          f" MB, saved in {1e3 * t_save:.0f} ms, loaded in "
+          f"{1e3 * t_load:.0f} ms), resumed into a fresh slam_init state with "
+          f"the generator's state set: frames {k + 1}..{n - 1} and the final "
+          f"state equal the uninterrupted run's exactly ({len(list(_leaves(res_state)))} "
+          f"state leaves, {len(list(_leaves(res_outs)))} outputs); launches "
+          f"{n_ckpt}", flush=True)
+
+    # ---- playback with the true poses. At fr1 the orbit makes no keyframe
+    # by the covisibility rule, so every tracked frame is made one: the map
+    # and the keyframe ring then grow under the given trajectory
+    pcfg = cfg.replace(map=dataclasses.replace(cfg.map,
+                                               min_keyframe_matches=10_000))
+    (est, outs, pstate), dt, n_play = timed(
+        lambda: slam.run_playback(pcfg, grays, depths, gt, device=dev),
+        counter)
+    check(n_play == n, f"playback: kernel launches {n_play} != {n}")
+    check(est.shape == (n, 7) and np.isfinite(est).all(),
+          "playback: trajectory not finite / wrong shape")
+    check(np.array_equal(est[0], gt[0]), "playback: first pose not the given")
+    off_all = np.linalg.norm(est[:, :3] - gt[:, :3], axis=1)
+    off, off_med = float(off_all.max()), float(np.median(off_all))
+    plain_all = np.linalg.norm(dense_poses[:, :3] - gt[:, :3], axis=1)
+    check(off_med < PLAYBACK_MEDIAN_TOL_M and off < PLAYBACK_MAX_TOL_M,
+          f"playback poses {off_med:.4f} m (median) and {off:.4f} m (max) "
+          f"from the given ones, over {PLAYBACK_MEDIAN_TOL_M} / "
+          f"{PLAYBACK_MAX_TOL_M} m")
+    check(bool(outs.vo_ok.all()), "playback reported a VO failure")
+    n_kf, lm0, lm1 = int(pstate.map.n_kf), int(outs.n_landmarks[0]), int(
+        outs.n_landmarks[-1])
+    check(n_kf > n // 2 and lm1 > lm0 > 0,
+          f"playback: n_kf {n_kf}, landmarks {lm0} -> {lm1}")
+    print(f"[15] run_playback, {n}-frame orbit, keyframe-dense: {dt:.3f} s, "
+          f"{n / dt:.2f} frames/s; launches {n_play}; n_kf {n_kf}, BA calls "
+          f"{int(outs.ba_ran.sum())}, landmarks {lm0} -> {lm1}, map ok on "
+          f"{int(outs.map_ok.sum())} of {n - 1}; emitted poses within "
+          f"{1e3 * off:.2f} mm of the given ones (median "
+          f"{1e3 * off_med:.2f} mm: the map RANSAC's correction and the BA's "
+          f"re-anchoring; the plain run of phase 5b: median "
+          f"{1e3 * float(np.median(plain_all)):.2f} mm, max "
+          f"{1e3 * float(plain_all.max()):.2f} mm)", flush=True)
+
+    # the same with every map correction refused and no BA: the prediction
+    # is the given pose and nothing moves it
+    xcfg = pcfg.replace(
+        max_map_correction=0.0, map_correction_growth=0.0,
+        backend=dataclasses.replace(pcfg.backend,
+                                    optimize_every_n_frames=10_000))
+    (est_x, outs_x, xstate), dt_x, n_play_x = timed(
+        lambda: slam.run_playback(xcfg, grays, depths, gt, device=dev),
+        counter)
+    check(n_play_x == n, f"playback: kernel launches {n_play_x} != {n}")
+    err_x = float(np.abs(est_x - gt).max())
+    check(est_x.shape == (n, 7) and err_x < PLAYBACK_EXACT_TOL,
+          f"playback without corrections: emitted poses differ from the "
+          f"given ones by {err_x:.3e}")
+    check(not outs_x.map_ok.any() and not outs_x.ba_ran.any(),
+          "playback without corrections: a correction or a BA ran")
+    n_kf_x, lmx0, lmx1 = int(xstate.map.n_kf), int(outs_x.n_landmarks[0]), \
+        int(outs_x.n_landmarks[-1])
+    check(n_kf_x == n and lmx1 > lmx0 > 0,
+          f"playback without corrections: n_kf {n_kf_x}, landmarks {lmx0} "
+          f"-> {lmx1}")
+    print(f"[15] run_playback with every map correction refused and no BA: "
+          f"{n / dt_x:.2f} frames/s; launches {n_play_x}; n_kf {n_kf_x}, "
+          f"landmarks {lmx0} -> {lmx1}; emitted poses equal the given ones "
+          f"to {err_x:.1e} (all seven components; tolerance "
+          f"{PLAYBACK_EXACT_TOL})", flush=True)
+
+    # ---- g2o export -> import of the keyframe-dense final graph
+    m, g = dense_state.map, dense_state.graph
+    path = os.path.join(tmp, "graph.g2o")
+    t0 = time.perf_counter()
+    g2o.export_graph(path, m.kf_pose, m.kf_valid, m.lm_pos, m.lm_valid, g,
+                     lm_gen=m.lm_gen)
+    t_exp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kf2, kfv2, lm2, lmv2, g2, fixed2 = g2o.import_graph(
+        path, m.kf_pose.shape[0], m.lm_pos.shape[0], g.obs_capacity,
+        g.pp_capacity, device=dev)
+    torch.cuda.synchronize()
+    t_imp = time.perf_counter() - t0
+    check(torch.equal(kfv2, m.kf_valid) and torch.equal(lmv2, m.lm_valid),
+          "g2o: vertex masks differ")
+    check(torch.equal(kf2[m.kf_valid], m.kf_pose[m.kf_valid])
+          and torch.equal(lm2[m.lm_valid], m.lm_pos[m.lm_valid]),
+          "g2o: a vertex did not come back as written")
+    live = (g.obs_valid & (g.obs_gen == m.lm_gen[g.obs_lm.long()])
+            & m.kf_valid[g.obs_kf.long()] & m.lm_valid[g.obs_lm.long()])
+    n_obs, n_pp = int(live.sum()), int(g.pp_valid.sum())
+    check(int(g2.n_obs) == n_obs and int(g2.n_pp) == n_pp and n_obs > 0,
+          f"g2o: {int(g2.n_obs)} observations and {int(g2.n_pp)} pose-pose "
+          f"edges read, {n_obs} and {n_pp} written")
+    check(torch.equal(g2.obs_kf[:n_obs], g.obs_kf[live])
+          and torch.equal(g2.obs_lm[:n_obs], g.obs_lm[live])
+          and torch.equal(g2.obs_xyz[:n_obs], g.obs_xyz[live])
+          and torch.equal(g2.pp_i[:n_pp], g.pp_i[g.pp_valid])
+          and torch.equal(g2.pp_j[:n_pp], g.pp_j[g.pp_valid])
+          and torch.equal(g2.pp_rel[:n_pp], g.pp_rel[g.pp_valid]),
+          "g2o: an edge did not come back as written")
+    # information values are written with 6 significant digits
+    w_err = float(((g2.obs_w[:n_obs] - g.obs_w[live]).abs()
+                   / g.obs_w[live]).max())
+    check(w_err < 1e-5 and torch.allclose(g2.pp_w[:n_pp], g.pp_w[g.pp_valid],
+                                          rtol=1e-5),
+          f"g2o: weights off by {w_err:.2e} relative")
+    check(bool(fixed2[int(torch.nonzero(m.kf_valid)[0])]),
+          "g2o: the first keyframe is not fixed")
+    print(f"[15] g2o export -> import of phase 5b's final graph: "
+          f"{int(m.kf_valid.sum())} keyframes, {int(m.lm_valid.sum())} "
+          f"landmarks, {n_obs} observations, {n_pp} pose-pose edges "
+          f"({os.path.getsize(path) / 1e6:.2f} MB; written in {t_exp:.2f} s, "
+          f"read in {t_imp:.2f} s): vertices, edges and measurements equal, "
+          f"weights within {w_err:.1e} relative (6 significant digits)",
+          flush=True)
+    return n_ckpt, n_play
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dump-map", metavar="NPZ", help="write the final map "
                     "and graph of phase 11 there, to hold a solver against "
                     "the JAX package on the same state on a CPU")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA "
               "card", file=sys.stderr)
@@ -727,8 +1252,7 @@ def main() -> int:
           f"{ate2_b:.5f} m, final {ate2_f:.5f} m", flush=True)
 
     # ---- 6. the CLI ---------------------------------------------------------
-    five = ("VO_trajectory.res", "graph_trajectory.res", "fps.res",
-            "times.txt", "statistics.txt")
+    five = FIVE_FILES
     report = run_cli(run_mod, ["--synthetic", "30"], five)
     check(report["ate_rmse_m"] < CLI_ATE_GATE_M,
           f"CLI ATE {report['ate_rmse_m']} >= {CLI_ATE_GATE_M}")
@@ -879,6 +1403,30 @@ def main() -> int:
     phase_uncertainty(cfg, grays, depths, gt, dev, dt2, args.dump_map)
     phase_frontend_options(cfg, grays, depths, gt, dev, dt)
 
+    # ---- 13. the file player, 14. archive and global BA, 15. state tools ---
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "data")
+    os.makedirs(out_dir, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="smoke_", dir=out_dir)
+    try:
+        root = os.path.join(work, "handheld")
+        t13 = time.perf_counter()
+        h_grays, h_depths, h_gt, n13, report13 = phase_file_player(
+            cfg, dev, root, dt)
+        t14 = time.perf_counter()
+        n14, n14w = phase_archive(cfg, dev, root, h_grays, h_depths, h_gt,
+                                  report13)
+        t15 = time.perf_counter()
+        del h_grays, h_depths
+        n15, n15p = phase_state_tools(cfg, dev, grays, depths, gt, state2,
+                                      pb2, work)
+        print(f"[13-15] wall: file player {t14 - t13:.1f} s, archive and "
+              f"global BA {t15 - t14:.1f} s, state tools "
+              f"{time.perf_counter() - t15:.1f} s; the whole script "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
     print(json.dumps({"kernels": [{
         "name": "fast_score_nms",
         "route": "cuda",
@@ -886,6 +1434,11 @@ def main() -> int:
         "replaces": "putslam_tpu/ops/fast_pallas.py:82",
         "launches": launches,
         "launches_per_frame": launches / N_FRAMES,
+        "launches_file_player": n13,
+        "launches_global_ba": n14,
+        "launches_wrapped_ring": n14w,
+        "launches_checkpoint_resume": n15,
+        "launches_playback": n15p,
         "max_abs_err": max_err,
         "ms": ms_kernel,
         "plain_ms": ms_plain,

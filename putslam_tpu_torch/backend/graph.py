@@ -94,7 +94,7 @@ def add_observations(g: GraphState, kf_idx, lm_idx, xyz, weight, mask,
         obs_info=set_rows(g.obs_info, slot, 0.0 if info is None else info),
         obs_seq=set_rows(g.obs_seq, slot, (g.n_obs + rank).to(torch.int32)),
         obs_valid=set_rows(g.obs_valid, slot, True),
-        n_obs=g.n_obs + n_new,
+        n_obs=g.n_obs + n_new.to(g.n_obs.dtype),
     )
 
 

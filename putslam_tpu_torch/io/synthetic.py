@@ -2,7 +2,8 @@
 
 Port of ``putslam_tpu/io/synthetic.py``: a procedurally textured
 axis-aligned room seen from a camera trajectory, with exact ground truth
-poses and depth; the orbit and leave-and-return (revisit) trajectories; and
+poses and depth; the orbit, leave-and-return (revisit) and handheld
+trajectories; and
 sensor degradation (image noise, blur, depth noise, depth holes) drawn from
 a ``torch.Generator``. Conventions: camera looks down +z, x right, y down;
 a pose is camera→world in the (..., 7) layout.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from putslam_tpu_torch.config import CameraConfig
@@ -129,6 +131,46 @@ def revisit_trajectory(n_frames: int, sweep: float = 1.2,
     z = torch.zeros_like(yaw)
     return se3.make_pose(t, torch.stack([torch.cos(yaw / 2), z,
                                          torch.sin(yaw / 2), z], dim=-1))
+
+
+def handheld_trajectory(n_frames: int, seed: int = 0,
+                        step_t: float = 0.013, step_r: float = 0.011,
+                        pos_amp=(0.9, 0.45, 0.6), rot_amp: float = 0.35,
+                        device="cpu"):
+    """Pseudo-random handheld-style trajectory at fr1_desk-like dynamics
+    (``putslam_tpu/io/synthetic.py:176-216``): Gaussian-smoothed random walks
+    in translation and rotation, rescaled so the median per-frame step is
+    ``step_t`` metres / ``step_r`` radians (fr1_desk: about 0.013 m and
+    0.011 rad a frame at 30 Hz), clamped to stay inside the render box with
+    the camera near (0, 0, -0.5) facing the +z wall. The walk is drawn on the
+    host from ``np.random.default_rng(seed)`` in the reference's order, so
+    both packages give the same trajectory.
+
+    Returns (n_frames, 7) camera→world poses."""
+    rng = np.random.default_rng(seed)
+    sigma = 25.0
+    pad = int(4 * sigma)
+    k = np.exp(-0.5 * ((np.arange(-pad, pad + 1)) / sigma) ** 2)
+    k /= k.sum()
+
+    def smooth_channel(amp, target_step):
+        raw = rng.normal(size=(n_frames + 2 * pad,))
+        s = np.convolve(raw, k, mode="valid")[:n_frames]
+        s = s - s.mean()
+        d = np.abs(np.diff(s))
+        scale = target_step / max(np.median(d), 1e-12)
+        return np.clip(s * scale, -amp, amp)
+
+    t = np.stack([smooth_channel(pos_amp[0], step_t),
+                  smooth_channel(pos_amp[1], 0.6 * step_t),
+                  smooth_channel(pos_amp[2], 0.8 * step_t)], axis=-1)
+    t = t + np.array([0.0, 0.0, -0.5])
+    rv = np.stack([smooth_channel(rot_amp * 0.6, 0.6 * step_r),
+                   smooth_channel(rot_amp, step_r),
+                   smooth_channel(rot_amp * 0.4, 0.4 * step_r)], axis=-1)
+    rv = torch.as_tensor(rv, dtype=torch.float32, device=device)
+    t = torch.as_tensor(t, dtype=torch.float32, device=device)
+    return se3.make_pose(t, se3.so3_exp_quat(rv))
 
 
 def degrade_sequence(grays, depths, seed: int = 0,

@@ -1,7 +1,6 @@
 """The full SLAM engine: VO + global feature map + bundle adjustment.
 
-Port of ``putslam_tpu/models/slam.py`` (without the playback mode). One
-``slam_step`` runs: detection, frame-to-frame VO (with the EKF prior where
+Port of ``putslam_tpu/models/slam.py``. One ``slam_step`` runs: detection, frame-to-frame VO (with the EKF prior where
 VO fails, when ``motion_model.enabled``), guided map matching (one mate per
 landmark, or up to ``matcher.max_mates`` with RANSAC arbitrating) with the
 absolute-pose RANSAC and its widening retry ladder, the drift-budget
@@ -15,7 +14,11 @@ repair and the re-anchored trajectory. With ``map.use_uncertainty`` every
 observation carries the 3×3 information matrix of the depth-sensor model
 (plain, or shrunk along the surface normal or the image gradient), which
 the Mahalanobis RANSAC (``error_version=3``) and the BA
-(``backend.use_obs_info``) read.
+(``backend.use_obs_info``) read. In playback mode (``run_playback``) a known
+trajectory takes the place of the VO prediction and drives the map and the
+backend. ``run_slam(archive=)`` absorbs the state into a host
+``slam_map.archive.MapArchive`` at every chunk boundary, and
+``run_slam_global`` polishes the archived graph after the run.
 
 Where the JAX package branches on device values with ``lax.cond`` (retry,
 keyframe bookkeeping, loop-closure verification, BA), this port branches on
@@ -236,8 +239,13 @@ def _tree_where(cond, a, b):
 
 def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
               draws: Optional[dict] = None,
-              generator: Optional[torch.Generator] = None):
-    """One frame. Returns (state', SlamOutputs)."""
+              generator: Optional[torch.Generator] = None,
+              gt_pose=None, playback: bool = False):
+    """One frame. Returns (state', SlamOutputs).
+
+    ``playback`` (``putslam_tpu/models/slam.py:214-248``): ``gt_pose`` is
+    the pose prediction, no VO runs (its result is the constant identity /
+    ok), the emitted pose is not smoothed and the EKF is left alone."""
     dev = state.pose.device
     m0 = state.map
     L = m0.capacity
@@ -253,14 +261,26 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
     obs_dirs = _obs_dirs(cfg, gray, depth, feat)
 
     # ---- 1. frame-to-frame VO prediction --------------------------------
-    degraded = state.health < cfg.matcher.degraded_health_ratio
-    vo_res = vo_mod.vo_step(
-        cfg, state.prev_feat, feat, u=uniforms("vo"), generator=generator,
-        force_retry=degraded,
-        u_retry=None if draws is None else draws.get("vo_retry"))
-    pose_pred = se3.compose(state.pose, vo_res.rel_pose)
     ekf_pred = state.ekf
-    if cfg.motion_model.enabled:
+    if playback:
+        # device scalars, as vo_step returns them: the host branches below
+        # read vo_res.ok the same way on every path
+        degraded = torch.zeros((), dtype=torch.bool, device=dev)
+        vo_res = vo_mod.VOStepResult(
+            se3.identity(device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.ones((), dtype=torch.float32, device=dev),
+            torch.ones((), dtype=torch.bool, device=dev))
+        pose_pred = as_tensor(gt_pose, dev, torch.float32)
+    else:
+        degraded = state.health < cfg.matcher.degraded_health_ratio
+        vo_res = vo_mod.vo_step(
+            cfg, state.prev_feat, feat, u=uniforms("vo"), generator=generator,
+            force_retry=degraded,
+            u_retry=None if draws is None else draws.get("vo_retry"))
+        pose_pred = se3.compose(state.pose, vo_res.rel_pose)
+    if cfg.motion_model.enabled and not playback:
         # where VO failed, the EKF's constant-velocity prediction replaces
         # the dead-stop prior of the identity increment
         ekf_pred = ekf_mod.predict(cfg.motion_model, state.ekf, 1.0)
@@ -472,7 +492,7 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
                            se3.compose(se3.inverse(kf_pose_before), pose_new))
 
     # ---- smoothed output trajectory (cfg.pose_blend_alpha) --------------
-    if cfg.pose_blend_alpha >= 1.0:
+    if playback or cfg.pose_blend_alpha >= 1.0:
         pose_smooth_out = pose_out
     else:
         smooth_pred = se3.compose(state.pose_smooth, vo_res.rel_pose)
@@ -486,7 +506,7 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
     # ---- EKF measurement update with the accepted frame pose; a fully
     # failed frame keeps the prediction, so the velocity coasts -----------
     ekf_new = ekf_pred
-    if cfg.motion_model.enabled:
+    if cfg.motion_model.enabled and not playback:
         ekf_corr = ekf_mod.correct(cfg.motion_model, ekf_pred, pose_out)
         ekf_new = _tree_where(vo_res.ok | map_ok, ekf_corr, ekf_pred)
 
@@ -535,14 +555,60 @@ def slam_sequence(cfg: SlamConfig, state: SlamState, grays, depths,
     return state, _stack_outputs(outs)
 
 
+def slam_sequence_playback(cfg: SlamConfig, state: SlamState, grays, depths,
+                           gt_poses, draws=None,
+                           generator: Optional[torch.Generator] = None):
+    """Playback over stacked frames: the given poses drive the map and the
+    backend (``putslam_tpu/models/slam.py:626``). Returns (state, stacked
+    outputs)."""
+    outs = []
+    for i in range(grays.shape[0]):
+        state, o = slam_step(cfg, state, grays[i], depths[i],
+                             draws=None if draws is None else draws[i],
+                             generator=generator, gt_pose=gt_poses[i],
+                             playback=True)
+        outs.append(o)
+    return state, _stack_outputs(outs)
+
+
+def run_playback(cfg: SlamConfig, grays, depths, gt_poses, seed: int = 0,
+                 device="cuda"):
+    """Host wrapper of the playback mode
+    (``putslam_tpu/models/slam.py:636``). Returns (poses (T, 7) numpy,
+    outputs (numpy), final state)."""
+    check_config(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    g, d = _to_device_float(cfg, grays, depths, dev)
+    gt = as_tensor(gt_poses, dev, torch.float32)
+    state = slam_init(cfg, g[0], d[0], gt[0], device=dev)
+    state, outs = slam_sequence_playback(cfg, state, g[1:], d[1:], gt[1:],
+                                         generator=gen)
+    outs = _outputs_to_numpy(outs)
+    poses = np.concatenate([gt[0].cpu().numpy()[None], outs.pose], axis=0)
+    return poses, outs, state
+
+
 def _to_device_float(cfg: SlamConfig, g, d, dev):
     """Frames to the device as float32; uint8 gray / uint16 depth (the PNG
-    wire formats) are scaled on the device."""
+    wire formats) cross the bus as they are and are scaled on the device
+    (``putslam_tpu/models/slam.py:650``). ``torch.uint16`` has few operators:
+    the counts travel as their int16 bit pattern and are widened with a
+    mask, so 32768 and above, 65535 included, keep their value."""
     g = as_tensor(g, dev)
     if g.dtype == torch.uint8:
         g = g.to(torch.float32) / 255.0
-    d = as_tensor(d, dev)
-    if not d.is_floating_point():
+    if not torch.is_tensor(d):
+        d = torch.from_numpy(np.array(d))
+    counts16 = d.dtype == torch.uint16
+    if counts16:
+        d = d.view(torch.int16)
+    d = d.to(dev)
+    if counts16:
+        d = (d.to(torch.int32) & 0xFFFF).to(torch.float32) \
+            / cfg.camera.depth_image_scale
+    elif not d.is_floating_point():
         d = d.to(torch.float32) / cfg.camera.depth_image_scale
     return g.to(torch.float32), d.to(torch.float32)
 
@@ -552,13 +618,19 @@ def _outputs_to_numpy(outs: SlamOutputs) -> SlamOutputs:
 
 
 def run_slam(cfg: SlamConfig, grays, depths, init_pose=None, seed: int = 0,
-             chunk_size: int = 0, device="cuda"):
+             chunk_size: int = 0, device="cuda", archive=None):
     """Returns (poses (T, 7) numpy, outputs (numpy), final state).
 
     ``chunk_size`` > 0 moves the sequence to the device in blocks of that
     many frames; the tail block is padded with copies of its last frame and
     the padded steps are trimmed from the outputs, as the JAX package does
-    (static frames give identity VO and no keyframes)."""
+    (static frames give identity VO and no keyframes).
+
+    ``archive``: a ``slam_map.archive.MapArchive`` that absorbs the state
+    after every block, the last included
+    (``putslam_tpu/models/slam.py:663-716``), so that history the rings
+    evict survives for the offline global bundle adjustment. A block must
+    append fewer keyframes and edges than the rings hold."""
     check_config(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -579,6 +651,8 @@ def run_slam(cfg: SlamConfig, grays, depths, init_pose=None, seed: int = 0,
             dc = torch.cat([dc, dc[-1:].expand(pad, -1, -1)])
         state, outs = slam_sequence(cfg, state, gc, dc, generator=gen)
         outs_chunks.append(_outputs_to_numpy(outs))
+        if archive is not None:
+            archive.absorb(state)
     outs_all = SlamOutputs(*(np.concatenate(xs)[:T - 1]
                              for xs in zip(*outs_chunks)))
     poses = np.concatenate([ip.cpu().numpy()[None], outs_all.pose], axis=0)
@@ -682,6 +756,37 @@ def reanchor_trajectory(state: SlamState, outs: SlamOutputs):
                                                            device=dev)
     corrected = se3.compose(kf_now, se3.compose(se3.inverse(anchor_pose), pose))
     return torch.where(still_same[:, None], corrected, pose)
+
+
+def run_slam_global(cfg: SlamConfig, grays, depths, init_pose=None,
+                    seed: int = 0, chunk_size: int = 64, device="cuda",
+                    **gba_kw):
+    """run_slam with a host map archive, then the offline global bundle
+    adjustment over the full archived graph, history the device rings
+    evicted included (``putslam_tpu/models/slam.py:913-942``). The per-frame
+    trajectory is rebuilt on the polished keyframes:
+    pose = polished(anchor_seq) ∘ (anchor_pose⁻¹ ∘ pose).
+
+    Returns (poses_before (T, 7), poses_after (T, 7), outputs, final state,
+    archive)."""
+    from putslam_tpu_torch.slam_map.archive import (MapArchive,
+                                                    global_bundle_adjust)
+
+    archive = MapArchive()
+    poses_before, outs, state = run_slam(cfg, grays, depths, init_pose, seed,
+                                         chunk_size=chunk_size, device=device,
+                                         archive=archive)
+    kf_polished = global_bundle_adjust(cfg, archive, device=device, **gba_kw)
+    seqs = outs.anchor_seq
+    good = (seqs >= 0) & (seqs < len(kf_polished))
+    kf_new = torch.as_tensor(
+        kf_polished[np.clip(seqs, 0, max(len(kf_polished) - 1, 0))])
+    suffix = se3.compose(se3.inverse(torch.as_tensor(outs.anchor_pose)),
+                         torch.as_tensor(outs.pose))
+    corrected = se3.compose(kf_new, suffix).numpy()
+    poses_after = np.where(good[:, None], corrected, outs.pose)
+    poses_after = np.concatenate([poses_before[:1], poses_after], axis=0)
+    return poses_before, poses_after, outs, state, archive
 
 
 def run_slam_final(cfg: SlamConfig, grays, depths, init_pose=None,

@@ -1,18 +1,25 @@
 """Command-line SLAM runner of the PyTorch port.
 
 Usage:
+    python -m putslam_tpu_torch.run --dataset /path/to/tum_sequence --out results/
+    python -m putslam_tpu_torch.run --dataset /path/to/tum_sequence --global-ba
     python -m putslam_tpu_torch.run --synthetic 64 --out results/
     python -m putslam_tpu_torch.run --synthetic 30 --loop-closure
     python -m putslam_tpu_torch.run --synthetic 30 --only-vo --vo-version 1
 
 Same CLI names and output files as ``putslam_tpu/run.py``
 (``VO_trajectory.res``, ``graph_trajectory.res``, ``fps.res``,
-``times.txt`` and, for a SLAM run, ``statistics.txt``) for
-``--synthetic N``, ``--only-vo``, ``--vo-version`` (0 = matching, 1 = KLT
-tracking), ``--loop-closure``, ``--out``, ``--seed``, ``--chunk`` and
+``times.txt`` and, for a SLAM run, ``statistics.txt``) for ``--dataset DIR``
+(a TUM-layout directory, read through ``io/tum.py``; its ``camera.json``,
+where there is one, overrides the camera), ``--synthetic N``, ``--only-vo``,
+``--vo-version`` (0 = matching, 1 = KLT tracking), ``--loop-closure``,
+``--global-ba`` (host map archive and the offline global bundle adjustment),
+``--reference-resources RES`` / ``--dataset-name NAME`` (the operating point
+from the reference's XML files), ``--out``, ``--seed``, ``--chunk`` and
 ``--max-frames``, plus ``--device`` (default ``cuda``; asking for CUDA where
 there is none is an error). Prints one JSON report line with the frame
-count, fps and, against the synthetic ground truth, ATE and RPE.
+count, fps, for a dataset the decoder that read it (``"loader"``:
+``"native"`` or ``"python"``) and, where there is ground truth, ATE and RPE.
 """
 
 from __future__ import annotations
@@ -26,14 +33,14 @@ import time
 
 import numpy as np
 
-_NOT_PORTED = ("dataset", "global_ba", "reference_resources",
-               "reference_eval", "plots")
+_NOT_PORTED = ("reference_eval", "plots")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--dataset", help="TUM-format sequence directory")
     ap.add_argument("--synthetic", type=int, default=0,
-                    help="render N synthetic frames")
+                    help="render N synthetic frames instead of a dataset")
     ap.add_argument("--out", default="results", help="output directory")
     ap.add_argument("--only-vo", action="store_true", help="VO only")
     ap.add_argument("--vo-version", type=int, default=0,
@@ -43,13 +50,22 @@ def main(argv=None) -> int:
     ap.add_argument("--chunk", type=int, default=64,
                     help="move the sequence to the device in blocks of this "
                          "many frames (0 = all at once)")
+    ap.add_argument("--global-ba", action="store_true",
+                    help="archive the full graph across ring evictions and "
+                         "polish it with the offline global bundle "
+                         "adjustment (overlapping windowed sweeps) instead "
+                         "of the ring-bounded final optimization")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--reference-resources", default=None,
+                    help="load the operating point from a reference-style "
+                         "resources/ directory of XML configs "
+                         "(putslamconfigGlobal.xml chain)")
+    ap.add_argument("--dataset-name", default=None,
+                    help="datasetConfig/<name>.xml to use with "
+                         "--reference-resources")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
     # flags of putslam_tpu.run that this port does not support yet
-    ap.add_argument("--dataset")
-    ap.add_argument("--global-ba", action="store_true")
-    ap.add_argument("--reference-resources")
     ap.add_argument("--reference-eval", action="store_true")
     ap.add_argument("--plots", action="store_true")
     args = ap.parse_args(argv)
@@ -60,8 +76,8 @@ def main(argv=None) -> int:
         unported.append(f"--vo-version {args.vo_version}")
     if unported:
         ap.error(f"not yet ported to putslam_tpu_torch: {', '.join(unported)}")
-    if not args.synthetic:
-        ap.error("need --synthetic N")
+    if not args.synthetic and not args.dataset:
+        ap.error("need --dataset or --synthetic N")
 
     import torch
 
@@ -73,21 +89,73 @@ def main(argv=None) -> int:
     from putslam_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
-    cfg = tum_fr1_config(only_vo=args.only_vo, vo_version=args.vo_version)
+    if args.reference_resources:
+        from putslam_tpu_torch.io import xml_config
+
+        cfg = xml_config.load_reference_config(args.reference_resources,
+                                               args.dataset_name)
+        cfg = cfg.replace(only_vo=args.only_vo, vo_version=args.vo_version)
+    else:
+        cfg = tum_fr1_config(only_vo=args.only_vo, vo_version=args.vo_version)
     if args.loop_closure:
         cfg = cfg.replace(loop_closure=dataclasses.replace(
             cfg.loop_closure, enabled=True))
     os.makedirs(args.out, exist_ok=True)
     timer = timing.StageTimer()
 
-    n = args.synthetic if not args.max_frames else min(args.synthetic,
-                                                       args.max_frames)
-    with timer.stage("dataset"):
-        poses = synthetic.orbit_trajectory(n, radius=0.12, yaw_amp=0.12,
-                                           device=dev)
-        grays, depths = synthetic.render_sequence(cfg.camera, poses)
-        gt_poses = poses.cpu().numpy()
-    timestamps = np.arange(n) / 30.0
+    gt_poses = gt_track = None
+    loader = None
+    if args.synthetic:
+        n = args.synthetic if not args.max_frames else min(args.synthetic,
+                                                           args.max_frames)
+        with timer.stage("dataset"):
+            poses = synthetic.orbit_trajectory(n, radius=0.12, yaw_amp=0.12,
+                                               device=dev)
+            grays, depths = synthetic.render_sequence(cfg.camera, poses)
+            gt_poses = poses.cpu().numpy()
+        timestamps = np.arange(n) / 30.0
+        init_pose = gt_poses[0]
+    else:
+        # a dataset's own camera.json (written by
+        # tools/make_disk_dataset_torch.py) overrides the config camera: the
+        # engine must not undistort pixels of a sequence rendered without
+        # distortion
+        cam_json = os.path.join(args.dataset, "camera.json")
+        if os.path.exists(cam_json):
+            with open(cam_json) as f:
+                cfg = cfg.replace(camera=dataclasses.replace(
+                    cfg.camera, **json.load(f)))
+        with timer.stage("dataset"):
+            ds = tum.TumDataset(args.dataset,
+                                depth_scale=cfg.camera.depth_image_scale)
+            n = len(ds) if not args.max_frames else min(len(ds),
+                                                        args.max_frames)
+            # the wire format (uint8 gray / uint16 depth, the PNG payloads)
+            # is kept on the host; the cast to float happens on the device,
+            # chunk by chunk
+            grays = np.empty((n, cfg.camera.height, cfg.camera.width),
+                             np.uint8)
+            depths = np.empty_like(grays, dtype=np.uint16)
+            timestamps = np.empty((n,), np.float64)
+            scale = cfg.camera.depth_image_scale
+            for i, f in enumerate(ds):
+                if i >= n:
+                    break
+                grays[i] = np.clip(f.gray * 255.0 + 0.5, 0, 255)
+                depths[i] = np.clip(f.depth * scale + 0.5, 0, 65535)
+                timestamps[i] = f.timestamp
+            loader = ds.loader
+            if ds.groundtruth is not None:
+                gt_track = ds.groundtruth
+                gt_ts, gt_all = gt_track
+                # per-frame ground truth where the timestamps line up
+                # exactly (sequences written by write_tum_dataset): the
+                # frame-aligned report
+                if (len(gt_ts) >= n and
+                        np.allclose(gt_ts[:n], timestamps, atol=1e-6)):
+                    gt_poses = gt_all[:n]
+        init_pose = gt_poses[0] if gt_poses is not None else \
+            ds.starting_pose()
 
     def sync():
         if dev.type == "cuda":
@@ -97,14 +165,23 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     outs = None
     if args.only_vo:
+        if not torch.is_tensor(grays) and grays.dtype == np.uint8:
+            grays = grays.astype(np.float32) / 255.0
+            depths = depths.astype(np.float32) / cfg.camera.depth_image_scale
         with timer.stage("vo_total"):
             est, _ = vo.run_vo(cfg, grays, depths, seed=args.seed,
-                               init_pose=gt_poses[0], device=dev)
+                               init_pose=init_pose, device=dev)
+            sync()
+    elif args.global_ba:
+        with timer.stage("slam_total"):
+            est_vo_anchored, est, outs, _, _ = slam.run_slam_global(
+                cfg, grays, depths, init_pose=init_pose, seed=args.seed,
+                chunk_size=args.chunk or 64, device=dev)
             sync()
     else:
         with timer.stage("slam_total"):
             est_vo_anchored, est, outs, _ = slam.run_slam_final(
-                cfg, grays, depths, init_pose=gt_poses[0], seed=args.seed,
+                cfg, grays, depths, init_pose=init_pose, seed=args.seed,
                 chunk_size=args.chunk, device=dev)
             sync()
     total = time.perf_counter() - t0
@@ -120,15 +197,21 @@ def main(argv=None) -> int:
         timing.write_run_statistics(os.path.join(args.out, "statistics.txt"),
                                     outs)
 
-    report = {"frames": n, "fps": round(n / total, 2), "device": str(dev),
-              "ate_rmse_m": round(ate_mod.ate_rmse_aligned_frames(gt_poses,
-                                                                  est), 5)}
-    if not args.only_vo:
-        report["ate_before_final_m"] = round(
-            ate_mod.ate_rmse_aligned_frames(gt_poses, est_vo_anchored), 5)
-    tr, rot = rpe_mod.rpe(gt_poses, est)
-    report["rpe_trans_m"] = round(tr, 5)
-    report["rpe_rot_rad"] = round(rot, 5)
+    report = {"frames": n, "fps": round(n / total, 2), "device": str(dev)}
+    if loader is not None:
+        report["loader"] = loader
+    if gt_poses is not None:
+        report["ate_rmse_m"] = round(
+            ate_mod.ate_rmse_aligned_frames(gt_poses, est), 5)
+        if not args.only_vo:
+            report["ate_before_final_m"] = round(
+                ate_mod.ate_rmse_aligned_frames(gt_poses, est_vo_anchored), 5)
+        tr, rot = rpe_mod.rpe(gt_poses, est)
+        report["rpe_trans_m"] = round(tr, 5)
+        report["rpe_rot_rad"] = round(rot, 5)
+    elif gt_track is not None:
+        report["ate_rmse_m"] = round(
+            ate_mod.ate_rmse(gt_track[0], gt_track[1], timestamps, est), 5)
     print(json.dumps(report))
     sys.stdout.flush()
     return 0

@@ -22,3 +22,9 @@ def as_tensor(x, device, dtype=None) -> torch.Tensor:
     if not torch.is_tensor(x):
         x = torch.tensor(np.array(x))
     return x.to(device=device, dtype=dtype)
+
+
+def as_numpy(x) -> np.ndarray:
+    """``x`` (tensor on any device, numpy array, sequence) as a numpy
+    array on the host."""
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)

@@ -25,6 +25,16 @@ def test_port_imports_with_jax_blocked():
             "import putslam_tpu_torch.loopclosure.verify\n"
             "import putslam_tpu_torch.motion.ekf, putslam_tpu_torch.ops.klt\n"
             "import putslam_tpu_torch.config\n"
+            "import putslam_tpu_torch.io.png, putslam_tpu_torch.io.tum\n"
+            "import putslam_tpu_torch.io.native_loader\n"
+            "import putslam_tpu_torch.io.xml_config, putslam_tpu_torch.io.icl\n"
+            "import putslam_tpu_torch.io.g2o, putslam_tpu_torch.io.rgbdslam\n"
+            "import putslam_tpu_torch.utils.checkpoint\n"
+            "import putslam_tpu_torch.slam_map.archive\n"
+            "import putslam_tpu_torch.eval.ate\n"
+            "sys.path.insert(0, 'tools')\n"
+            "import make_disk_dataset_torch, profile_torch_slam\n"
+            "import lc_spread_torch\n"
             "assert not [m for m in sys.modules if m.split('.')[0] in\n"
             "            ('jax', 'putslam_tpu') and sys.modules[m] is not None]\n"
             "print('ok')")
@@ -32,11 +42,29 @@ def test_port_imports_with_jax_blocked():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def _port_sources():
+    """Every source file of the port: the package, the smoke and its tools.
+    The modules this walk must reach are named, so a move cannot drop one
+    from the check unseen."""
+    files = sorted((ROOT / "putslam_tpu_torch").rglob("*.py"))
+    files += [ROOT / "chip_smoke.py",
+              ROOT / "tools" / "make_disk_dataset_torch.py",
+              ROOT / "tools" / "profile_torch_slam.py",
+              ROOT / "tools" / "lc_spread_torch.py"]
+    rel = {str(f.relative_to(ROOT)) for f in files}
+    for name in ("io/png.py", "io/tum.py", "io/native_loader.py",
+                 "io/xml_config.py", "io/icl.py", "io/g2o.py",
+                 "io/rgbdslam.py", "io/synthetic.py", "slam_map/archive.py",
+                 "utils/checkpoint.py", "eval/ate.py", "run.py"):
+        assert f"putslam_tpu_torch/{name}" in rel, name
+    assert all(f.exists() for f in files)
+    return files
+
+
 def test_port_sources_never_import_jax():
     pat = re.compile(r"^\s*(import\s+jax|from\s+jax\b)", re.M)
-    files = sorted((ROOT / "putslam_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 20
+    files = _port_sources()
+    assert len(files) > 30
     assert [str(f) for f in files if pat.search(f.read_text())] == []
 
 
@@ -45,9 +73,7 @@ def test_port_sources_never_import_the_jax_package():
     assert pat.search("import putslam_tpu\n")
     assert pat.search("  from putslam_tpu.config import SlamConfig\n")
     assert not pat.search("from putslam_tpu_torch.config import SlamConfig\n")
-    files = sorted((ROOT / "putslam_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 20
+    files = _port_sources()
     assert [str(f) for f in files if pat.search(f.read_text())] == []
 
 

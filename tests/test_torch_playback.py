@@ -1,0 +1,129 @@
+"""Playback (the known trajectory drives the map and the backend): the
+port's ``slam_step(gt_pose=, playback=True)`` follows the JAX engine frame
+by frame from the JAX ``slam_init`` state, fed the uniforms of the JAX key
+chain, with the tolerances of tests/test_torch_slam.py (poses 1e-4, the
+keyframe / BA / inlier / landmark counts exact, chi² 1e-3 relative); and
+``run_playback`` end to end on the port's own generator."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from _torch_port import n, port_cfg, t
+from test_torch_slam import _check_frame, jax_draws, slice_config
+
+from putslam_tpu.io import synthetic as jsyn
+from putslam_tpu.models import slam as jslam
+from putslam_tpu_torch import convert
+from putslam_tpu_torch.models import slam as tslam
+
+T = 12
+
+
+def _frames(cfg):
+    poses = np.asarray(jsyn.orbit_trajectory(T, radius=0.10, yaw_amp=0.1))
+    g, d = jsyn.render_sequence(cfg.camera, jnp.asarray(poses))
+    return np.asarray(g), np.asarray(d), poses
+
+
+@pytest.mark.parametrize("motion_model,blend", [(False, 1.0), (True, 0.3)])
+def test_playback_follows_jax_frame_by_frame(motion_model, blend):
+    """With the EKF on and pose smoothing asked for, playback still leaves
+    the EKF alone and emits the raw pose, in both packages."""
+    cfg = slice_config()
+    cfg = cfg.replace(
+        pose_blend_alpha=blend,
+        motion_model=dataclasses.replace(cfg.motion_model,
+                                         enabled=motion_model))
+    pcfg = port_cfg(cfg)
+    g, d, poses = _frames(cfg)
+    # the given trajectory is the truth nudged, so the map RANSAC has a
+    # correction to make
+    rng = np.random.default_rng(1)
+    given = poses.copy()
+    given[1:, :3] += rng.normal(scale=0.004, size=(T - 1, 3)).astype(np.float32)
+
+    js = jslam.slam_init(cfg, g[0], d[0], given[0])
+    ts = convert.from_numpy(jax.tree.map(np.asarray, js), "cpu")
+    n_kf = n_ba = 0
+    for i in range(1, T):
+        draws, key = jax_draws(cfg, js.key)
+        del draws["vo"]                       # playback draws none for VO
+        js, jo = jslam.slam_step(cfg, js, g[i], d[i], jnp.asarray(given[i]),
+                                 True)
+        assert np.array_equal(np.asarray(js.key), np.asarray(key))
+        ts, to = tslam.slam_step(pcfg, ts, t(g[i]), t(d[i]), draws=draws,
+                                 gt_pose=t(given[i]), playback=True)
+        _check_frame(i, to, jo)
+        assert bool(to.vo_ok) and to.vo_ok.dtype == torch.bool
+        np.testing.assert_allclose(n(ts.pose), np.asarray(js.pose), atol=1e-4)
+        np.testing.assert_allclose(n(ts.pose_smooth), n(ts.pose), atol=0)
+        np.testing.assert_allclose(n(ts.ekf.x), np.asarray(js.ekf.x),
+                                   atol=1e-6)
+        n_kf += int(jo.is_keyframe)
+        n_ba += int(jo.ba_ran)
+    assert n_kf >= 4 and n_ba >= 1
+    np.testing.assert_allclose(n(ts.map.kf_pose), np.asarray(js.map.kf_pose),
+                               atol=1e-4)
+    np.testing.assert_array_equal(n(ts.map.lm_valid),
+                                  np.asarray(js.map.lm_valid))
+    np.testing.assert_array_equal(n(ts.graph.obs_valid),
+                                  np.asarray(js.graph.obs_valid))
+
+
+def test_run_playback_grows_the_map_on_the_given_poses():
+    """End to end with the port's own generator: the emitted poses stay on
+    the given ones to the map RANSAC's correction (0.05 m at most, 0.02 m at
+    the median: a pixel of the tiny camera is 37 mm at 3 m; both packages
+    move up to 0.03 m, 0.011 m at the median) and much closer to them than
+    the plain run's, which follows its own VO (0.076 m at the median);
+    keyframes and landmarks grow, and the JAX wrapper agrees on the counts
+    that do not depend on the draws."""
+    cfg = slice_config()
+    g, d, poses = _frames(cfg)
+    est, outs, state = tslam.run_playback(port_cfg(cfg), g, d, poses,
+                                          device="cpu")
+    jest, jouts, jstate = jslam.run_playback(cfg, g, d, poses)
+    assert est.shape == jest.shape == (T, 7)
+    assert np.array_equal(est[0], poses[0])
+    np.testing.assert_allclose(est[:, :3], poses[:, :3], atol=0.05)
+    np.testing.assert_allclose(est, jest, atol=0.05)
+    off = np.linalg.norm(est[:, :3] - poses[:, :3], axis=1)
+    plain, _, _ = tslam.run_slam(port_cfg(cfg), g, d, init_pose=poses[0],
+                                 device="cpu")
+    off_plain = np.linalg.norm(plain[:, :3] - poses[:, :3], axis=1)
+    assert np.median(off) < 0.02
+    assert np.median(off) < 0.5 * np.median(off_plain)
+    assert outs.vo_ok.all() and outs.pose.shape == (T - 1, 7)
+    assert int(state.map.n_kf) >= 4 and int(jstate.map.n_kf) >= 4
+    assert int(outs.n_landmarks[-1]) > int(outs.n_landmarks[0]) > 0
+    assert outs.ba_ran.any()
+    assert int(state.frame_idx) == int(jstate.frame_idx) == T
+
+
+def test_run_playback_emits_the_given_poses_when_nothing_corrects_them():
+    """With every map correction refused (``max_map_correction=0``) and no
+    BA, the prediction is the given pose and nothing moves it: both packages
+    emit the given trajectory to float32 rounding (1e-5; the re-anchoring
+    composes P ∘ P⁻¹ ∘ P), while every frame still becomes a keyframe and
+    the map grows. A playback that followed its own VO would be 0.076 m off
+    at the median here."""
+    cfg = slice_config()
+    cfg = cfg.replace(
+        max_map_correction=0.0, map_correction_growth=0.0,
+        backend=dataclasses.replace(cfg.backend,
+                                    optimize_every_n_frames=10_000))
+    g, d, poses = _frames(cfg)
+    est, outs, state = tslam.run_playback(port_cfg(cfg), g, d, poses,
+                                          device="cpu")
+    jest, jouts, jstate = jslam.run_playback(cfg, g, d, poses)
+    np.testing.assert_allclose(est, poses, atol=1e-5)
+    np.testing.assert_allclose(jest, poses, atol=1e-5)
+    assert not outs.map_ok.any() and not outs.ba_ran.any()
+    assert int(state.map.n_kf) == int(jstate.map.n_kf) == T
+    assert int(outs.n_landmarks[-1]) > int(outs.n_landmarks[0]) > 0
+    np.testing.assert_array_equal(outs.n_landmarks,
+                                  np.asarray(jouts.n_landmarks))

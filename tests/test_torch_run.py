@@ -1,7 +1,11 @@
 """The port's command-line runner writes the reference's output files,
-statistics.txt with the JAX package's keys and formats included."""
+statistics.txt with the JAX package's keys and formats included; it plays a
+TUM-layout sequence from disk (written by tools/make_disk_dataset_torch.py),
+with the global bundle adjustment and with an XML operating point."""
 
 import json
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -75,15 +79,154 @@ def test_run_statistics_equal_the_jax_writer(tmp_path):
     assert _stat_keys(tmp_path / "port.txt") == STAT_KEYS
 
 
-@pytest.mark.parametrize("flag", [["--reference-eval"], ["--dataset", "x"],
-                                  ["--global-ba"],
-                                  ["--reference-resources", "x"],
+@pytest.mark.parametrize("flag", [["--reference-eval"],
+                                  ["--reference-eval", "--dataset", "x"],
+                                  ["--global-ba", "--plots"],
+                                  ["--vo-version", "2"],
                                   ["--plots"]])
 def test_unported_flags_exit_with_error(flag, capsys):
     with pytest.raises(SystemExit) as e:
         run.main(["--synthetic", "3", "--device", "cpu", *flag])
     assert e.value.code != 0
+    err = capsys.readouterr().err
+    assert "not yet ported" in err
+    # the ported flags are never named as missing
+    for ported in ("--dataset", "--global-ba", "--reference-resources"):
+        assert ported not in err.split("not yet ported")[1]
+
+
+def test_needs_a_source_of_frames(capsys):
+    with pytest.raises(SystemExit) as e:
+        run.main(["--device", "cpu"])
+    assert e.value.code != 0
+    assert "--dataset or --synthetic" in capsys.readouterr().err
+
+
+OUTPUTS = ("VO_trajectory.res", "graph_trajectory.res", "fps.res",
+           "times.txt", "statistics.txt")
+
+
+@pytest.fixture(scope="module")
+def disk_sequence(tmp_path_factory):
+    """Three handheld frames at the fr1 size, written in TUM layout with a
+    camera.json by the port's tool."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))), "tools"))
+    import make_disk_dataset_torch as tool
+
+    root = tmp_path_factory.mktemp("handheld3")
+    assert tool.main(["--frames", "3", "--out", str(root), "--device",
+                      "cpu"]) == 0
+    return root
+
+
+def test_disk_dataset_tool_writes_the_tum_layout(disk_sequence, capsys):
+    from putslam_tpu_torch.io import synthetic, tum
+
+    root = disk_sequence
+    names = sorted(p.name for p in root.iterdir())
+    assert names == ["camera.json", "depth", "depth.txt", "groundtruth.txt",
+                     "rgb", "rgb.txt"]
+    cam = json.loads((root / "camera.json").read_text())
+    assert cam["k1"] == cam["k3"] == 0.0 and cam["width"] == 640
+    ds = tum.TumDataset(str(root))
+    assert len(ds) == 3 and ds[0].gray.shape == (480, 640)
+    gt = synthetic.handheld_trajectory(3, seed=3).numpy()
+    np.testing.assert_allclose(ds.groundtruth[1], gt, atol=1e-6)
+    import make_disk_dataset_torch as tool
+    with pytest.raises(SystemExit) as e:
+        tool.main(["--frames", "3", "--out", str(root), "--renderer",
+                   "planes", "--device", "cpu"])
+    assert e.value.code != 0
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [[], ["--global-ba"]],
+                         ids=["final", "global_ba"])
+def test_run_dataset_on_cpu(disk_sequence, tmp_path, capsys, extra):
+    assert run.main(["--dataset", str(disk_sequence), "--device", "cpu",
+                     "--out", str(tmp_path), *extra]) == 0
+    for name in OUTPUTS:
+        assert (tmp_path / name).stat().st_size > 0, name
+    lines = (tmp_path / "graph_trajectory.res").read_text().splitlines()
+    assert len(lines) == 3
+    assert [ln.split()[0] for ln in lines] == ["0.000000", "0.033333",
+                                               "0.066667"]
+    assert "dataset" in (tmp_path / "times.txt").read_text()
+    assert _stat_keys(tmp_path / "statistics.txt") == STAT_KEYS
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["frames"] == 3 and report["device"] == "cpu"
+    assert report["loader"] in ("native", "python")
+    # the timestamps line up with groundtruth.txt: the frame-aligned report
+    assert np.isfinite(report["ate_rmse_m"])
+    assert np.isfinite(report["ate_before_final_m"])
+    assert np.isfinite(report["rpe_trans_m"])
+
+
+def test_run_dataset_only_vo_max_frames_and_associated_ate(disk_sequence,
+                                                           tmp_path, capsys):
+    """--only-vo converts the wire format on the host; --max-frames cuts
+    the sequence; ground truth whose timestamps do not line up frame by
+    frame is scored by association."""
+    import shutil
+
+    root = tmp_path / "seq"
+    shutil.copytree(disk_sequence, root)
+    gt = (root / "groundtruth.txt").read_text().splitlines()
+    shifted = [" ".join([f"{float(ln.split()[0]) + 0.004:.6f}",
+                         *ln.split()[1:]]) for ln in gt]
+    (root / "groundtruth.txt").write_text("\n".join(shifted) + "\n")
+    out = tmp_path / "out"
+    assert run.main(["--dataset", str(root), "--only-vo", "--device", "cpu",
+                     "--out", str(out)]) == 0
+    assert not (out / "statistics.txt").exists()
+    assert len((out / "VO_trajectory.res").read_text().splitlines()) == 3
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["frames"] == 3 and np.isfinite(report["ate_rmse_m"])
+    assert "rpe_trans_m" not in report           # no per-frame ground truth
+    assert run.main(["--dataset", str(root), "--only-vo", "--max-frames", "2",
+                     "--device", "cpu", "--out", str(out)]) == 0
+    assert len((out / "VO_trajectory.res").read_text().splitlines()) == 2
+
+
+def test_run_reference_resources(disk_sequence, tmp_path, capsys,
+                                 monkeypatch):
+    """--reference-resources / --dataset-name: the XML operating point
+    reaches the engine (loop closure on, the matcher's RANSAC settings),
+    and the dataset's camera.json still overrides the XML camera."""
+    from putslam_tpu_torch.models import slam as tslam
+
+    res = tmp_path / "resources"
+    (res / "datasetConfig").mkdir(parents=True)
+    (res / "putslamconfigGlobal.xml").write_text(
+        '<PUTSLAM onlyVO="0" />\n<ThreadSettings '
+        'loopClosureThreadVersion="1" />\n')
+    (res / "putslammatcherOpenCVParameters.xml").write_text(
+        '<Matcher VOVersion="0"><RANSAC usedPairs="4" '
+        'minimalNumberOfMatches="12" /></Matcher>')
+    (res / "datasetConfig" / "cam.xml").write_text(
+        '<Model><focalLength fu="100.0" fv="100.0" />'
+        '<rgbDistortion k1="0.2" /></Model>')
+    seen = {}
+    real = tslam.run_slam_final
+
+    def spy(cfg, *a, **k):
+        seen["cfg"] = cfg
+        return real(cfg, *a, **k)
+
+    monkeypatch.setattr(tslam, "run_slam_final", spy)
+    out = tmp_path / "out"
+    assert run.main(["--dataset", str(disk_sequence), "--device", "cpu",
+                     "--reference-resources", str(res), "--dataset-name",
+                     "cam", "--out", str(out)]) == 0
+    cfg = seen["cfg"]
+    assert cfg.loop_closure.enabled and cfg.ransac.used_pairs == 4
+    assert cfg.ransac.minimal_num_matches == 12
+    assert cfg.camera.fu == 517.3 and cfg.camera.k1 == 0.0   # camera.json
+    for name in OUTPUTS:
+        assert (out / name).stat().st_size > 0, name
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["frames"] == 3 and np.isfinite(report["ate_rmse_m"])
 
 
 def test_cuda_requested_without_a_card_raises(tmp_path):
