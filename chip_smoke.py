@@ -95,6 +95,27 @@ Phases (any failed check raises and the script exits non-zero):
      every correction refused and no BA they equal the given ones to 1e-5;
      phase 5b's final graph through ``g2o.export_graph`` and
      ``import_graph``: the same vertices and edges.
+ 16. the distributed path (parallel/), in a process group of one rank on
+     NCCL joined by this process: (a) ``dist_gauss_newton`` on phase 5b's
+     map under phase 8's mask against ``gauss_newton_mm`` (poses within
+     the solver tolerance; ms a call of both, CUDA events; all-reduce
+     bytes and ms an iteration); (c) ``finalize_dist`` on phase 13's
+     handheld state (the sequence read back from disk, run through
+     ``run_slam``) against ``finalize`` (5e-3) with the final ATE under
+     the gate; (b) the same graph on two spawned ranks sharing the card
+     over gloo (``tools/multihost_dryrun_torch.py``, a ``file://``
+     rendezvous): the ranks equal, and equal to (a) within the solver
+     tolerance, ms a call (two ranks on one card: not a scaling number),
+     and their ``global_bundle_adjust(mesh=)`` of the handheld archive
+     within 5e-3 of the single sweep; (d) ``vo_sessions_sharded`` on two
+     handheld sessions of 32 frames (seeds 3 and 4): one kernel launch a
+     frame, each session's ATE under the golden VO gate; (e) two sessions
+     with loop closure, frames 40-79 of phase 13's sequence walked forward
+     and backward (two traversals of one place), merged, cross-session
+     closures found and
+     ``joint_optimize``d: at least one edge accepted, the overflow count,
+     chi2 not above 1.05 x its first value. A spawned rank that fails
+     fails the script.
 Then one JSON line describing the kernel, the nvidia-smi line, and the
 final status line.
 """
@@ -165,6 +186,28 @@ PLAYBACK_MEDIAN_TOL_M = 0.015
 PLAYBACK_MAX_TOL_M = 0.08
 PLAYBACK_EXACT_TOL = 1e-5
 CHECKPOINT_FRAME = 32
+# phase 16: the VO sessions (handheld_trajectory seeds, frames of each); the
+# SLAM sessions merged: one window of phase 13's sequence walked forward and
+# backward (two traversals of one place; the window keeps the merged problem
+# under ~29 free keyframes, where the bf16-rounded reduced system stays
+# definite, ROADMAP 3ac); the golden table's
+# VO gate (tests/golden_ate.json orbit30_vo); finalize_dist and the global
+# BA over two ranks against their single-device counterparts
+# (tests/test_round5.py:44,64); the joint BA's chi2 gate
+# (tests/test_multi_session.py:56); the spawned ranks' time limit
+DIST_SESSION_SEEDS = (3, 4)
+DIST_VO_FRAMES = 32
+DIST_SESSION_WINDOW = (40, 80)
+# (e2): keyframe-dense sessions (start, stop, step) of the same sequence
+# that overlap in frames 47-53, 14 keyframes each; the chi2 gate holds up
+# to this many free keyframes (3ac: from 34 the bf16-rounded system is
+# often indefinite)
+DIST_DENSE_WALKS = ((40, 54, 1), (60, 46, -1))
+DEFINITE_FREE_MAX = 29
+VO_ATE_GATE_M = 0.08
+FINALIZE_DIST_TOL = 5e-3
+JOINT_CHI2_FACTOR = 1.05
+RANK_TIMEOUT_S = 300
 TIMING_RUNS = 50
 SPIN_CYCLES = 20_000_000   # ~10 ms of the card's clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -983,6 +1026,341 @@ def phase_state_tools(cfg, dev, grays, depths, gt, dense_state, dense_poses,
     return n_ckpt, n_play
 
 
+def spawn_ranks(world, extra, work, device):
+    """``world`` ranks of tools/multihost_dryrun_torch.py on ``device``
+    over gloo (a ``file://`` rendezvous under ``work``), each under
+    ``RANK_TIMEOUT_S``: their JSON lines. A rank that fails or outlives the
+    limit fails the phase; every process is gone when this returns."""
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "multihost_dryrun_torch.py")
+    rdv = os.path.join(work, f"rdv_gloo{world}")
+    cmd = [sys.executable, tool, "--coordinator", f"file://{rdv}",
+           "--num-processes", str(world), "--device", device, "--backend",
+           "gloo", "--timeout", str(RANK_TIMEOUT_S // 2), *extra]
+    procs = [subprocess.Popen(cmd + ["--process-id", str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    outs = []
+    try:
+        for r, p in enumerate(procs):
+            out, err = p.communicate(timeout=RANK_TIMEOUT_S)
+            check(p.returncode == 0, f"rank {r} of {world} failed "
+                  f"(exit {p.returncode}):\n{err[-3000:]}")
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+@contextlib.contextmanager
+def counting_indefinite(opt_mod, sink):
+    """Inside the block every reduced solve appends to ``sink`` whether the
+    gauge-fixed, damped system failed its float32 Cholesky (indefinite: the
+    step is zero, ROADMAP 3ac). One factorisation and one sync a solve."""
+    real = opt_mod._solve_reduced
+
+    def solve(S, b_red, dead, lam):
+        _, info = torch.linalg.cholesky_ex(opt_mod._gauge_fixed(S, dead, lam))
+        sink.append(int(info) != 0)
+        return real(S, b_red, dead, lam)
+
+    opt_mod._solve_reduced = solve
+    try:
+        yield
+    finally:
+        opt_mod._solve_reduced = real
+
+
+def multi_session_case(tag, what, cfg, walks, h_grays, h_depths, h_gt, mesh,
+                       counter):
+    """Phase 16 (e): one SLAM session per walk (indices into phase 13's
+    sequence), merged, cross-session closures found, ``joint_optimize``d
+    over ``mesh``. At least one closure and a finite solve are required;
+    the chi2 gate holds up to ``DEFINITE_FREE_MAX`` free keyframes, beyond
+    which the bf16-rounded system may be indefinite (3ac): then it is
+    printed with its count of indefinite iterations and not gated. Returns
+    the kernel launches of the sessions."""
+    import numpy as np
+
+    from putslam_tpu_torch.backend import optimize as opt_mod
+    from putslam_tpu_torch.models import slam
+    from putslam_tpu_torch.parallel import dist_ba, multi_session
+
+    dev = h_grays.device
+    states, n_multi, t_sessions = [], 0, 0.0
+    for b, idx in enumerate(walks):
+        (_, _, st), dt_b, n_b = timed(
+            lambda: slam.run_slam(cfg, h_grays[idx.to(dev)],
+                                  h_depths[idx.to(dev)],
+                                  init_pose=h_gt[int(idx[0])], seed=b,
+                                  device=dev), counter)
+        check(n_b == len(idx), f"({tag}) session {b}: kernel launches {n_b} "
+              f"!= {len(idx)}")
+        states.append(st)
+        n_multi += n_b
+        t_sessions += dt_b
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    merged = multi_session.merge_sessions(cfg, states)
+    g_j, n_edges = multi_session.find_cross_session_closures(
+        cfg, merged, states, generator=gen)
+    torch.cuda.synchronize()
+    t_lc = time.perf_counter() - t0
+    overflow = dist_ba.partition_overflow(g_j, mesh.size,
+                                          merged.lm_pos.shape[0])
+    indefinite = []
+    t0 = time.perf_counter()
+    with counting_indefinite(opt_mod, indefinite):
+        kf_j, _, chi_j = multi_session.joint_optimize(cfg, mesh, merged, g_j,
+                                                      n_edges)
+    torch.cuda.synchronize()
+    t_joint = time.perf_counter() - t0
+    chi = chi_j.cpu().numpy()
+    n_free = int((merged.kf_valid
+                  & ~multi_session.joint_fixed(merged, n_edges)).sum())
+    gated = n_free <= DEFINITE_FREE_MAX
+    print(f"[16{tag}] 2 sessions of phase 13's handheld sequence, {what}, "
+          f"with loop closure ({t_sessions:.2f} s, launches {n_multi}; "
+          f"keyframes "
+          + " + ".join(str(int(s.map.kf_valid.sum())) for s in states)
+          + f"): merged and {n_edges} cross-session closures accepted in "
+          f"{t_lc:.3f} s; joint_optimize over world 1 ({n_free} free "
+          f"keyframes, K={merged.kf_pose.shape[0]}, "
+          f"L={merged.lm_pos.shape[0]}): {t_joint:.3f} s with the count's "
+          f"syncs, indefinite in {sum(indefinite)} of {len(indefinite)} "
+          f"iterations, owner-partition overflow {overflow}, chi2 "
+          + " -> ".join(f"{x:.6g}" for x in chi)
+          + (f" (gate: not above {JOINT_CHI2_FACTOR} x the first)" if gated
+             else f" (not gated: more than {DEFINITE_FREE_MAX} free)"),
+          flush=True)
+    check(n_edges >= 1, f"({tag}) no cross-session closure accepted")
+    check(np.isfinite(chi).all() and bool(torch.isfinite(kf_j).all()),
+          f"({tag}) joint BA not finite")
+    check(not gated or chi[-1] <= JOINT_CHI2_FACTOR * chi[0],
+          f"({tag}) joint BA chi2 {chi[0]:.6g} -> {chi[-1]:.6g}")
+    return n_multi
+
+
+def phase_distributed(cfg, dev, dense_state, window_fixed, root, h_gt, work):
+    """Phase 16. ``dense_state``: phase 5b's final state and
+    ``window_fixed`` phase 8's mask (16 free keyframes); ``root``: phase
+    13's handheld sequence on disk, read back as ``run --dataset`` reads it
+    (PNG-quantised: the covisibility rule makes its keyframes on these
+    frames, 18 in 128, and 6 on the float frames as rendered), ``h_gt`` its
+    poses; ``work``: a directory for files. Returns the kernel launches of
+    the session VO and of the multi-session SLAM runs."""
+    import numpy as np
+
+    from putslam_tpu_torch.backend import optimize as opt_mod
+    from putslam_tpu_torch.eval import ate as ate_mod
+    from putslam_tpu_torch.io import synthetic, tum
+    from putslam_tpu_torch.models import slam
+    from putslam_tpu_torch.ops import fast_cuda
+    from putslam_tpu_torch.parallel import dist_ba, mesh as mesh_mod
+    from putslam_tpu_torch.parallel import multihost
+    from putslam_tpu_torch.slam_map.archive import (MapArchive,
+                                                    global_bundle_adjust)
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import multihost_dryrun_torch as dryrun
+
+    counter = fast_cuda.fast_score_nms
+    t_phase = time.perf_counter()
+    played = list(tum.TumDataset(root, depth_scale=cfg.camera.depth_image_scale))
+    h_grays = torch.as_tensor(np.stack([f.gray for f in played]), device=dev)
+    h_depths = torch.as_tensor(np.stack([f.depth for f in played]),
+                               device=dev)
+    del played
+    # one process, one rank: the NCCL group of world size 1 (NCCL refuses
+    # two ranks on one card; initialize_distributed is a no-op for one
+    # process, as in the JAX package, so the group is joined here)
+    backend = multihost.join_group(
+        "file://" + os.path.join(work, "rdv_world1"), 1, 0, device=dev)
+    try:
+        mesh = multihost.global_mesh(axis_name="lm", device=dev)
+        check(mesh.size == 1 and mesh.group is not None,
+              f"world-1 mesh: {mesh}")
+
+        # ---- (a) dist_gauss_newton against gauss_newton_mm, world 1 ------
+        m2, g2 = dense_state.map, dense_state.graph
+        bcfg = dataclasses.replace(cfg.backend, gn_iterations=6,
+                                   robust_kernel="none", ba_window=0,
+                                   chi2_ratio_termination=0.0)
+        args = (m2.kf_pose, m2.kf_valid, m2.lm_pos, m2.lm_valid, g2,
+                window_fixed)
+
+        def dist_call():
+            return dist_ba.dist_gauss_newton(bcfg, mesh, *args, m2.lm_gen,
+                                             m2.kf_gen, cam=cfg.camera)
+
+        def mm_call():
+            return opt_mod.gauss_newton_mm(bcfg, *args, lm_gen=m2.lm_gen,
+                                           kf_gen=m2.kf_gen, cam=cfg.camera)
+
+        kf_d, lm_d, chi_d, ovf = dist_call()
+        ref = mm_call()
+        n_free = int((m2.kf_valid & ~window_fixed).sum())
+        d_pose = float((kf_d - ref.kf_pose)[m2.kf_valid].abs().max())
+        d_lm = float((lm_d - ref.lm_pos)[m2.lm_valid].abs().max())
+        check(int(ovf) == 0, f"(a) owner partition dropped {int(ovf)}")
+        check(bool(torch.isfinite(chi_d).all()), "(a) chi2 not finite")
+        check(d_pose < SOLVER_POSE_TOL, f"(a) dist BA poses {d_pose:.2e} "
+              f"from gauss_newton_mm's ({n_free} free keyframes)")
+        ms_dist = median_ms(dist_call, runs=5)
+        ms_mm = median_ms(mm_call, runs=5)
+        n0, b0 = mesh.n_all_reduce, mesh.all_reduce_bytes
+        mesh.timed = True
+        dist_call()
+        mesh.timed = False
+        it = bcfg.gn_iterations
+        ar_bytes = (mesh.all_reduce_bytes - b0 - 4 * lm_d.numel()) / it
+        ar_ms = 1e3 * mesh.all_reduce_s / (mesh.n_all_reduce - n0)
+        K = m2.kf_pose.shape[0]
+        check(ar_bytes == 4 * (36 * K * K + 6 * K + 1),
+              f"(a) {ar_bytes} bytes all-reduced an iteration")
+        print(f"[16a] dist_gauss_newton, world 1 on {backend} ({mesh}), "
+              f"phase 5b's map under phase 8's mask ({n_free} free of "
+              f"{int(m2.kf_valid.sum())} keyframes, K={K}, "
+              f"L={m2.lm_pos.shape[0]}), {it} iterations: poses within "
+              f"{d_pose:.2e} and landmarks {d_lm:.2e} of gauss_newton_mm "
+              f"(tolerance {SOLVER_POSE_TOL}); chi2 {chi_d[0]:.6g} -> "
+              f"{chi_d[-1]:.6g} (mm {ref.chi2[-1]:.6g}); {ms_dist:.3f} ms a "
+              f"call against gauss_newton_mm's {ms_mm:.3f} ms (CUDA events); "
+              f"all-reduce {ar_bytes:.0f} bytes an iteration, "
+              f"{ar_ms:.4f} ms each ({mesh.n_all_reduce - n0} a call, "
+              f"synchronised)", flush=True)
+
+        # ---- (c) finalize_dist on phase 13's handheld state ---------------
+        arch = MapArchive()
+        (_, outs_h, st_h), _, n_h_launch = timed(
+            lambda: slam.run_slam(cfg, h_grays, h_depths, init_pose=h_gt[0],
+                                  chunk_size=64, device=dev, archive=arch),
+            counter)
+        check(n_h_launch == frames_processed(len(h_gt), 64),
+              f"(c) handheld run: kernel launches {n_h_launch}")
+        fin = slam.finalize(cfg, st_h)
+        t0 = time.perf_counter()
+        fin_d = slam.finalize_dist(cfg, st_h, mesh)
+        torch.cuda.synchronize()
+        t_fd = time.perf_counter() - t0
+        kv = st_h.map.kf_valid
+        d_fin = float((fin_d.map.kf_pose - fin.map.kf_pose)[kv].abs().max())
+        pose_d = slam.reanchor_trajectory(fin_d, outs_h).cpu().numpy()
+        n_h = len(h_gt)
+        ate_d = ate_mod.ate_rmse_aligned_frames(h_gt[1:], pose_d[:n_h - 1])
+        check(ate_d < ATE_GATE_M, f"(c) finalize_dist ATE {ate_d:.5f} m")
+        check(d_fin < FINALIZE_DIST_TOL, f"(c) finalize_dist poses {d_fin:.2e}"
+              f" from finalize's")
+        print(f"[16c] finalize_dist, world 1 on {backend}, phase 13's handheld "
+              f"state ({int(kv.sum())} keyframes in the ring, n_kf "
+              f"{int(st_h.map.n_kf)}; launches {n_h_launch}): {t_fd:.3f} s; "
+              f"poses within "
+              f"{d_fin:.2e} of finalize's (tolerance {FINALIZE_DIST_TOL}); "
+              f"final ATE {ate_d:.5f} m (gate {ATE_GATE_M} m)", flush=True)
+
+        # ---- (b) two ranks sharing the card over gloo, and (c) their
+        # global BA; the same graph and archive as above ------------------
+        problem = os.path.join(work, "dist_problem.npz")
+        dryrun.save_problem(problem, bcfg, cfg.camera, *args, m2.lm_gen,
+                            m2.kf_gen)
+        archive = os.path.join(work, "dist_archive.npz")
+        dryrun.save_archive(archive, cfg, arch, {})
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(2, ["--problem", problem, "--archive", archive,
+                                "--repeat", "3", "--out",
+                                os.path.join(work, "rank{rank}.npz")], work,
+                            str(dev))
+        t_spawn = time.perf_counter() - t0
+        res = []
+        for r in range(2):
+            with np.load(os.path.join(work, f"rank{r}.npz")) as f:
+                res.append({k: f[k] for k in f.files})
+        kv2 = m2.kf_valid.cpu().numpy()
+        d_ranks = float(np.abs(res[0]["kf_pose"] - res[1]["kf_pose"]).max())
+        d_world1 = float(np.abs(res[0]["kf_pose"]
+                                - kf_d.cpu().numpy())[kv2].max())
+        check(all(x["global_ranks"] == 2 and x["backend"] == "gloo"
+                  for x in ranks), f"(b) ranks: {ranks}")
+        check(abs(ranks[0]["chi2_final"] - ranks[1]["chi2_final"])
+              <= 1e-6 * abs(ranks[0]["chi2_final"]) and d_ranks <= 1e-6,
+              f"(b) the two ranks differ: {d_ranks:.2e}")
+        check(d_world1 < SOLVER_POSE_TOL, f"(b) two ranks {d_world1:.2e} from "
+              f"world 1")
+        gba_single = global_bundle_adjust(cfg, arch, device=dev)
+        d_gba = float(np.abs(res[0]["kf_polished"] - gba_single).max())
+        d_gba_r = float(np.abs(res[0]["kf_polished"]
+                               - res[1]["kf_polished"]).max())
+        check(d_gba < FINALIZE_DIST_TOL and d_gba_r <= 1e-6,
+              f"(c) global BA over 2 ranks {d_gba:.2e} from the single sweep,"
+              f" ranks {d_gba_r:.2e} apart")
+        print(f"[16b] dist_gauss_newton on 2 ranks, one card, gloo (not "
+              f"scaling; spawned, {t_spawn:.1f} s with start-up): ranks "
+              f"{d_ranks:.1e} apart, {d_world1:.2e} from world 1; "
+              f"{ranks[0]['ms_per_call']:.3f} / {ranks[1]['ms_per_call']:.3f}"
+              f" ms a call (host clock, median of 3); all-reduce "
+              f"{ranks[0]['all_reduce_bytes_per_iteration']:.0f} bytes an "
+              f"iteration, {ranks[0]['all_reduce_ms_per_call']:.2f} ms a "
+              f"call on rank 0 (synchronised)", flush=True)
+        print(f"[16c] global_bundle_adjust(mesh=) on the 2 ranks: "
+              f"{res[0]['kf_polished'].shape[0]} keyframes, "
+              f"{ranks[0]['gba_s']:.3f} s, within {d_gba:.2e} of the single "
+              f"sweep (tolerance {FINALIZE_DIST_TOL}), ranks {d_gba_r:.1e} "
+              f"apart", flush=True)
+
+        # ---- (d) session-parallel VO --------------------------------------
+        tv = DIST_VO_FRAMES
+        sess = [synthetic.handheld_trajectory(tv, seed=s, device=dev)
+                for s in DIST_SESSION_SEEDS]
+        frames = [synthetic.render_sequence(cfg.camera, p) for p in sess]
+        smesh = mesh_mod.make_mesh(axis="session", device=dev)
+        grays = torch.stack([f[0] for f in frames])
+        depths = torch.stack([f[1] for f in frames])
+        poses_vo, dt_vo, n_vo = timed(
+            lambda: mesh_mod.vo_sessions_sharded(cfg, smesh, grays, depths),
+            counter)
+        n_sess = len(sess)
+        check(tuple(poses_vo.shape) == (n_sess, tv, 7), "(d) poses shape")
+        check(n_vo == n_sess * tv // smesh.size,
+              f"(d) kernel launches {n_vo} != {n_sess * tv} frames")
+        ates_vo = [ate_mod.ate_rmse_aligned_frames(
+            sess[b].cpu().numpy(), poses_vo[b].cpu().numpy())
+            for b in range(n_sess)]
+        check(max(ates_vo) < VO_ATE_GATE_M, f"(d) session VO ATE {ates_vo}")
+        print(f"[16d] vo_sessions_sharded, {n_sess} sessions x {tv} frames of "
+              f"handheld_trajectory(seed {DIST_SESSION_SEEDS}), world 1: "
+              f"{dt_vo:.3f} s, {n_sess * tv / dt_vo:.2f} frames/s; launches "
+              f"{n_vo}; ATE " + ", ".join(f"{a:.5f}" for a in ates_vo)
+              + f" m (gate {VO_ATE_GATE_M} m)", flush=True)
+
+        # ---- (e) two sessions of one place merged and optimised jointly:
+        # the rule's keyframes, then keyframe-dense (e2) ------------------
+        lc_cfg = cfg.replace(loop_closure=dataclasses.replace(
+            cfg.loop_closure, enabled=True))
+        dense_lc = lc_cfg.replace(map=dataclasses.replace(
+            lc_cfg.map, min_keyframe_matches=10_000))
+        lo, hi = DIST_SESSION_WINDOW
+        n_multi = 0
+        for tag, c, walks, what in (
+                ("e", lc_cfg, [torch.arange(lo, hi),
+                               torch.arange(hi - 1, lo - 1, -1)],
+                 f"frames {lo}-{hi - 1} forward and backward"),
+                ("e2", dense_lc, [torch.arange(*w[:2], w[2])
+                                  for w in DIST_DENSE_WALKS],
+                 "keyframe-dense, frames " + " and ".join(
+                     f"{w[0]}-{w[1] - w[2]}" for w in DIST_DENSE_WALKS))):
+            n_multi += multi_session_case(tag, what, c, walks, h_grays,
+                                          h_depths, h_gt, mesh, counter)
+    finally:
+        multihost.shutdown()
+    print(f"[16] wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return n_vo, n_multi
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dump-map", metavar="NPZ", help="write the final map "
@@ -1417,13 +1795,18 @@ def main() -> int:
         n14, n14w = phase_archive(cfg, dev, root, h_grays, h_depths, h_gt,
                                   report13)
         t15 = time.perf_counter()
-        del h_grays, h_depths
         n15, n15p = phase_state_tools(cfg, dev, grays, depths, gt, state2,
                                       pb2, work)
+        t16 = time.perf_counter()
         print(f"[13-15] wall: file player {t14 - t13:.1f} s, archive and "
               f"global BA {t15 - t14:.1f} s, state tools "
-              f"{time.perf_counter() - t15:.1f} s; the whole script "
-              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+              f"{t16 - t15:.1f} s", flush=True)
+        # ---- 16. the distributed path -----------------------------------
+        del h_grays, h_depths
+        n16v, n16m = phase_distributed(cfg, dev, state2, window_fixed, root,
+                                       h_gt, work)
+        print(f"[16] the whole script {time.perf_counter() - t_start:.1f} s",
+              flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1439,6 +1822,8 @@ def main() -> int:
         "launches_wrapped_ring": n14w,
         "launches_checkpoint_resume": n15,
         "launches_playback": n15p,
+        "launches_sessions": n16v,
+        "launches_multi_session": n16m,
         "max_abs_err": max_err,
         "ms": ms_kernel,
         "plain_ms": ms_plain,

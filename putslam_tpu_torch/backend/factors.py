@@ -100,6 +100,26 @@ def pp_jacobians(pose_i, pose_j, z_rel):
     return Ji, Jj
 
 
+def pp_jacobians_autodiff(pose_i, pose_j, z_rel):
+    """Forward-mode autodiff of ``pp_residual`` through the exact log map
+    (``putslam_tpu/backend/factors.py:157``), batched with
+    ``torch.func.vmap``: the oracle the closed form is checked against.
+    Kept out of the solvers (its first call costs seconds)."""
+    from torch.func import jacfwd, vmap
+
+    zeros = torch.zeros(pose_i.shape[:-1] + (6,), dtype=pose_i.dtype,
+                        device=pose_i.device)
+
+    def r_of(xi_i, xi_j, Ti, Tj, Z):
+        return pp_residual(se3.retract(Ti, xi_i), se3.retract(Tj, xi_j), Z)
+
+    Ji = vmap(lambda Ti, Tj, Z, z: jacfwd(
+        lambda a: r_of(a, z, Ti, Tj, Z))(z))(pose_i, pose_j, z_rel, zeros)
+    Jj = vmap(lambda Ti, Tj, Z, z: jacfwd(
+        lambda b: r_of(z, b, Ti, Tj, Z))(z))(pose_i, pose_j, z_rel, zeros)
+    return Ji, Jj
+
+
 def robust_weight(sq_err, kind: str, delta: float):
     """IRLS weight w(e²) on the weighted squared error."""
     if kind == "none":

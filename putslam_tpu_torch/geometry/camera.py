@@ -1,8 +1,9 @@
 """Batched pinhole camera with radial-tangential distortion (torch).
 
 Port of ``putslam_tpu/geometry/camera.py``: ``(..., 2)`` pixel tensors and
-``(..., 3)`` point tensors, no per-feature loops; undistortion is the same
-fixed 8-iteration fixed-point inversion.
+``(..., 3)`` point tensors, no per-feature loops; distortion is the
+radial-tangential model, undistortion the same fixed 8-iteration
+fixed-point inversion.
 """
 
 from __future__ import annotations
@@ -10,6 +11,23 @@ from __future__ import annotations
 import torch
 
 from putslam_tpu_torch.config import CameraConfig
+
+
+def intrinsics_matrix(cam: CameraConfig, dtype=torch.float32, device=None):
+    """The 3×3 pinhole matrix K."""
+    return torch.tensor([[cam.fu, 0.0, cam.cu], [0.0, cam.fv, cam.cv],
+                         [0.0, 0.0, 1.0]], dtype=dtype, device=device)
+
+
+def distort_normalized(cam: CameraConfig, xy):
+    """Radial-tangential distortion of normalised coordinates (...,2)."""
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    xy2 = 2.0 * x * y
+    return torch.stack([x * radial + cam.p1 * xy2 + cam.p2 * (r2 + 2.0 * x * x),
+                        y * radial + cam.p2 * xy2 + cam.p1 * (r2 + 2.0 * y * y)],
+                       dim=-1)
 
 
 def undistort_normalized(cam: CameraConfig, xy_d, iters: int = 8):
@@ -42,22 +60,35 @@ def undistort_pixels(cam: CameraConfig, uv):
         cam, undistort_normalized(cam, pixel_to_normalized(cam, uv)))
 
 
-def unproject(cam: CameraConfig, uv, depth):
-    """(u, v, d) → camera-frame xyz (...,3) for undistorted pixels."""
+def unproject(cam: CameraConfig, uv, depth, undistort: bool = False):
+    """(u, v, d) → camera-frame xyz (...,3); ``undistort`` first removes the
+    lens distortion from the pixels."""
     xy = pixel_to_normalized(cam, uv)
+    if undistort:
+        xy = undistort_normalized(cam, xy)
     return torch.cat([xy * depth[..., None], depth[..., None]], dim=-1)
 
 
-def project(cam: CameraConfig, xyz):
-    """Camera-frame xyz → ideal pixels (...,2), with a tiny-z guard."""
+def project(cam: CameraConfig, xyz, distort: bool = False):
+    """Camera-frame xyz → pixels (...,2), with a tiny-z guard; ``distort``
+    applies the lens distortion (else ideal pixels)."""
     z = xyz[..., 2:3]
     z = torch.where(torch.abs(z) < 1e-9, torch.full_like(z, 1e-9), z)
-    return normalized_to_pixel(cam, xyz[..., 0:2] / z)
+    xy = xyz[..., 0:2] / z
+    if distort:
+        xy = distort_normalized(cam, xy)
+    return normalized_to_pixel(cam, xy)
 
 
 def depth_valid_mask(cam: CameraConfig, depth):
     """The min/max depth validity gate (0.1–6 m at fr1)."""
     return (depth > cam.min_depth) & (depth < cam.max_depth)
+
+
+def in_image_mask(cam: CameraConfig, uv, border: float = 0.0):
+    """Pixels (...,2) inside the image by at least ``border``."""
+    return ((uv[..., 0] >= border) & (uv[..., 0] <= cam.width - 1 - border)
+            & (uv[..., 1] >= border) & (uv[..., 1] <= cam.height - 1 - border))
 
 
 def bilinear_sample(image, uv):

@@ -16,6 +16,13 @@ def _eye3(ref: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=ref.dtype, device=ref.device)
 
 
+def quat_identity(batch_shape=(), dtype=torch.float32, device=None):
+    """Identity quaternions (..., 4) = [1, 0, 0, 0]."""
+    q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
+    q[..., 0] = 1.0
+    return q
+
+
 def quat_normalize(q):
     return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=1e-12)
 
@@ -61,6 +68,30 @@ def quat_to_matrix(q):
         2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
     ], dim=-1)
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m):
+    """(...,3,3) → (...,4). Branch-free Shepperd-style selection: of the
+    four unnormalised candidates the one with the largest dominant
+    component is taken (first on ties, as ``argmax``), sign w ≥ 0."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    qw_w = 1.0 + m00 + m11 + m22
+    qx_x = 1.0 + m00 - m11 - m22
+    qy_y = 1.0 - m00 + m11 - m22
+    qz_z = 1.0 - m00 - m11 + m22
+    cands = torch.stack([
+        torch.stack([qw_w, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, qx_x, m01 + m10, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m01 + m10, qy_y, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, qz_z], dim=-1),
+    ], dim=-2)                                               # (..., 4, 4)
+    idx = torch.argmax(torch.stack([qw_w, qx_x, qy_y, qz_z], dim=-1), dim=-1)
+    q = torch.gather(cands, -2, idx[..., None, None].expand(
+        idx.shape + (1, 4)))[..., 0, :]
+    q = torch.where(q[..., 0:1] < 0, -q, q)
+    return quat_normalize(q)
 
 
 def quat_angle(q):
@@ -116,6 +147,21 @@ def apply_soa(p, px, py, pz):
     y = py + qw * ty + (qz * tx - qx * tz) + p[..., 1]
     z = pz + qw * tz + (qx * ty - qy * tx) + p[..., 2]
     return x, y, z
+
+
+def to_matrix(p):
+    """(...,7) → (...,4,4) homogeneous matrices."""
+    top = torch.cat([quat_to_matrix(rotation_quat(p)),
+                     translation(p)[..., None]], dim=-1)
+    bottom = torch.zeros(p.shape[:-1] + (1, 4), dtype=p.dtype,
+                         device=p.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def from_matrix(m):
+    """(...,4,4) homogeneous matrices → (...,7) poses."""
+    return make_pose(m[..., 0:3, 3], matrix_to_quat(m[..., 0:3, 0:3]))
 
 
 def relative(a, b):
@@ -227,6 +273,25 @@ def se3_left_jacobian_inv_blocks(xi):
 def blocks_to_6x6(X, Y, Z, W):
     return torch.cat([torch.cat([X, Y], dim=-1), torch.cat([Z, W], dim=-1)],
                      dim=-2)
+
+
+def se3_left_jacobian_inv(xi):
+    """Inverse left Jacobian of SE(3) at twist xi (...,6) → (...,6,6):
+    [[Jl⁻¹, −Jl⁻¹·Q·Jl⁻¹], [0, Jl⁻¹]], closed form."""
+    X, Y = se3_left_jacobian_inv_blocks(xi)
+    return blocks_to_6x6(X, Y, torch.zeros_like(X), X)
+
+
+def se3_right_jacobian_inv(xi):
+    """Inverse right Jacobian of SE(3): Jr⁻¹(ξ) = Jl⁻¹(−ξ)."""
+    return se3_left_jacobian_inv(-xi)
+
+
+def adjoint(p):
+    """Adjoint of poses (...,7) → (...,6,6) for [ρ, φ] twists,
+    T·exp(ξ)·T⁻¹ = exp(Ad(T)·ξ): Ad = [[R, skew(t)·R], [0, R]]."""
+    R = quat_to_matrix(rotation_quat(p))
+    return blocks_to_6x6(R, skew(translation(p)) @ R, torch.zeros_like(R), R)
 
 
 def exp(xi):

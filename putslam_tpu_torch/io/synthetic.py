@@ -215,3 +215,22 @@ def render_sequence(cam: CameraConfig, poses, seed: int = 7):
     frames = [render_frame(cam, p, seed=seed) for p in poses]
     return (torch.stack([f[0] for f in frames]),
             torch.stack([f[1] for f in frames]))
+
+
+def synthetic_sequence(cam: CameraConfig, n_frames: int = 30, seed: int = 7,
+                       motion: str = "orbit", device="cuda"):
+    """(grays, depths, gt_poses) as numpy arrays, rendered on ``device``
+    (``putslam_tpu/io/synthetic.py:265``): ``motion`` "orbit" (the default
+    ``orbit_trajectory``) or "static" (the identity pose throughout)."""
+    from putslam_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    if motion == "orbit":
+        poses = orbit_trajectory(n_frames, device=dev)
+    elif motion == "static":
+        poses = se3.identity((n_frames,), device=dev)
+    else:
+        raise ValueError(motion)
+    grays, depths = render_sequence(cam, poses, seed=seed)
+    return (grays.cpu().numpy(), depths.cpu().numpy(),
+            poses.cpu().numpy())

@@ -10,8 +10,10 @@ queued candidate popped and verified per frame, its correction edge added
 before the BA), the periodic bundle adjustment, map compression, the
 re-anchor of the live pose on the last keyframe and the EKF correction.
 ``run_slam_final`` adds the end-of-run full-graph polish, the trajectory
-repair and the re-anchored trajectory. With ``map.use_uncertainty`` every
-observation carries the 3×3 information matrix of the depth-sensor model
+repair and the re-anchored trajectory; ``finalize_dist`` is that polish with
+the landmark-sharded BA of ``parallel/dist_ba.py``. With
+``map.use_uncertainty`` every observation carries the 3×3 information
+matrix of the depth-sensor model
 (plain, or shrunk along the surface normal or the image gradient), which
 the Mahalanobis RANSAC (``error_version=3``) and the BA
 (``backend.use_obs_info``) read. In playback mode (``run_playback``) a known
@@ -60,6 +62,7 @@ from putslam_tpu_torch.models import vo as vo_mod
 from putslam_tpu_torch.motion import ekf as ekf_mod
 from putslam_tpu_torch.motion.ekf import EKFState  # noqa: F401
 from putslam_tpu_torch.ops import rgbd
+from putslam_tpu_torch.parallel import dist_ba
 from putslam_tpu_torch.slam_map import features_map as fm
 from putslam_tpu_torch.utils.device import as_tensor, resolve_device
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows, take_row
@@ -659,10 +662,13 @@ def run_slam(cfg: SlamConfig, grays, depths, init_pose=None, seed: int = 0,
     return poses, outs_all, state
 
 
-def finalize(cfg: SlamConfig, state: SlamState) -> SlamState:
-    """Full-graph polish: free every keyframe but the oldest (gauge), drop
-    landmarks with fewer than ``final_min_obs`` observations, run a long
-    robust BA, chi²-prune, run it again, then repair the trajectory."""
+def _polish(cfg: SlamConfig, state: SlamState, solve):
+    """The end-of-run polish of both finalizes: free every keyframe but the
+    oldest (gauge), drop landmarks with fewer than ``final_min_obs``
+    observations, solve, chi²-prune, solve again, then repair the
+    trajectory. ``solve(bcfg, kf_pose, lm_pos, lm_valid, g, fixed)``
+    returns (kf_pose, lm_pos, obs_sq_err), or None where it refuses the
+    graph. Returns (the polished state or None, the graph reached)."""
     m, g = state.map, state.graph
     bcfg = dataclasses.replace(cfg.backend,
                                gn_iterations=cfg.backend.final_gn_iterations,
@@ -670,19 +676,68 @@ def finalize(cfg: SlamConfig, state: SlamState) -> SlamState:
     lm_valid = m.lm_valid & (m.lm_n_obs >= cfg.backend.final_min_obs)
     seqs = torch.where(m.kf_valid, m.kf_seq,
                        torch.full_like(m.kf_seq, np.iinfo(np.int32).max))
-    fixed = torch.zeros_like(m.kf_valid)
-    fixed[torch.argmin(seqs)] = True
-    res1 = opt_mod.optimize_graph(bcfg, m.kf_pose, m.kf_valid, m.lm_pos,
-                                  lm_valid, g, fixed, lm_gen=m.lm_gen,
-                                  kf_gen=m.kf_gen, cam=cfg.camera)
-    g = graph_mod.prune_observations(
-        g, res1.obs_sq_err > cfg.backend.chi2_prune_threshold)
-    res2 = opt_mod.optimize_graph(bcfg, res1.kf_pose, m.kf_valid, res1.lm_pos,
-                                  lm_valid, g, fixed, lm_gen=m.lm_gen,
-                                  kf_gen=m.kf_gen, cam=cfg.camera)
-    m = m._replace(kf_pose=res2.kf_pose, lm_pos=res2.lm_pos, lm_valid=lm_valid)
+    fixed = set_rows(torch.zeros_like(m.kf_valid),
+                     torch.argmin(seqs).reshape(1), True)
+    kf_pose, lm_pos = m.kf_pose, m.lm_pos
+    for prune in (True, False):
+        res = solve(bcfg, kf_pose, lm_pos, lm_valid, g, fixed)
+        if res is None:
+            return None, g
+        kf_pose, lm_pos, sq = res
+        if prune:
+            g = graph_mod.prune_observations(
+                g, sq > cfg.backend.chi2_prune_threshold)
+    m = m._replace(kf_pose=kf_pose, lm_pos=lm_pos, lm_valid=lm_valid)
     kf_repaired, _ = check_trajectory(cfg, m, g)
-    return state._replace(map=m._replace(kf_pose=kf_repaired), graph=g)
+    return state._replace(map=m._replace(kf_pose=kf_repaired), graph=g), g
+
+
+def finalize(cfg: SlamConfig, state: SlamState) -> SlamState:
+    """Full-graph polish: free every keyframe but the oldest (gauge), drop
+    landmarks with fewer than ``final_min_obs`` observations, run a long
+    robust BA, chi²-prune, run it again, then repair the trajectory."""
+    m = state.map
+
+    def solve(bcfg, kf_pose, lm_pos, lm_valid, g, fixed):
+        res = opt_mod.optimize_graph(bcfg, kf_pose, m.kf_valid, lm_pos,
+                                     lm_valid, g, fixed, lm_gen=m.lm_gen,
+                                     kf_gen=m.kf_gen, cam=cfg.camera)
+        return res.kf_pose, res.lm_pos, res.obs_sq_err
+
+    return _polish(cfg, state, solve)[0]
+
+
+def finalize_dist(cfg: SlamConfig, state: SlamState, mesh) -> SlamState:
+    """``finalize`` with both Gauss-Newton solves run by the
+    landmark-sharded BA over ``mesh`` (``parallel/dist_ba.py``;
+    ``putslam_tpu/models/slam.py:726-786``): the same release → BA →
+    chi²-prune → BA → ``check_trajectory`` contract, the prune signal from
+    ``backend/optimize.py::_final_sq_errors``. Every rank calls it with the
+    same state. Where the owner partition drops observations (skewed
+    landmark ownership) it warns and runs the single-device ``finalize`` on
+    the graph reached, as the reference does. ``cfg.map.max_landmarks``
+    must divide the mesh size."""
+    m = state.map
+    dropped = []
+
+    def solve(bcfg, kf_pose, lm_pos, lm_valid, g, fixed):
+        kf, lm, _, overflow = dist_ba.dist_gauss_newton(
+            bcfg, mesh, kf_pose, m.kf_valid, lm_pos, lm_valid, g, fixed,
+            m.lm_gen, m.kf_gen, cam=cfg.camera)
+        if int(overflow) > 0:
+            dropped.append(int(overflow))
+            return None
+        return kf, lm, opt_mod._final_sq_errors(
+            bcfg, kf, lm, lm_valid, g, m.lm_gen, m.kf_gen, cfg.camera)
+
+    out, g = _polish(cfg, state, solve)
+    if out is None:
+        warnings.warn(
+            f"dist finalize: owner partition dropped {dropped[0]} edges "
+            f"(skewed landmark ownership); the single-device finalize runs "
+            f"instead", stacklevel=2)
+        return finalize(cfg, state._replace(graph=g))
+    return out
 
 
 def check_trajectory(cfg: SlamConfig, m: fm.MapState,

@@ -181,6 +181,33 @@ def make_fused_bank(kind: str = "brief") -> np.ndarray:
     return _FUSED_BANKS[kind]
 
 
+def box_blur(img: torch.Tensor, radius: int = 2) -> torch.Tensor:
+    """Separable box blur of an (H, W) image with zero padding (BRIEF's
+    pre-smoothing; ``putslam_tpu/ops/brief.py:53``). The descriptor path
+    folds the same smoothing, edge taps clamped, into its bank
+    (``_blur_matrix``)."""
+    w = 2 * radius + 1
+    k = torch.full((w,), 1.0 / w, dtype=img.dtype, device=img.device)
+    x = torch.nn.functional.conv2d(img[None, None], k.view(1, 1, w, 1),
+                                   padding=(radius, 0))
+    x = torch.nn.functional.conv2d(x, k.view(1, 1, 1, w), padding=(0, radius))
+    return x[0, 0]
+
+
+def orientations(patches: torch.Tensor) -> torch.Tensor:
+    """ORB intensity-centroid angle per patch, θ = atan2(m01, m10) over the
+    radius-15 disc (``putslam_tpu/ops/brief.py:83``). The descriptor path
+    reads the same moments from the bank's last two columns.
+    patches (N, P, P) → (N,) radians."""
+    disc = torch.as_tensor(_DISC, dtype=patches.dtype, device=patches.device)
+    w = patches * disc
+    m10 = torch.sum(w * torch.as_tensor(_XREL_NP, dtype=patches.dtype,
+                                        device=patches.device), dim=(-1, -2))
+    m01 = torch.sum(w * torch.as_tensor(_YREL_NP, dtype=patches.dtype,
+                                        device=patches.device), dim=(-1, -2))
+    return torch.atan2(m01, m10)
+
+
 def extract_patches(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """One PATCH×PATCH window centred at each rounded keypoint, clamped
     into the image. uv (N, 2) [u, v] → (N, PATCH, PATCH)."""

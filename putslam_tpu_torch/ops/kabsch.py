@@ -2,6 +2,7 @@
 of ``putslam_tpu/ops/kabsch.py``. The dominant eigenvector of Horn's 4×4
 matrix comes from the same fixed number of symmetric squarings, carried as
 component tensors (structure of arrays), so every hypothesis solves at once.
+``alignment_residuals`` and ``transform_covariance`` evaluate an estimate.
 """
 
 from __future__ import annotations
@@ -100,3 +101,22 @@ def _horn_quat_soa(S, iters: int = 30):
     v = v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True), min=1e-20)
     quat = torch.where(v[..., 0:1] < 0, -v, v)
     return se3.quat_normalize(quat)
+
+
+def alignment_residuals(T, p, q):
+    """‖T·p − q‖ per pair, broadcasting T (..., 7) over points (..., n, 3)."""
+    return torch.linalg.norm(se3.apply(T[..., None, :], p) - q, dim=-1)
+
+
+def transform_covariance(T, p, w, point_var: float = 1.0):
+    """6×6 covariance of the estimated transform in the twist tangent at T
+    (``putslam_tpu/ops/kabsch.py:159``): Cov(ξ) = σ² (Σ wᵢ JᵢᵀJᵢ)⁻¹ with
+    Jᵢ = [I | −skew(T·pᵢ)] (left perturbation), damped by 1e-9·I for
+    degenerate sets. p: (..., n, 3); w: (..., n). Returns (..., 6, 6)."""
+    tp = se3.apply(T[..., None, :], p)                        # (..., n, 3)
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(
+        tp.shape[:-1] + (3, 3))
+    J = torch.cat([eye, -se3.skew(tp)], dim=-1)               # (..., n, 3, 6)
+    H = torch.einsum("...n,...nri,...nrj->...ij", w, J, J)
+    H = H + 1e-9 * torch.eye(6, dtype=p.dtype, device=p.device)
+    return point_var * torch.linalg.inv(H)

@@ -11,7 +11,8 @@ gone from the device state.
   generation of a ring slot is its own global vertex. The 25 small ring
   stores are fetched with one device synchronisation (``_fetch``).
 * ``global_bundle_adjust`` polishes the full archived graph by overlapping
-  windowed sweeps of ``backend.optimize.gauss_newton_mm``: each window's
+  windowed sweeps of ``backend.optimize.gauss_newton_mm`` (or, over a mesh,
+  of ``parallel.dist_ba.dist_gauss_newton``): each window's
   subproblem (free keyframes plus the frozen keyframes and the landmarks
   that anchor it) is assembled on the host into fixed-shape padded arrays.
   Back-to-front sweeps with 50 % overlap carry corrections along the
@@ -31,6 +32,7 @@ import torch
 
 from putslam_tpu_torch.backend import optimize as opt_mod
 from putslam_tpu_torch.backend.graph import GraphState
+from putslam_tpu_torch.parallel import dist_ba
 from putslam_tpu_torch.utils.device import resolve_device
 
 _GEN_BASE = np.int64(1) << 24  # (slot, gen) -> slot * _GEN_BASE + gen codes
@@ -252,11 +254,19 @@ def global_bundle_adjust(cfg, archive: MapArchive,
     A window whose reduced system is not positive definite takes a zero step
     in every iteration and leaves its keyframes where they were.
 
-    ``mesh``: the landmark-sharded solve across devices is not yet ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "global_bundle_adjust(mesh=...): the distributed solver is not "
-            "yet ported")
+    ``mesh``: a ``parallel.mesh.Mesh`` of more than one rank runs each
+    window's solve through the landmark-sharded BA
+    (``parallel/dist_ba.py``; ``putslam_tpu/slam_map/archive.py:265-270,
+    362-377``); every rank calls this with the same archive, and
+    ``lm_cap`` must divide the mesh size. A window whose owner partition
+    would drop observations is solved again by ``gauss_newton_mm`` (on every
+    rank alike). A mesh of one rank takes the single-device path."""
+    if mesh is not None and mesh.size > 1:
+        if lm_cap % mesh.size:
+            raise ValueError(f"lm_cap {lm_cap} must divide the mesh size "
+                             f"{mesh.size} for the sharded solver")
+    else:
+        mesh = None
     dev = resolve_device(device)
 
     kf, lm, (obs_kf, obs_lm, obs_xyz, obs_w, obs_info), \
@@ -348,11 +358,18 @@ def global_bundle_adjust(cfg, archive: MapArchive,
             lm_sub = _pad_to(lm[lm_set], lm_cap)
             lm_valid = np.arange(lm_cap) < len(lm_set)
 
-            res = opt_mod.gauss_newton_mm(
-                bcfg, up(kf_sub), up(kf_valid), up(lm_sub), up(lm_valid), g,
-                up(frozen), cam=cfg.camera)
-            kf_out = res.kf_pose.cpu().numpy()
-            lm_out = res.lm_pos.cpu().numpy()
+            args = (up(kf_sub), up(kf_valid), up(lm_sub), up(lm_valid), g,
+                    up(frozen))
+            overflow = 0
+            if mesh is not None:
+                kf_o, lm_o, _, overflow = dist_ba.dist_gauss_newton(
+                    bcfg, mesh, *args, up(np.zeros((lm_cap,), np.int32)),
+                    cam=cfg.camera)
+            if mesh is None or int(overflow) > 0:
+                res = opt_mod.gauss_newton_mm(bcfg, *args, cam=cfg.camera)
+                kf_o, lm_o = res.kf_pose, res.lm_pos
+            kf_out = kf_o.cpu().numpy()
+            lm_out = lm_o.cpu().numpy()
             kf[free_k] = kf_out[:len(free_k)]
             lm[lm_set] = lm_out[:len(lm_set)]
     return kf

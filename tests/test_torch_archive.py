@@ -4,7 +4,8 @@ enough to wrap and converted with ``convert.from_numpy``, are absorbed chunk
 by chunk into both archives: ``dense()`` and the code maps are exact (host
 integer bookkeeping and copies of the same float32 arrays). The global BA at
 the reference test's small sizes (tests/test_round4.py:239-242) on the same
-archive agrees within 1e-5 (float32 Gauss-Newton in two libraries)."""
+archive agrees within 1e-5 (float32 Gauss-Newton in two libraries); over
+a mesh of two ranks within 5e-3 (tests/test_round5.py:64)."""
 
 import dataclasses
 
@@ -18,10 +19,12 @@ from _torch_port import port_cfg
 from putslam_tpu.config import tiny_test_config
 from putslam_tpu.io import synthetic as jsyn
 from putslam_tpu.models import slam as jslam
+from putslam_tpu.parallel import mesh as jmesh
 from putslam_tpu.slam_map import archive as jarchive
 from putslam_tpu_torch import convert
 from putslam_tpu_torch.eval import ate as tate
 from putslam_tpu_torch.models import slam as tslam
+from putslam_tpu_torch.parallel import mesh as tmesh
 from putslam_tpu_torch.slam_map import archive as tarchive
 
 T, CHUNK = 28, 8
@@ -177,11 +180,32 @@ def test_global_bundle_adjust_agrees(archives, monkeypatch):
     assert sum(w["moved"] for w in windows) >= len(windows) // 2
 
 
-def test_global_bundle_adjust_mesh_not_ported(archives):
-    cfg, _, _, ta, _ = archives
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tarchive.global_bundle_adjust(port_cfg(cfg), ta, mesh=object(),
-                                      device="cpu")
+def test_global_bundle_adjust_over_a_mesh(archives):
+    """``mesh=`` of 2 ranks runs every window through the landmark-sharded
+    BA: within 5e-3 of the single-device sweep (tests/test_round5.py:64)
+    and of the JAX package's mesh path on 2 of its virtual devices; a mesh
+    of one rank is the single-device path, bit for bit; ``lm_cap`` must
+    divide the mesh size."""
+    cfg, _, ja, ta, _ = archives
+    pcfg = port_cfg(cfg)
+    single = tarchive.global_bundle_adjust(pcfg, ta, device="cpu", **GBA)
+    two = tarchive.global_bundle_adjust(
+        pcfg, ta, mesh=tmesh.make_mesh(2, axis="lm", device="cpu"),
+        device="cpu", **GBA)
+    ref = jarchive.global_bundle_adjust(cfg, ja, mesh=jmesh.make_mesh(
+        2, axis="lm"), **GBA)
+    assert two.shape == single.shape and np.isfinite(two).all()
+    np.testing.assert_allclose(two, single, atol=5e-3)
+    np.testing.assert_allclose(two, ref, atol=5e-3)
+    assert np.abs(two - ta.dense()[0]).max() > 1e-5
+    one = tarchive.global_bundle_adjust(
+        pcfg, ta, mesh=tmesh.make_mesh(1, axis="lm", device="cpu"),
+        device="cpu", **GBA)
+    assert np.array_equal(one, single)
+    with pytest.raises(ValueError, match="divide"):
+        tarchive.global_bundle_adjust(
+            pcfg, ta, mesh=tmesh.make_mesh(3, axis="lm", device="cpu"),
+            device="cpu", **GBA)
     with pytest.raises(RuntimeError, match="CUDA"):
         if torch.cuda.is_available():
             raise RuntimeError("CUDA present")

@@ -32,9 +32,14 @@ def test_port_imports_with_jax_blocked():
             "import putslam_tpu_torch.utils.checkpoint\n"
             "import putslam_tpu_torch.slam_map.archive\n"
             "import putslam_tpu_torch.eval.ate\n"
+            "import putslam_tpu_torch.parallel.multihost\n"
+            "import putslam_tpu_torch.parallel.mesh\n"
+            "import putslam_tpu_torch.parallel.dist_ba\n"
+            "import putslam_tpu_torch.parallel.multi_session\n"
             "sys.path.insert(0, 'tools')\n"
             "import make_disk_dataset_torch, profile_torch_slam\n"
-            "import lc_spread_torch\n"
+            "import lc_spread_torch, multihost_dryrun_torch\n"
+            "import measure_scaling_torch\n"
             "assert not [m for m in sys.modules if m.split('.')[0] in\n"
             "            ('jax', 'putslam_tpu') and sys.modules[m] is not None]\n"
             "print('ok')")
@@ -50,12 +55,16 @@ def _port_sources():
     files += [ROOT / "chip_smoke.py",
               ROOT / "tools" / "make_disk_dataset_torch.py",
               ROOT / "tools" / "profile_torch_slam.py",
-              ROOT / "tools" / "lc_spread_torch.py"]
+              ROOT / "tools" / "lc_spread_torch.py",
+              ROOT / "tools" / "multihost_dryrun_torch.py",
+              ROOT / "tools" / "measure_scaling_torch.py"]
     rel = {str(f.relative_to(ROOT)) for f in files}
     for name in ("io/png.py", "io/tum.py", "io/native_loader.py",
                  "io/xml_config.py", "io/icl.py", "io/g2o.py",
                  "io/rgbdslam.py", "io/synthetic.py", "slam_map/archive.py",
-                 "utils/checkpoint.py", "eval/ate.py", "run.py"):
+                 "utils/checkpoint.py", "eval/ate.py", "run.py",
+                 "parallel/multihost.py", "parallel/mesh.py",
+                 "parallel/dist_ba.py", "parallel/multi_session.py"):
         assert f"putslam_tpu_torch/{name}" in rel, name
     assert all(f.exists() for f in files)
     return files
