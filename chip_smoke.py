@@ -116,6 +116,25 @@ Phases (any failed check raises and the script exits non-zero):
      ``joint_optimize``d: at least one edge accepted, the overflow count,
      chi2 not above 1.05 x its first value. A spawned rank that fails
      fails the script.
+ 17. the last modules: (a) ``bench_torch.main`` with one trial of one rep:
+     its JSON line's four keys, its value beside phase 5's frames/s, the
+     SLAM ATE under the gate, its kernel launches counted (255: slam_init,
+     two runs of 63 frames, two of 64 for the VO); (b)
+     ``tools/profile_vo_torch.py`` at fr1 over 64 frames: the five stage
+     times a frame; (c) ``io/synthetic2.py``: 64 handheld frames rendered
+     on the card (ms a frame), frame 0 against the port's CPU render
+     (depth 1e-6 m, gray 1e-5 on 99.9 % of pixels), the sequence written
+     by ``tools/make_disk_dataset_torch.py --renderer planes --device cuda``
+     and played through ``run --dataset`` (ATE reported, not gated; one
+     launch a frame); (d) the acceptance operating point's engine half
+     (``tools/run_acceptance_torch.py::run_engine``) on phase 13's
+     sequence: ATE before and after the polish, keyframes, archived
+     observations, wall time (the reference's scoring needs its scripts);
+     (e) ``se2.optimize_pose_graph`` on the card (the square loop within
+     1e-3 of the truth, a 256-pose ring within 1e-4 of the port's CPU
+     result) and ``refine_patch_alignment_affine`` polishing the KLT
+     tracks of 512 keypoints of phase 5's frames 0 -> 1 (98 % of the points
+     within 1e-3 px of the CPU result), ms a call each.
 Then one JSON line describing the kernel, the nvidia-smi line, and the
 final status line.
 """
@@ -208,6 +227,26 @@ VO_ATE_GATE_M = 0.08
 FINALIZE_DIST_TOL = 5e-3
 JOINT_CHI2_FACTOR = 1.05
 RANK_TIMEOUT_S = 300
+# phase 17: the VO stage profile's timed runs; the plane-scene walk's seed
+# and its card-against-CPU criteria (depth 1e-6 m; gray within 1e-5 on
+# 99.9 % of the pixels: `dirs @ n` may sum in another order on the card and
+# flip a speckle cell whose floor(a * speckle_scale) sits on a boundary;
+# measured: depth equal, gray within 2.98e-8, 0 of 307,200 pixels over);
+# the SE(2) ring and the affine alignment, card against the port's CPU
+# (the ring measured within 4.77e-7, the square within 1.26e-7 of the
+# truth). The affine alignment polishes the pyramidal KLT's tracks with the
+# tracker's refine window (11); its freeze test (the translation step under
+# eps) flips on last-bit differences and sends a few points elsewhere (on
+# the CPU alone: tests/test_torch_klt_affine.py::
+# test_affine_polish_last_bit_sensitivity); card against CPU 2 of 394
+# points over 1e-3 px (0.9949 within, 8.33e-3 px at most). So 98 % of the
+# points kept by both must agree within 1e-3 px
+PROFILE_VO_RUNS = 2
+PLANES_SEED = 5
+PLANES_DEPTH_TOL, PLANES_GRAY_TOL, PLANES_GRAY_SHARE = 1e-6, 1e-5, 0.999
+SE2_RING, SE2_ITERS, SE2_CARD_TOL = 256, 10, 1e-4
+AFFINE_POINTS, AFFINE_CARD_TOL, AFFINE_OK_SHARE = 512, 1e-3, 0.99
+AFFINE_AGREE_SHARE = 0.98
 TIMING_RUNS = 50
 SPIN_CYCLES = 20_000_000   # ~10 ms of the card's clock
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -1361,6 +1400,296 @@ def phase_distributed(cfg, dev, dense_state, window_fixed, root, h_gt, work):
     return n_vo, n_multi
 
 
+def tools_module(name):
+    """Import ``tools/<name>.py`` (the directory beside this script)."""
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return __import__(name)
+
+
+def phase_bench(dev, work, ref_s):
+    """Phase 17a: ``bench_torch.main`` with one trial of one rep. ``ref_s``:
+    the seconds phase 5 took in this call for its 64 frames. Returns the
+    kernel launches of the bench."""
+    import bench_torch
+    from putslam_tpu_torch.ops import fast_cuda
+
+    torch.cuda.synchronize()
+    fast_cuda.fast_score_nms.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        bench_torch.main(reps=1, trials=1, device=dev,
+                         detail_path=os.path.join(work, "bench_detail.json"))
+    wall = time.perf_counter() - t0
+    launches = fast_cuda.fast_score_nms.launches
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(set(line) == {"metric", "value", "unit", "vs_baseline"},
+          f"bench line keys {sorted(line)}")
+    check(line["metric"] == "slam_frames_per_sec_640x480_1chip"
+          and line["unit"] == "frames/s" and line["value"] > 0,
+          f"bench line {line}")
+    with open(os.path.join(work, "bench_detail.json")) as f:
+        detail = json.load(f)
+    check(detail["ate_rmse_m"] < ATE_GATE_M,
+          f"bench ATE {detail['ate_rmse_m']} m over the gate {ATE_GATE_M} m")
+    # slam_init, the warm run and one rep of slam_sequence on frames 1-63,
+    # the warm run and one rep of vo_sequence on all 64
+    want = 1 + 2 * (N_FRAMES - 1) + 2 * N_FRAMES
+    check(launches == want, f"bench launches {launches} != {want}")
+    print(f"[17a] bench_torch.main(reps=1, trials=1): {json.dumps(line)}; "
+          f"phase 5 in this call {N_FRAMES / ref_s:.2f} frames/s "
+          f"(run_slam_final with finalize); detail: slam "
+          f"{detail['slam_ms_per_frame']} ms/frame, VO {detail['vo_fps']} "
+          f"frames/s, keyframes {detail['n_keyframes']}, BA calls "
+          f"{detail['n_ba_calls']}, landmarks {detail['n_landmarks']}, ATE "
+          f"{detail['ate_rmse_m']} m (gate {ATE_GATE_M} m), device "
+          f"{detail['device']} at {detail['power_limit']}; launches "
+          f"{launches}; wall {wall:.1f} s", flush=True)
+    return launches
+
+
+def phase_profile_vo(work):
+    """Phase 17b: ``tools/profile_vo_torch.py`` at fr1 over 64 frames.
+    Returns (the kernel launches it made, its stages)."""
+    from putslam_tpu_torch.ops import fast_cuda
+
+    tool = tools_module("profile_vo_torch")
+    out = os.path.join(work, "profile_vo.json")
+    torch.cuda.synchronize()
+    fast_cuda.fast_score_nms.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tool.main(["--frames", str(N_FRAMES), "--device", "cuda",
+                        "--runs", str(PROFILE_VO_RUNS), "--json-out", out])
+    wall = time.perf_counter() - t0
+    launches = fast_cuda.fast_score_nms.launches
+    check(rc == 0, f"profile_vo_torch returned {rc}")
+    with open(out) as f:
+        stages = json.load(f)["stages"]
+    check(len(stages) == 5 and all(v["ms_per_call"] > 0
+                                   for v in stages.values()),
+          f"profile_vo stages {stages}")
+    # the detection before the stages, then one warm-up and the timed runs
+    # of the three stages that detect (64 frames each)
+    want = N_FRAMES * (1 + 3 * (1 + PROFILE_VO_RUNS))
+    check(launches == want, f"profile_vo launches {launches} != {want}")
+    print("[17b] VO stages at fr1, 64 frames (CUDA events behind a spin "
+          f"kernel, median of {PROFILE_VO_RUNS}): " + "; ".join(
+              f"{k} {v['ms_per_call']:.2f} ms/call, "
+              f"{v['ms_per_frame']:.3f} ms/frame"
+              for k, v in stages.items())
+          + f"; launches {launches}; wall {wall:.1f} s", flush=True)
+    return launches, stages
+
+
+def phase_planes(cfg, dev, work):
+    """Phase 17c: the plane-scene renderer on the card against the port's
+    own CPU render, then its sequence written by the disk tool on the card
+    and played through ``run --dataset``. Returns the kernel launches of
+    the played run."""
+    import numpy as np
+
+    from putslam_tpu_torch import run as run_mod
+    from putslam_tpu_torch.io import synthetic, synthetic2
+    from putslam_tpu_torch.ops import fast_cuda
+
+    poses = synthetic.handheld_trajectory(N_FRAMES, seed=PLANES_SEED,
+                                          device=dev)
+    synthetic2.render_sequence(cfg.camera, poses[:1])        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grays, depths = synthetic2.render_sequence(cfg.camera, poses)
+    torch.cuda.synchronize()
+    ms_frame = 1e3 * (time.perf_counter() - t0) / N_FRAMES
+    check(grays.shape == (N_FRAMES, cfg.camera.height, cfg.camera.width)
+          and grays.device == poses.device, "planes render: shape / device")
+    g_cpu, d_cpu = synthetic2.render_frame(cfg.camera, poses[0].cpu())
+    dd = float((depths[0].cpu() - d_cpu).abs().max())
+    dg = (grays[0].cpu() - g_cpu).abs()
+    off = int((dg > PLANES_GRAY_TOL).sum())
+    share = 1.0 - off / dg.numel()
+    check(dd <= PLANES_DEPTH_TOL, f"planes depth card vs CPU {dd:.2e} m")
+    check(share >= PLANES_GRAY_SHARE,
+          f"planes gray card vs CPU: {off} pixels over {PLANES_GRAY_TOL}")
+    hit = float((depths > 0).float().mean())
+    del grays, depths
+    tool = tools_module("make_disk_dataset_torch")
+    root = os.path.join(work, "planes")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = tool.main(["--frames", str(N_FRAMES), "--seed", str(PLANES_SEED),
+                        "--renderer", "planes", "--device", "cuda", "--out",
+                        root])
+    t_write = time.perf_counter() - t0
+    check(rc == 0, f"make_disk_dataset_torch --renderer planes returned {rc}")
+    extras = {}
+    torch.cuda.synchronize()
+    fast_cuda.fast_score_nms.launches = 0
+    report = run_cli(run_mod, ["--dataset", root], FIVE_FILES, extras)
+    launches = fast_cuda.fast_score_nms.launches
+    n_det = frames_processed(N_FRAMES, 64)
+    check(launches == n_det, f"planes run launches {launches} != {n_det}")
+    ate = report["ate_rmse_m"]
+    check(np.isfinite(ate) and np.isfinite(report["ate_before_final_m"]),
+          "planes run: ATE not finite")
+    stats = extras["stats"]
+    print(f"[17c] planes renderer on the card: {ms_frame:.2f} ms a frame "
+          f"({N_FRAMES} handheld frames, seed {PLANES_SEED}, float64; "
+          f"{100 * hit:.2f} % of the pixels hit a plane); frame 0 against "
+          f"the CPU render: depth within {dd:.2e} m, gray within "
+          f"{float(dg.max()):.2e} ({off} of {dg.numel()} pixels over "
+          f"{PLANES_GRAY_TOL}); written by make_disk_dataset_torch "
+          f"--renderer planes --device cuda in {t_write:.1f} s; run "
+          f"--dataset: ATE {ate} m (before the final BA "
+          f"{report['ate_before_final_m']} m; not gated), keyframes "
+          f"{int(stats['keyframes'])}, BA calls {int(stats['ba_runs'])}, "
+          f"map ok {stats['map_ok_fraction']:.3f}, {report['fps']} frames/s;"
+          f" launches {launches}", flush=True)
+    return launches
+
+
+def phase_acceptance(dev, root, h_gt):
+    """Phase 17d: the acceptance operating point's engine half
+    (``tools/run_acceptance_torch.py::run_engine``) on phase 13's sequence.
+    Returns the kernel launches."""
+    import numpy as np
+
+    from putslam_tpu_torch.eval import ate as ate_mod
+    from putslam_tpu_torch.ops import fast_cuda
+
+    tool = tools_module("run_acceptance_torch")
+    rev = tools_module("run_reference_eval")
+    torch.cuda.synchronize()
+    fast_cuda.fast_score_nms.launches = 0
+    r = tool.run_engine(root, device=dev)
+    launches = fast_cuda.fast_score_nms.launches
+    n = FILE_FRAMES
+    n_det = frames_processed(n, 64)
+    check(r["frames"] == n and launches == n_det,
+          f"acceptance engine: {r['frames']} frames, {launches} launches")
+    check(np.abs(r["gt"] - h_gt).max() < 1e-5,
+          "acceptance engine: ground truth read back differs")
+    before = ate_mod.ate_rmse_aligned_frames(r["gt"], r["poses_before"])
+    after = ate_mod.ate_rmse_aligned_frames(r["gt"], r["poses_after"])
+    check(np.isfinite(r["poses_after"]).all(), "acceptance: not finite")
+    check(after < ATE_GATE_M, f"acceptance polished ATE {after:.5f} m over "
+          f"the gate {ATE_GATE_M} m")
+    check(after <= GBA_ATE_FACTOR * before + GBA_ATE_SLACK,
+          f"acceptance polish made it worse: {before:.5f} -> {after:.5f} m")
+    scripts = ("present" if os.path.isdir(rev.REF_SCRIPTS)
+               else "absent: the reference scoring waits for them")
+    print(f"[17d] acceptance operating point (BA every 2 keyframes x 3, "
+          f"global BA {tool.GBA}) on phase 13's {n} frames: ATE "
+          f"{before:.5f} m before the polish, {after:.5f} m after; keyframes "
+          f"{r['archive'].n_keyframes()}, archived observations "
+          f"{len(r['archive'].obs)}; engine wall {r['wall_s']:.2f} s "
+          f"({r['loader']} loader for the read, not in the wall); launches "
+          f"{launches}; the reference's scripts at {rev.REF_SCRIPTS}: "
+          f"{scripts}", flush=True)
+    return launches
+
+
+def phase_se2_affine(cfg, dev, grays, feats):
+    """Phase 17e: ``se2.optimize_pose_graph`` and
+    ``klt.refine_patch_alignment_affine`` on the card against the port's
+    CPU results. ``grays``: phase 5's frames; ``feats``: phase 4's
+    features of frame 0."""
+    import numpy as np
+
+    from putslam_tpu_torch.geometry import se2
+    from putslam_tpu_torch.ops import klt
+
+    # the JAX test's noisy square loop (tests/test_round5.py:263-280)
+    gt = torch.tensor([[0, 0, 0], [1, 0, np.pi / 2], [1, 1, np.pi],
+                       [0, 1, -np.pi / 2]], dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(3)
+    noise = np.zeros((4, 3), np.float32)
+    noise[1:] = rng.normal(0, 0.08, (3, 3)).astype(np.float32)
+    ei = torch.tensor([0, 1, 2, 3], device=dev)
+    ej = torch.tensor([1, 2, 3, 0], device=dev)
+    edges = (ei, ej, se2.relative(gt[ei], gt[ej]),
+             torch.full((4,), 100.0, device=dev))
+    fixed = torch.tensor([True, False, False, False], device=dev)
+    out, chi2 = se2.optimize_pose_graph(gt + torch.as_tensor(noise,
+                                                             device=dev),
+                                        edges, fixed, iterations=15)
+    sq_err = float((out[:, :2] - gt[:, :2]).abs().max())
+    check(float(chi2[-1]) < 1e-4 * max(float(chi2[0]), 1e-9) + 1e-8
+          and sq_err < 1e-3, f"se2 square: chi2 {chi2.tolist()}, "
+          f"positions off by {sq_err:.2e}")
+    # a ring of SE2_RING poses, odometry and closures across it
+    k = SE2_RING
+    ang = torch.linspace(0.0, 2 * np.pi, k + 1, dtype=torch.float64)[:k]
+    ring = torch.stack([torch.cos(ang), torch.sin(ang),
+                        torch.atan2(torch.cos(ang), -torch.sin(ang))],
+                       dim=-1).float()
+    ri = torch.cat([torch.arange(k), torch.arange(0, k, 6)])
+    rj = torch.cat([(torch.arange(k) + 1) % k,
+                    (torch.arange(0, k, 6) + k // 2) % k])
+    g = torch.Generator().manual_seed(5)
+    init = ring + 0.05 * torch.randn(ring.shape, generator=g)
+    init[0] = ring[0]
+    rfix = torch.zeros(k, dtype=torch.bool)
+    rfix[0] = True
+    redges = (ri, rj, se2.relative(ring[ri], ring[rj]),
+              torch.full((len(ri),), 50.0))
+
+    def ring_on(d):
+        return se2.optimize_pose_graph(
+            init.to(d), tuple(e.to(d) for e in redges), rfix.to(d),
+            iterations=SE2_ITERS)
+
+    r_cpu, c_cpu = ring_on("cpu")
+    r_gpu, c_gpu = ring_on(dev)
+    d_ring = float((r_gpu.cpu() - r_cpu).abs().max())
+    check(d_ring < SE2_CARD_TOL, f"se2 ring card vs CPU {d_ring:.2e}")
+    ms_ring = median_ms(lambda: ring_on(dev), runs=5)
+
+    # the affine polish of frame 0's keypoints tracked into frame 1 (the
+    # pyramidal KLT's tracks on the card are the initial guesses of both)
+    tc = dataclasses.replace(cfg.tracker, win_size=cfg.tracker.patch_refine_win)
+    pts = feats.uv[:AFFINE_POINTS]
+    tracks = klt.track(cfg.tracker, grays[0], grays[1], pts,
+                       feats.valid[:AFFINE_POINTS])
+
+    def affine_on(d):
+        return klt.refine_patch_alignment_affine(
+            tc, grays[0].to(d), grays[1].to(d), pts.to(d), tracks.pts.to(d),
+            tracks.valid.to(d))
+
+    a_cpu = affine_on("cpu")
+    a_gpu = affine_on(dev)
+    both = (a_gpu.valid.cpu() & a_cpu.valid)
+    same_ok = float((a_gpu.valid.cpu() == a_cpu.valid).float().mean())
+    dev_pts = (a_gpu.pts.cpu() - a_cpu.pts)[both].abs().amax(-1)
+    n_both = int(both.sum())
+    agree = float((dev_pts <= AFFINE_CARD_TOL).float().mean()) \
+        if n_both else 0.0
+    d_pts = float(dev_pts.max()) if n_both else 0.0
+    check(n_both >= AFFINE_POINTS // 2,
+          f"affine: {n_both} points kept on both devices")
+    check(agree >= AFFINE_AGREE_SHARE, f"affine card vs CPU: {agree:.4f} of "
+          f"the points within {AFFINE_CARD_TOL} px (max {d_pts:.2e})")
+    check(same_ok >= AFFINE_OK_SHARE, f"affine ok flags agree on {same_ok}")
+    ms_aff = median_ms(lambda: affine_on(dev), runs=5)
+    print(f"[17e] se2 square loop on the card: chi2 {float(chi2[0]):.4g} -> "
+          f"{float(chi2[-1]):.3g}, positions within {sq_err:.2e} of the "
+          f"truth; {k}-pose ring with {len(ri) - k} closures, "
+          f"{SE2_ITERS} iterations: card vs CPU {d_ring:.2e}, chi2 "
+          f"{float(c_gpu[0]):.4g} -> {float(c_gpu[-1]):.3g}, "
+          f"{ms_ring:.2f} ms a call; refine_patch_alignment_affine on "
+          f"{len(pts)} keypoints of phase 5's frame 0 tracked into frame 1 "
+          f"({int(tracks.valid.sum())} tracks; win {tc.win_size}, "
+          f"{tc.max_iter} iterations): {n_both} kept on both devices, "
+          f"{agree:.4f} of them within {AFFINE_CARD_TOL} px of the CPU "
+          f"(max {d_pts:.2e} px, {int((dev_pts > AFFINE_CARD_TOL).sum())} "
+          f"over), ok flags equal on {same_ok:.4f}, {ms_aff:.2f} ms a call",
+          flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dump-map", metavar="NPZ", help="write the final map "
@@ -1807,6 +2136,23 @@ def main() -> int:
                                        h_gt, work)
         print(f"[16] the whole script {time.perf_counter() - t_start:.1f} s",
               flush=True)
+        # ---- 17. bench_torch, the VO profile, planes, acceptance, se2 ----
+        t17 = time.perf_counter()
+        n17a = phase_bench(dev, work, dt)
+        t17b = time.perf_counter()
+        n17b, _ = phase_profile_vo(work)
+        t17c = time.perf_counter()
+        n17c = phase_planes(cfg, dev, work)
+        t17d = time.perf_counter()
+        n17d = phase_acceptance(dev, root, h_gt)
+        t17e = time.perf_counter()
+        phase_se2_affine(cfg, dev, grays, f_gpu)
+        t_end = time.perf_counter()
+        print(f"[17] wall: bench {t17b - t17:.1f} s, VO profile "
+              f"{t17c - t17b:.1f} s, planes {t17d - t17c:.1f} s, acceptance "
+              f"{t17e - t17d:.1f} s, se2 and affine {t_end - t17e:.1f} s; "
+              f"phase 17 {t_end - t17:.1f} s; the whole script "
+              f"{t_end - t_start:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1824,6 +2170,10 @@ def main() -> int:
         "launches_playback": n15p,
         "launches_sessions": n16v,
         "launches_multi_session": n16m,
+        "launches_bench": n17a,
+        "launches_profile_vo": n17b,
+        "launches_planes": n17c,
+        "launches_acceptance": n17d,
         "max_abs_err": max_err,
         "ms": ms_kernel,
         "plain_ms": ms_plain,

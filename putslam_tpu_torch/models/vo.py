@@ -43,11 +43,10 @@ class VOStepResult(NamedTuple):
 
 
 def check_vo_config(cfg: SlamConfig) -> None:
-    """Raise NotImplementedError for a VO version, grid policy or descriptor
-    the port does not know, ValueError for an unknown RANSAC error model."""
-    if cfg.vo_version not in (0, 1):
-        raise NotImplementedError(
-            f"vo_version={cfg.vo_version} is not ported yet")
+    """Raise NotImplementedError for a grid policy or descriptor the port
+    does not know, ValueError for an unknown RANSAC error model. Every
+    ``vo_version`` runs: 1 is tracking, any other value matching, as
+    ``putslam_tpu/models/vo.py:278-281`` dispatches."""
     if cfg.ransac.error_version not in (0, 1, 2, 3, 4):
         raise ValueError(
             f"unsupported error_version {cfg.ransac.error_version}")
@@ -130,14 +129,18 @@ def detect_sequence(cfg: SlamConfig, grays, depths):
 
 
 def vo_sequence(cfg: SlamConfig, grays, depths,
-                generator: Optional[torch.Generator] = None, init_pose=None):
+                generator: Optional[torch.Generator] = None, init_pose=None,
+                draws=None):
     """VO over a stacked (T, H, W) sequence. Returns (poses (T, 7),
-    per-step results stacked over T−1 steps)."""
+    per-step results stacked over T−1 steps). ``draws``: optional per-step
+    list of RANSAC uniforms."""
     dev = grays.device
     if init_pose is None:
         init_pose = se3.identity(dtype=grays.dtype, device=dev)
     feats = detect_sequence(cfg, grays, depths)
-    steps = [vo_step(cfg, feats[i], feats[i + 1], generator=generator)
+    steps = [vo_step(cfg, feats[i], feats[i + 1],
+                     u=None if draws is None else draws[i],
+                     generator=generator)
              for i in range(len(feats) - 1)]
     poses = [init_pose]
     for st in steps:
@@ -256,8 +259,8 @@ def run_vo(cfg: SlamConfig, grays, depths, seed: int = 0, init_pose=None,
            device="cuda"):
     """Arrays or tensors in, numpy out: (poses (T, 7), stats). Frames are
     moved to ``device``; RANSAC draws from a generator seeded with
-    ``seed``. Dispatches on ``cfg.vo_version`` (0 = matching, 1 = KLT
-    tracking)."""
+    ``seed``. Dispatches on ``cfg.vo_version``: 1 is KLT tracking, any other
+    value matching (``putslam_tpu/models/vo.py:278-281``)."""
     check_vo_config(cfg)
     dev = resolve_device(device)
     g = as_tensor(grays, dev, torch.float32)

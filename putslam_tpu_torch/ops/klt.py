@@ -1,7 +1,7 @@
 """Batched pyramidal Lucas-Kanade optical flow (KLT).
 
 Port of ``putslam_tpu/ops/klt.py`` (``build_pyramid``, ``track``,
-``refine_patch_alignment``). All N tracks advance together: each
+``refine_patch_alignment``, ``refine_patch_alignment_affine``). All N tracks advance together: each
 Gauss-Newton iteration is one batched (N, W²) bilinear sample and N 2×2
 solves. Every level runs all ``max_iter`` iterations; a track whose step
 falls under ``eps`` stops moving (the masked freeze of the JAX package's
@@ -124,3 +124,95 @@ def refine_patch_alignment(tcfg: TrackerConfig, ref_img, tgt_img, ref_pts,
                         error_threshold=tcfg.error_threshold)
     return track(one, ref_img, tgt_img, ref_pts, valid,
                  init_flow=tgt_pts_init - ref_pts)
+
+
+def _sample_warped(img, ref_pts, M, offs):
+    """Bilinear samples of ``img`` at the offsets ``offs`` (W2, 2) warped by
+    the 2×3 matrices ``M`` (N, 2, 3) around ``ref_pts`` (N, 2) → (N, W2).
+    The clip bounds and the floor → gather order are the JAX package's
+    (``putslam_tpu/ops/klt.py:199-211``). A warp that diverged to NaN
+    samples NaN, as in the JAX package (whose gather clamps the index of a
+    NaN coordinate); its gather index is sent to 0 here, where torch would
+    index out of bounds."""
+    w_off = torch.einsum("nab,wb->nwa", M[:, :, :2], offs) + M[:, None, :, 2]
+    q = ref_pts[:, None, :] + w_off                               # (N, W2, 2)
+    H, W = img.shape
+    u = torch.clamp(q[..., 0], 0.0, W - 1.001)
+    v = torch.clamp(q[..., 1], 0.0, H - 1.001)
+    xf = torch.floor(u)
+    yf = torch.floor(v)
+    x0 = torch.nan_to_num(xf, nan=0.0).long()
+    y0 = torch.nan_to_num(yf, nan=0.0).long()
+    du, dv = u - xf, v - yf
+    return (img[y0, x0] * (1 - du) * (1 - dv)
+            + img[y0, x0 + 1] * du * (1 - dv)
+            + img[y0 + 1, x0] * (1 - du) * dv
+            + img[y0 + 1, x0 + 1] * du * dv)
+
+
+def refine_patch_alignment_affine(tcfg: TrackerConfig, ref_img, tgt_img,
+                                  ref_pts, tgt_pts_init,
+                                  valid) -> TrackResult:
+    """Affine-warped inverse-compositional patch alignment
+    (``putslam_tpu/ops/klt.py:157-245``; the warping variant of the
+    reference's MatchingOnPatches, MatchingOnPatches.h:37-66).
+
+    Warp W(x; p) = (I + A)·x + t around the template point, p = (a₁..a₄,
+    tx, ty). The template's steepest-descent images and its (N, 6, 6)
+    Hessian (ridge 1e-4) are built once; each of the ``max_iter``
+    iterations is one batched bilinear sample, a batched solve, and the
+    composition with the inverted incremental warp (Baker-Matthews IC). A
+    point whose translation step ``‖dp[4:6]‖`` falls under ``eps`` keeps
+    its warp for that iteration (a masked select, no host decision), so
+    all iterations run with no synchronisation."""
+    r = tcfg.win_size // 2
+    offs = _window_offsets(tcfg.win_size, ref_pts)                # (W2, 2)
+    N = ref_pts.shape[0]
+    dt, dev = ref_img.dtype, ref_img.device
+
+    gx, gy = _grad(ref_img)
+    T = _sample_patches(ref_img, ref_pts, offs)                   # (N, W2)
+    Tx = _sample_patches(gx, ref_pts, offs)
+    Ty = _sample_patches(gy, ref_pts, offs)
+    # steepest-descent images: (N, W2, 6)
+    sd = torch.stack([Tx * offs[None, :, 0], Tx * offs[None, :, 1],
+                      Ty * offs[None, :, 0], Ty * offs[None, :, 1],
+                      Tx, Ty], dim=-1)
+    Hm = torch.einsum("nwa,nwb->nab", sd, sd) \
+        + 1e-4 * torch.eye(6, dtype=dt, device=dev)              # (N, 6, 6)
+
+    # the warps as 2x3 matrices [I+A | t], t started from the guess
+    M = torch.zeros((N, 2, 3), dtype=dt, device=dev)
+    M[:, 0, 0] = 1.0
+    M[:, 1, 1] = 1.0
+    M[:, :, 2] = tgt_pts_init - ref_pts
+    bottom = torch.tensor([0.0, 0.0, 1.0], dtype=dt,
+                          device=dev).expand(N, 1, 3)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    for _ in range(tcfg.max_iter):
+        I = _sample_warped(tgt_img, ref_pts, M, offs)
+        b = torch.einsum("nwa,nw->na", sd, I - T)                 # (N, 6)
+        # the _ex forms: no error check, so no host synchronisation
+        dp = torch.linalg.solve_ex(Hm, b[..., None])[0][..., 0]   # (N, 6)
+        # compose M ← M ∘ inv(W(dp)) in homogeneous 3x3 form
+        Md = eye3.repeat(N, 1, 1)
+        Md[:, 0, 0] += dp[:, 0]
+        Md[:, 0, 1] += dp[:, 1]
+        Md[:, 1, 0] += dp[:, 2]
+        Md[:, 1, 1] += dp[:, 3]
+        Md[:, 0, 2] += dp[:, 4]
+        Md[:, 1, 2] += dp[:, 5]
+        M3 = torch.cat([M, bottom], dim=1)
+        Mn = torch.einsum("nab,nbc->nac", M3,
+                          torch.linalg.inv_ex(Md)[0])[:, :2, :]
+        small = torch.linalg.norm(dp[:, 4:6], dim=-1) < tcfg.eps
+        M = torch.where(small[:, None, None], M, Mn)
+
+    new_pts = ref_pts + M[:, :, 2]
+    # photometric error under the final warp
+    I = _sample_warped(tgt_img, ref_pts, M, offs)
+    err = torch.mean(torch.abs(I - T), dim=-1) * 255.0
+    H, W = tgt_img.shape
+    inb = ((new_pts[:, 0] >= r) & (new_pts[:, 0] <= W - 1 - r)
+           & (new_pts[:, 1] >= r) & (new_pts[:, 1] <= H - 1 - r))
+    return TrackResult(new_pts, err, valid & inb & (err < tcfg.error_threshold))

@@ -6,20 +6,27 @@ Usage:
     python -m putslam_tpu_torch.run --synthetic 64 --out results/
     python -m putslam_tpu_torch.run --synthetic 30 --loop-closure
     python -m putslam_tpu_torch.run --synthetic 30 --only-vo --vo-version 1
+    python -m putslam_tpu_torch.run --synthetic 30 --device cpu --plots
 
 Same CLI names and output files as ``putslam_tpu/run.py``
 (``VO_trajectory.res``, ``graph_trajectory.res``, ``fps.res``,
 ``times.txt`` and, for a SLAM run, ``statistics.txt``) for ``--dataset DIR``
 (a TUM-layout directory, read through ``io/tum.py``; its ``camera.json``,
 where there is one, overrides the camera), ``--synthetic N``, ``--only-vo``,
-``--vo-version`` (0 = matching, 1 = KLT tracking), ``--loop-closure``,
+``--vo-version`` (1 = KLT tracking, any other value matching), ``--loop-closure``,
 ``--global-ba`` (host map archive and the offline global bundle adjustment),
 ``--reference-resources RES`` / ``--dataset-name NAME`` (the operating point
-from the reference's XML files), ``--out``, ``--seed``, ``--chunk`` and
-``--max-frames``, plus ``--device`` (default ``cuda``; asking for CUDA where
-there is none is an error). Prints one JSON report line with the frame
-count, fps, for a dataset the decoder that read it (``"loader"``:
-``"native"`` or ``"python"``) and, where there is ground truth, ATE and RPE.
+from the reference's XML files), ``--plots`` (trajectory.png, map.png and
+stats.png through ``utils/viz.py``; needs matplotlib), ``--reference-eval``
+(scores the written trajectories with the reference's own
+``evaluate_ate.py`` / ``evaluate_rpe.py`` through
+``tools/run_reference_eval.py``, as ``putslam_tpu/run.py:200-231`` does;
+needs those scripts, and a ``--dataset`` with a ``groundtruth.txt``),
+``--out``, ``--seed``, ``--chunk`` and ``--max-frames``, plus ``--device``
+(default ``cuda``; asking for CUDA where there is none is an error). Prints
+one JSON report line with the frame count, fps, for a dataset the decoder
+that read it (``"loader"``: ``"native"`` or ``"python"``) and, where there
+is ground truth, ATE and RPE.
 """
 
 from __future__ import annotations
@@ -33,8 +40,6 @@ import time
 
 import numpy as np
 
-_NOT_PORTED = ("reference_eval", "plots")
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
@@ -44,7 +49,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="results", help="output directory")
     ap.add_argument("--only-vo", action="store_true", help="VO only")
     ap.add_argument("--vo-version", type=int, default=0,
-                    help="0=matching, 1=KLT tracking (VOVersion)")
+                    help="1=KLT tracking, any other value matching "
+                         "(VOVersion)")
     ap.add_argument("--loop-closure", action="store_true")
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--chunk", type=int, default=64,
@@ -63,19 +69,18 @@ def main(argv=None) -> int:
     ap.add_argument("--dataset-name", default=None,
                     help="datasetConfig/<name>.xml to use with "
                          "--reference-resources")
+    ap.add_argument("--reference-eval", action="store_true",
+                    help="additionally score the trajectories with the "
+                         "REFERENCE's own evaluate_ate/evaluate_rpe scripts "
+                         "(writes VOAte.res/g2oAte.res/VORpe.res/g2oRpe.res "
+                         "like scripts/runPUTSLAM.py)")
+    ap.add_argument("--plots", action="store_true",
+                    help="write trajectory/map/stats PNGs (offline "
+                         "visualizer; needs matplotlib)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda)")
-    # flags of putslam_tpu.run that this port does not support yet
-    ap.add_argument("--reference-eval", action="store_true")
-    ap.add_argument("--plots", action="store_true")
     args = ap.parse_args(argv)
 
-    unported = [f"--{name.replace('_', '-')}" for name in _NOT_PORTED
-                if getattr(args, name)]
-    if args.vo_version not in (0, 1):
-        unported.append(f"--vo-version {args.vo_version}")
-    if unported:
-        ap.error(f"not yet ported to putslam_tpu_torch: {', '.join(unported)}")
     if not args.synthetic and not args.dataset:
         ap.error("need --dataset or --synthetic N")
 
@@ -163,7 +168,7 @@ def main(argv=None) -> int:
 
     sync()
     t0 = time.perf_counter()
-    outs = None
+    outs = state = None
     if args.only_vo:
         if not torch.is_tensor(grays) and grays.dtype == np.uint8:
             grays = grays.astype(np.float32) / 255.0
@@ -174,13 +179,13 @@ def main(argv=None) -> int:
             sync()
     elif args.global_ba:
         with timer.stage("slam_total"):
-            est_vo_anchored, est, outs, _, _ = slam.run_slam_global(
+            est_vo_anchored, est, outs, state, _ = slam.run_slam_global(
                 cfg, grays, depths, init_pose=init_pose, seed=args.seed,
                 chunk_size=args.chunk or 64, device=dev)
             sync()
     else:
         with timer.stage("slam_total"):
-            est_vo_anchored, est, outs, _ = slam.run_slam_final(
+            est_vo_anchored, est, outs, state = slam.run_slam_final(
                 cfg, grays, depths, init_pose=init_pose, seed=args.seed,
                 chunk_size=args.chunk, device=dev)
             sync()
@@ -197,6 +202,15 @@ def main(argv=None) -> int:
         timing.write_run_statistics(os.path.join(args.out, "statistics.txt"),
                                     outs)
 
+    if args.plots:
+        from putslam_tpu_torch.utils import viz
+
+        viz.plot_trajectory(os.path.join(args.out, "trajectory.png"), est,
+                            gt_poses)
+        if outs is not None:
+            viz.plot_map(os.path.join(args.out, "map.png"), state.map, est)
+            viz.plot_run_stats(os.path.join(args.out, "stats.png"), outs)
+
     report = {"frames": n, "fps": round(n / total, 2), "device": str(dev)}
     if loader is not None:
         report["loader"] = loader
@@ -212,9 +226,53 @@ def main(argv=None) -> int:
     elif gt_track is not None:
         report["ate_rmse_m"] = round(
             ate_mod.ate_rmse(gt_track[0], gt_track[1], timestamps, est), 5)
+    if args.reference_eval:
+        report.update(reference_eval(args.dataset, args.out, args.only_vo))
     print(json.dumps(report))
     sys.stdout.flush()
     return 0
+
+
+def reference_eval(dataset, out, only_vo) -> dict:
+    """Score the trajectories written to ``out`` with the reference's own
+    evaluation scripts (``tools/run_reference_eval.py``; the acceptance loop
+    of the reference's runPUTSLAM.py), as ``putslam_tpu/run.py:200-231``
+    does: writes ``{tag}Ate.res`` / ``{tag}Rpe.res`` for the tags ``g2o``
+    (``graph_trajectory.res``) and ``VO`` (``VO_trajectory.res``; the only
+    one with ``only_vo``) and returns the report's ``ref_ate_rmse_{tag}_m``
+    and ``ref_rpe_trans_{tag}_m``. Nothing without a dataset whose
+    directory holds a ``groundtruth.txt``."""
+    gt_file = os.path.join(dataset, "groundtruth.txt") if dataset else None
+    if not gt_file or not os.path.exists(gt_file):
+        return {}
+    tools = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    import run_reference_eval as ref_eval
+
+    if only_vo:
+        pairs = [("VO", os.path.join(out, "VO_trajectory.res"))]
+    else:
+        pairs = [("g2o", os.path.join(out, "graph_trajectory.res")),
+                 ("VO", os.path.join(out, "VO_trajectory.res"))]
+    report = {}
+    for tag, traj in pairs:
+        if not os.path.exists(traj):
+            continue
+        ate_out = ref_eval.evaluate("ate", gt_file, traj)
+        rpe_out = ref_eval.evaluate(
+            "rpe", gt_file, traj,
+            extra=["--fixed_delta", "--delta", "1", "--delta_unit", "s"])
+        with open(os.path.join(out, f"{tag}Ate.res"), "w") as f:
+            f.write(ate_out)
+        with open(os.path.join(out, f"{tag}Rpe.res"), "w") as f:
+            f.write(rpe_out)
+        report[f"ref_ate_rmse_{tag}_m"] = round(float(
+            ate_out.strip().splitlines()[0]), 5)
+        report[f"ref_rpe_trans_{tag}_m"] = round(float(
+            rpe_out.strip().splitlines()[0]), 5)
+    return report
 
 
 if __name__ == "__main__":

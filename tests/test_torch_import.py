@@ -36,13 +36,34 @@ def test_port_imports_with_jax_blocked():
             "import putslam_tpu_torch.parallel.mesh\n"
             "import putslam_tpu_torch.parallel.dist_ba\n"
             "import putslam_tpu_torch.parallel.multi_session\n"
+            "import putslam_tpu_torch.geometry.se2\n"
+            "import putslam_tpu_torch.io.synthetic2\n"
+            "import putslam_tpu_torch.utils.viz\n"
+            "import bench_torch\n"
             "sys.path.insert(0, 'tools')\n"
             "import make_disk_dataset_torch, profile_torch_slam\n"
             "import lc_spread_torch, multihost_dryrun_torch\n"
-            "import measure_scaling_torch\n"
+            "import measure_scaling_torch, profile_vo_torch\n"
+            "import run_experiments_torch, export_reference_dataset_torch\n"
+            "import run_acceptance_torch\n"
             "assert not [m for m in sys.modules if m.split('.')[0] in\n"
             "            ('jax', 'putslam_tpu') and sys.modules[m] is not None]\n"
             "print('ok')")
+    out = _run(code, ROOT)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_viz_imports_without_matplotlib():
+    """utils/viz.py imports matplotlib only when it draws: with matplotlib
+    blocked the module (and run.py) imports, and a plot raises
+    ImportError, as the JAX package's would."""
+    code = ("import sys; sys.modules['matplotlib'] = None\n"
+            "sys.modules['jax'] = None\n"
+            "import putslam_tpu_torch.utils.viz as viz, putslam_tpu_torch.run\n"
+            "try:\n"
+            "    viz.plot_trajectory('x.png', [[0.0] * 7])\n"
+            "except ImportError:\n"
+            "    print('ok')\n")
     out = _run(code, ROOT)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
@@ -57,14 +78,21 @@ def _port_sources():
               ROOT / "tools" / "profile_torch_slam.py",
               ROOT / "tools" / "lc_spread_torch.py",
               ROOT / "tools" / "multihost_dryrun_torch.py",
-              ROOT / "tools" / "measure_scaling_torch.py"]
+              ROOT / "tools" / "measure_scaling_torch.py",
+              ROOT / "tools" / "profile_vo_torch.py",
+              ROOT / "tools" / "run_experiments_torch.py",
+              ROOT / "tools" / "export_reference_dataset_torch.py",
+              ROOT / "tools" / "run_acceptance_torch.py",
+              ROOT / "bench_torch.py"]
     rel = {str(f.relative_to(ROOT)) for f in files}
     for name in ("io/png.py", "io/tum.py", "io/native_loader.py",
                  "io/xml_config.py", "io/icl.py", "io/g2o.py",
                  "io/rgbdslam.py", "io/synthetic.py", "slam_map/archive.py",
                  "utils/checkpoint.py", "eval/ate.py", "run.py",
                  "parallel/multihost.py", "parallel/mesh.py",
-                 "parallel/dist_ba.py", "parallel/multi_session.py"):
+                 "parallel/dist_ba.py", "parallel/multi_session.py",
+                 "geometry/se2.py", "io/synthetic2.py", "utils/viz.py",
+                 "ops/klt.py"):
         assert f"putslam_tpu_torch/{name}" in rel, name
     assert all(f.exists() for f in files)
     return files

@@ -13,6 +13,9 @@ from _torch_port import port_cfg
 
 from putslam_tpu_torch import run
 
+TOOLS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "tools")
+sys.path.insert(0, TOOLS)
 STAT_KEYS = ["frames", "vo_ok_fraction", "map_ok_fraction", "keyframes",
              "ba_runs", "map_inliers_median", "map_matches_median",
              "landmarks_final"]
@@ -80,19 +83,38 @@ def test_run_statistics_equal_the_jax_writer(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--reference-eval"],
-                                  ["--reference-eval", "--dataset", "x"],
+                                  ["--reference-eval", "--only-vo"],
                                   ["--global-ba", "--plots"],
-                                  ["--vo-version", "2"],
-                                  ["--plots"]])
-def test_unported_flags_exit_with_error(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        run.main(["--synthetic", "3", "--device", "cpu", *flag])
-    assert e.value.code != 0
-    err = capsys.readouterr().err
-    assert "not yet ported" in err
-    # the ported flags are never named as missing
-    for ported in ("--dataset", "--global-ba", "--reference-resources"):
-        assert ported not in err.split("not yet ported")[1]
+                                  ["--only-vo", "--vo-version", "2"],
+                                  ["--plots", "--only-vo"]])
+def test_unported_flags_exit_with_error(flag, tmp_path, capsys):
+    """The flags that exited "not yet ported" before the port was whole
+    now run as in the JAX package: --reference-eval does nothing without a
+    --dataset holding a groundtruth.txt (no *Ate.res, no ref_ key);
+    --plots writes trajectory.png, and map.png and stats.png for a SLAM run
+    (matplotlib, Agg); --vo-version 2 runs matching VO, the trajectory of
+    --vo-version 0 to the byte."""
+    out = tmp_path / "out"
+    assert run.main(["--synthetic", "3", "--device", "cpu", "--out",
+                     str(out), *flag]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["frames"] == 3 and np.isfinite(report["ate_rmse_m"])
+    assert not [k for k in report if k.startswith("ref_")]
+    assert not list(out.glob("*Ate.res")) and not list(out.glob("*Rpe.res"))
+    pngs = sorted(p.name for p in out.glob("*.png"))
+    if "--plots" in flag:
+        assert pngs == (["trajectory.png"] if "--only-vo" in flag else
+                        ["map.png", "stats.png", "trajectory.png"])
+        for name in pngs:
+            assert (out / name).read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    else:
+        assert pngs == []
+    if "--vo-version" in flag:
+        ref = tmp_path / "v0"
+        assert run.main(["--synthetic", "3", "--device", "cpu", "--only-vo",
+                         "--vo-version", "0", "--out", str(ref)]) == 0
+        assert (out / "VO_trajectory.res").read_text() == \
+            (ref / "VO_trajectory.res").read_text()
 
 
 def test_needs_a_source_of_frames(capsys):
@@ -110,8 +132,6 @@ OUTPUTS = ("VO_trajectory.res", "graph_trajectory.res", "fps.res",
 def disk_sequence(tmp_path_factory):
     """Three handheld frames at the fr1 size, written in TUM layout with a
     camera.json by the port's tool."""
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.dirname(os.path.abspath(__file__))), "tools"))
     import make_disk_dataset_torch as tool
 
     root = tmp_path_factory.mktemp("handheld3")
@@ -120,7 +140,7 @@ def disk_sequence(tmp_path_factory):
     return root
 
 
-def test_disk_dataset_tool_writes_the_tum_layout(disk_sequence, capsys):
+def test_disk_dataset_tool_writes_the_tum_layout(disk_sequence):
     from putslam_tpu_torch.io import synthetic, tum
 
     root = disk_sequence
@@ -133,12 +153,42 @@ def test_disk_dataset_tool_writes_the_tum_layout(disk_sequence, capsys):
     assert len(ds) == 3 and ds[0].gray.shape == (480, 640)
     gt = synthetic.handheld_trajectory(3, seed=3).numpy()
     np.testing.assert_allclose(ds.groundtruth[1], gt, atol=1e-6)
+
+
+def test_disk_dataset_tool_planes_renderer_matches_jax(tmp_path):
+    """--renderer planes: the port's tool on the CPU and the JAX package's
+    tool write the same 2-frame sequence: depth PNGs within one unit
+    (1/5000 m), gray PNGs equal on at least 99.9 % of pixels (all of them
+    on the CPU), the same index files and ground truth."""
+    import make_disk_dataset as jtool
     import make_disk_dataset_torch as tool
-    with pytest.raises(SystemExit) as e:
-        tool.main(["--frames", "3", "--out", str(root), "--renderer",
-                   "planes", "--device", "cpu"])
-    assert e.value.code != 0
-    assert "not yet ported" in capsys.readouterr().err
+    from putslam_tpu_torch.io import png
+
+    args = ["--frames", "2", "--renderer", "planes", "--seed", "5"]
+    assert tool.main([*args, "--out", str(tmp_path / "port"), "--device",
+                      "cpu"]) == 0
+    assert jtool.main([*args, "--out", str(tmp_path / "jax")]) == 0
+    names = sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "jax").iterdir())
+    for name in ("rgb.txt", "depth.txt", "camera.json"):
+        assert (tmp_path / "port" / name).read_text() == \
+            (tmp_path / "jax" / name).read_text(), name
+    for kind in ("rgb", "depth"):
+        files = sorted((tmp_path / "port" / kind).iterdir())
+        assert len(files) == 2
+        for f in files:
+            a = png.read_png(str(f)).astype(np.int64)
+            b = png.read_png(str(tmp_path / "jax" / kind / f.name)).astype(
+                np.int64)
+            assert a.shape == b.shape == (480, 640)
+            if kind == "depth":
+                assert np.abs(a - b).max() <= 1
+            else:
+                assert np.mean(a == b) >= 0.999
+    gt = [np.loadtxt(str(tmp_path / side / "groundtruth.txt"))
+          for side in ("port", "jax")]
+    assert gt[0].shape == (2, 8)
+    np.testing.assert_allclose(gt[0], gt[1], atol=1e-6)
 
 
 @pytest.mark.parametrize("extra", [[], ["--global-ba"]],
@@ -236,3 +286,46 @@ def test_cuda_requested_without_a_card_raises(tmp_path):
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         run.main(["--synthetic", "3", "--out", str(tmp_path)])
+
+
+def test_run_reference_eval_with_stand_in_scripts(disk_sequence, tmp_path,
+                                                  capsys, monkeypatch):
+    """--reference-eval on a dataset with a groundtruth.txt scores both
+    trajectories with the reference's scripts through
+    tools/run_reference_eval.py (stand-ins here, written in Python 2 so
+    that its shim runs; the real scripts wait for files): g2oAte.res,
+    g2oRpe.res, VOAte.res and VORpe.res hold what the scripts printed, the
+    report gains ref_ate_rmse_{tag}_m and ref_rpe_trans_{tag}_m; the JAX
+    package's run.main on the same directory (VO only, to keep its compile
+    short) writes the same files and reports the same ref_ keys."""
+    import run_reference_eval
+    from _torch_port import write_reference_stand_ins
+
+    from putslam_tpu import run as jrun
+
+    monkeypatch.setattr(run_reference_eval, "REF_SCRIPTS", str(
+        write_reference_stand_ins(tmp_path / "scripts")))
+    out = tmp_path / "slam"
+    assert run.main(["--dataset", str(disk_sequence), "--device", "cpu",
+                     "--reference-eval", "--out", str(out)]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for tag in ("g2o", "VO"):
+        assert (out / f"{tag}Ate.res").read_text().strip() == "0.013000"
+        assert (out / f"{tag}Rpe.res").read_text().strip() == "0.023000"
+        assert report[f"ref_ate_rmse_{tag}_m"] == 0.013
+        assert report[f"ref_rpe_trans_{tag}_m"] == 0.023
+    reports = {}
+    for name, main in (("port", run.main), ("jax", jrun.main)):
+        args = ["--dataset", str(disk_sequence), "--only-vo",
+                "--reference-eval", "--out", str(tmp_path / name)]
+        assert main(args + (["--device", "cpu"] if name == "port" else [])) \
+            == 0
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        reports[name] = {k: v for k, v in json.loads(line).items()
+                         if k.startswith("ref_")}
+    assert reports["port"] == reports["jax"] == {
+        "ref_ate_rmse_VO_m": 0.013, "ref_rpe_trans_VO_m": 0.023}
+    for name in ("VOAte.res", "VORpe.res"):
+        assert (tmp_path / "port" / name).read_text() == \
+            (tmp_path / "jax" / name).read_text()
+    assert not (tmp_path / "port" / "g2oAte.res").exists()

@@ -217,6 +217,39 @@ def test_check_vo_config_rejects_unknown_values():
     with pytest.raises(ValueError):
         tvo.check_vo_config(port_cfg(cfg.replace(ransac=dataclasses.replace(
             cfg.ransac, error_version=5))))
-    with pytest.raises(NotImplementedError):
-        tvo.check_vo_config(port_cfg(cfg).replace(vo_version=2))
+    # every VO version passes: 1 is tracking, any other value matching, as
+    # the JAX package dispatches (putslam_tpu/models/vo.py:278-281)
+    tvo.check_vo_config(port_cfg(cfg).replace(vo_version=2))
     tvo.check_vo_config(port_cfg(cfg))
+
+
+def test_run_vo_version_2_is_matching():
+    """vo_version 2 runs matching VO, as the JAX package dispatches (1 is
+    tracking, any other value matching): the port's run_vo gives the
+    trajectory of vo_version 0 exactly, and the JAX run_vo with vo_version
+    2 (seed 0) the port's matching chain fed the same key chain's uniforms
+    within 1e-4 (the tracking chain's tolerance in test_torch_klt.py),
+    with the per-step counts equal."""
+    cfg = tiny_test_config().replace(vo_version=2)
+    poses = np.asarray(jsyn.orbit_trajectory(30, radius=0.10,
+                                             yaw_amp=0.1))[:6]
+    g, d = (np.asarray(x) for x in jsyn.render_sequence(cfg.camera,
+                                                        jnp.asarray(poses)))
+    pcfg = port_cfg(cfg)
+    assert pcfg.vo_version == 2
+    p2, s2 = tvo.run_vo(pcfg, g, d, init_pose=poses[0], device="cpu")
+    p0, s0 = tvo.run_vo(pcfg.replace(vo_version=0), g, d,
+                        init_pose=poses[0], device="cpu")
+    np.testing.assert_array_equal(p2, p0)
+    np.testing.assert_array_equal(s2.n_matches, s0.n_matches)
+    ref_poses, ref_stats = jvo.run_vo(cfg, g, d, seed=0, init_pose=poses[0])
+    keys = jax.random.split(jax.random.PRNGKey(0), len(g) - 1)
+    shape = (cfg.ransac.used_pairs, cfg.ransac.n_hypotheses)
+    draws = [t(jax.random.uniform(k, shape, maxval=1.0)) for k in keys]
+    got, stats = tvo.vo_sequence(pcfg, t(g), t(d), init_pose=t(poses[0]),
+                                 draws=draws)
+    np.testing.assert_allclose(n(got), ref_poses, atol=1e-4)
+    for f in ("n_matches", "n_inliers", "ok"):
+        np.testing.assert_array_equal(n(getattr(stats, f)),
+                                      np.asarray(getattr(ref_stats, f)))
+    assert ref_stats.ok.all()

@@ -9,85 +9,16 @@ floats and ints."""
 import dataclasses
 
 import pytest
-from _torch_port import port_cfg
+from _torch_port import port_cfg, write_resources
 
 from putslam_tpu.config import SlamConfig as JSlamConfig
 from putslam_tpu.io import xml_config as jxml
 from putslam_tpu_torch import config as tconfig
 from putslam_tpu_torch.io import xml_config as txml
 
-GLOBAL = """<?xml version="1.0" encoding="UTF-8"?>
-<PUTSLAM verbose="0" onlyVO="0" />
-<ThreadSettings loopClosureThreadVersion="1" />
-"""
-
-MODEL = """<<<<<<< HEAD
-<Model datasetFile="datasetConfig/desk.xml" />
-=======
-<Model datasetFile="datasetConfig/other.xml" />
->>>>>>> branch
-<somethingElse value="3" />
-"""
-
-DATASET = """<?xml version="1.0" ?>
-<Model>
-  <focalLength fu="525.0" fv="526.5" />
-  <focalAxis Cu="319.5" Cv="239.5" />
-  <rgbDistortion k1="0.01" k2="-0.02" p1="0.001" p2="-0.002" k3="0.3" />
-  <imageSize sizeU="320" sizeV="240" />
-  <variance sigmaU="1.5" sigmaV="0.75" />
-  <varianceDepth c3="0.1" c2="0.2" c1="0.3" c0="0.4" />
-</Model>
-<datasetPath base="/data" depthImageScale="1000.0" />
-"""
-
-OTHER = """<Model>
-  <focalLength fu="481.2" fv="480.0" />
-  <focalAxis Cu="100.0" Cv="90.0" />
-</Model>
-"""
-
-MATCHER = """<Matcher VOVersion="1">
-  <RANSAC errorVersionVO="2" inlierThresholdEuclidean="0.05"
-          inlierThresholdReprojection="3.5" inlierThresholdMahalanobis="9.0"
-          minimalInlierRatioThreshold="0.15" minimalNumberOfMatches="12"
-          usedPairs="4" />
-  <MatcherOpenCV detector="FAST" descriptor="LDB" gridRows="5" gridCols="7"
-                 DBScanEps="4.0" matchingXYZSphereRadius="0.2"
-                 matchingXYZacceptRatioOfBestMatch="0.6" winSize="9"
-                 maxLevels="2" maxIter="15" eps="0.02"
-                 trackingErrorThreshold="6.0" minimalTrackedFeatures="250" />
-  <MatchingOnPatches warping="1" patchSize="13" />
-</Matcher>
-"""
-
-MAP = """<MapConfig>
-  <parameters useUncertainty="true" uncertaintyModel="2"
-              optimizationErrorType="1" addPoseToPoseEdges="0"
-              maxMeasurementsToAddPoseToPoseEdge="70"
-              minMeasurementsToAddPoseToFeatureEdge="40"
-              addFeaturesWhenMapSizeLessThan="300"
-              addFeaturesWhenMeasurementSizeLessThan="90"
-              maxOnceFeatureAdd="150" minEuclideanDistanceOfFeatures="0.02"
-              minImageDistanceOfFeatures="3.0"
-              addNoFeaturesWhenMapSizeGreaterThan="900" />
-  <mapCompression covisibilityKeyframes="0.8" marginalizationThr="0.25"
-                  minFramesNo="2" maxFramesNo="120" />
-</MapConfig>
-"""
-
-
 @pytest.fixture()
 def resources(tmp_path):
-    res = tmp_path / "resources"
-    (res / "datasetConfig").mkdir(parents=True)
-    (res / "putslamconfigGlobal.xml").write_text(GLOBAL)
-    (res / "putslamfileModel.xml").write_text(MODEL)
-    (res / "datasetConfig" / "desk.xml").write_text(DATASET)
-    (res / "datasetConfig" / "other.xml").write_text(OTHER)
-    (res / "putslammatcherOpenCVParameters.xml").write_text(MATCHER)
-    (res / "putslammapConfig.xml").write_text(MAP)
-    return res
+    return write_resources(tmp_path / "resources")
 
 
 def _same(ours, ref):

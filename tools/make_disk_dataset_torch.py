@@ -12,8 +12,10 @@ directory is what ``python -m putslam_tpu_torch.run --dataset DIR`` reads.
     python tools/make_disk_dataset_torch.py --frames 8 --out /tmp/h8 --device cpu
 
 Degraded variants (depth holes, noise, blur) mirror a worn sensor.
-``--renderer planes`` (the independent plane-scene renderer) is not yet
-ported.
+``--renderer planes`` renders with the independent plane-scene renderer
+(``io/synthetic2.py``: another scene, texture and shading, and a
+division-model distortion the pinhole camera.json does not advertise), on
+``--device`` as well, as ``tools/make_disk_dataset.py:67-71`` does.
 """
 
 import argparse
@@ -43,15 +45,15 @@ def main(argv=None):
                     default="clean")
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--renderer", choices=("raycast", "planes"),
-                    default="raycast")
+                    default="raycast",
+                    help="planes = the INDEPENDENT plane-scene renderer "
+                         "(io/synthetic2.py)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to render on (default cuda)")
     args = ap.parse_args(argv)
-    if args.renderer == "planes":
-        ap.error("not yet ported to putslam_tpu_torch: --renderer planes")
 
     from putslam_tpu_torch.config import tum_fr1_config
-    from putslam_tpu_torch.io import synthetic, tum
+    from putslam_tpu_torch.io import synthetic, synthetic2, tum
     from putslam_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
@@ -65,7 +67,10 @@ def main(argv=None):
     deg = DEGRADE_PRESETS[args.degrade]
     for s in range(0, args.frames, args.chunk):
         e = min(s + args.chunk, args.frames)
-        g, d = synthetic.render_sequence(cfg.camera, poses[s:e])
+        if args.renderer == "planes":
+            g, d = synthetic2.render_sequence(cfg.camera, poses[s:e])
+        else:
+            g, d = synthetic.render_sequence(cfg.camera, poses[s:e])
         if deg:
             g, d = synthetic.degrade_sequence(g, d, seed=args.seed + s, **deg)
         tum.write_tum_frames(args.out, g.cpu().numpy(), d.cpu().numpy(),
@@ -75,7 +80,8 @@ def main(argv=None):
     tum._write_index_files(args.out, all_ts)
     tum.save_trajectory(os.path.join(args.out, "groundtruth.txt"), all_ts, gt)
     # the raycaster projects undistorted rays: readers must not apply the
-    # fr1 distortion correction to images that were never distorted
+    # fr1 distortion correction to images that were never distorted (the
+    # planes renderer's division-model lens stays unadvertised on purpose)
     with open(os.path.join(args.out, "camera.json"), "w") as f:
         json.dump({"fu": cfg.camera.fu, "fv": cfg.camera.fv,
                    "cu": cfg.camera.cu, "cv": cfg.camera.cv,
