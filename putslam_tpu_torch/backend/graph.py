@@ -109,7 +109,8 @@ def add_pose_pose(g: GraphState, i, j, rel, weight, valid=True,
     """Append one pose-pose edge at slot n_pp mod E when ``valid``."""
     E = g.pp_capacity
     dev = g.pp_i.device
-    v = torch.as_tensor(valid, device=dev)
+    v = valid if torch.is_tensor(valid) else torch.full(
+        (), bool(valid), dtype=torch.bool, device=dev)
     slot = torch.where(v, torch.remainder(g.n_pp, E),
                        torch.full_like(g.n_pp, E)).reshape(1)
     return g._replace(

@@ -517,7 +517,7 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
         return new_pose, new_lm_c, chi2
 
     lm_pos_c = lm_pos[torch.clamp(sel_lm, max=L - 1)]
-    prev_chi2 = torch.tensor(math.inf, dtype=f32, device=dev)
+    prev_chi2 = torch.full((), math.inf, dtype=f32, device=dev)
     done = False
     chi2s = []
     for _ in range(bcfg.gn_iterations):

@@ -33,18 +33,15 @@
 //    The window starts a multiple of 4 pixels left of the tile so that every
 //    piece is wholly inside or wholly outside the image; outside is zero, as
 //    the reference pads. x255 once per staged element, with __fmul_rn.
-//    With FAST_STAGE_CP_ASYNC=1 the pieces go through cp.async (its zero-fill
-//    form gives the padding) and are scaled in shared memory afterwards; with
-//    one tile a block there is nothing to overlap inside a block (the blocks
-//    resident on an SM overlap each other), and it measured no faster.
+//    (cp.async staging measured no faster: with one tile a block there is
+//    nothing to overlap inside a block.)
 //  - The segment test with little arithmetic: each mask bit is a sign bit moved
 //    in by one funnel shift (see fast9_score), the run of 9 is found with
-//    shifts on the doubled 16-bit mask, and with FAST_EARLY_OUT >= 1 an
-//    excess sum is accumulated only for a mask that has an arc. A pixel
-//    without an arc scores +0 either way, and adding the +0 terms of the
-//    other pixels changes no bit, so the result is the reference's.
-//    FAST_EARLY_OUT = 2 adds a pre-test on the four compass pixels (any arc
-//    of 9 holds at least two of them) before the other 12 are read.
+//    shifts on the doubled 16-bit mask, and an excess sum is accumulated
+//    only for a mask that has an arc. A pixel without an arc scores +0
+//    either way, and adding the +0 terms of the other pixels changes no
+//    bit, so the result is the reference's. (Both sums for every pixel, and
+//    a pre-test on the four compass pixels, measured slower.)
 //  - Separable window maximum: row maxima of the raw tile into shared memory
 //    (over the dead gray window), then column maxima: 2(2r+1) reads per
 //    output instead of (2r+1)^2. -inf outside the image, the max-pool padding.
@@ -54,11 +51,9 @@
 // round-to-nearest intrinsics, so nvcc cannot contract or reorder them (the
 // library is also built with -fmad=false); a maximum is exact in any order.
 //
-// The macros below are build-time variants for measurement (chip_smoke.py
-// times them in turns in one call); their defaults are what the main path
-// runs. The 32 x 32-tile kernel of the first port is kept at the end of the
-// file under its own entry point as the in-call yardstick; nothing on the
-// main path calls it.
+// The tile macros below are build-time variants for measurement
+// (chip_smoke.py times them in one call); their defaults are what the main
+// path runs.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -71,21 +66,6 @@
 #endif
 #ifndef FAST_THREADS
 #define FAST_THREADS 128
-#endif
-// 0: plain vector loads, scaled on the way into shared memory; 1: cp.async
-#ifndef FAST_STAGE_CP_ASYNC
-#define FAST_STAGE_CP_ASYNC 0
-#endif
-// 0: both excess sums for every pixel; 1: sums only for a mask with an arc;
-// 2: also the compass pre-test before the other 12 circle pixels are read
-#ifndef FAST_EARLY_OUT
-#define FAST_EARLY_OUT 1
-#endif
-// For timing only, the results are then wrong: leave out 1 the segment test
-// (the score is the gray value), 2 the window maxima, 4 the stores; a sum of
-// these leaves out each. What is left at 7 is the launch and the staging.
-#ifndef FAST_ABLATE
-#define FAST_ABLATE 0
 #endif
 
 static_assert(FAST_TILE_W % 4 == 0 && FAST_TILE_W >= 16, "tile width");
@@ -135,34 +115,6 @@ __device__ __forceinline__ bool has_arc(unsigned m) {
   return ((c & (x >> 8)) & 0xFFFFu) != 0u;
 }
 
-#if FAST_STAGE_CP_ASYNC
-template <int BYTES>
-__device__ __forceinline__ void cp_async_zfill(float* dst, const float* src,
-                                               bool inside) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = inside ? BYTES : 0;   // the rest of the piece is zero-filled
-  if (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-  } else if (BYTES == 8) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void scale255(float* p, int n) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (j < n) p[j] = __fmul_rn(p[j], 255.0f);
-}
-#endif
-
 // Gray window x255 into g (gh rows of gw floats), zero outside the image.
 // (gy0, gx0) is the window's origin in the image; gx0, gw and W are
 // multiples of VEC, so a piece never straddles the image's edge.
@@ -179,9 +131,6 @@ __device__ __forceinline__ void stage_gray(float* g, const float* gray, int H,
     const bool inside = y >= 0 && y < H && x >= 0 && x < W;
     float* dst = g + row * gw + col;
     const float* src = inside ? gray + (size_t)y * W + x : gray;
-#if FAST_STAGE_CP_ASYNC
-    cp_async_zfill<4 * VEC>(dst, src, inside);
-#else
     if (VEC == 4) {
       float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (inside) v = __ldg(reinterpret_cast<const float4*>(src));
@@ -199,17 +148,7 @@ __device__ __forceinline__ void stage_gray(float* g, const float* gray, int H,
     } else {
       dst[0] = inside ? __fmul_rn(__ldg(src), 255.0f) : 0.0f;
     }
-#endif
   }
-#if FAST_STAGE_CP_ASYNC
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  // each thread scales the pieces it copied itself: no barrier needed yet
-  for (int i = tid; i < gh * pieces; i += kThreads) {
-    const int row = i / pieces;
-    scale255(g + row * gw + (i - row * pieces) * VEC, VEC);
-  }
-#endif
 }
 
 // FAST-9 score of the pixel whose x255 intensity is gc[0]; gw is g's pitch.
@@ -229,12 +168,6 @@ __device__ __forceinline__ float fast9_score(const float* gc, int gw,
     v[k] = __fadd_rn(d, t);                               \
   }
   FAST_COMPASS(FAST_DIFF)
-#if FAST_EARLY_OUT >= 2
-  // an arc of 9 of the 16 holds at least two of the four compass pixels
-  if ((u[0] < 0.0f) + (u[4] < 0.0f) + (u[8] < 0.0f) + (u[12] < 0.0f) < 2 &&
-      (v[0] < 0.0f) + (v[4] < 0.0f) + (v[8] < 0.0f) + (v[12] < 0.0f) < 2)
-    return 0.0f;
-#endif
   FAST_OTHERS(FAST_DIFF)
 #undef FAST_DIFF
   unsigned mb = 0u, md = 0u;
@@ -246,7 +179,6 @@ __device__ __forceinline__ float fast9_score(const float* gc, int gw,
   const bool arc_b = has_arc(mb);
   const bool arc_d = has_arc(md);
   float eb = 0.0f, ed = 0.0f;
-#if FAST_EARLY_OUT >= 1
   if (arc_b) {
 #pragma unroll
     for (int k = 0; k < 16; ++k) eb = __fadd_rn(eb, fmaxf(-u[k], 0.0f));
@@ -255,13 +187,6 @@ __device__ __forceinline__ float fast9_score(const float* gc, int gw,
 #pragma unroll
     for (int k = 0; k < 16; ++k) ed = __fadd_rn(ed, fmaxf(-v[k], 0.0f));
   }
-#else
-#pragma unroll
-  for (int k = 0; k < 16; ++k) {
-    eb = __fadd_rn(eb, fmaxf(-u[k], 0.0f));
-    ed = __fadd_rn(ed, fmaxf(-v[k], 0.0f));
-  }
-#endif
   return __fadd_rn(arc_b ? eb : 0.0f, arc_d ? ed : 0.0f);
 }
 
@@ -319,8 +244,6 @@ fast_score_nms_kernel(const Params p) {
     else if (y < kCircle || y >= H - kCircle || x < kCircle ||
              x >= W - kCircle)
       score = 0.0f;            // the circle leaves the image
-    else if (FAST_ABLATE & 1)
-      score = g[(ry + kCircle) * gw + (rx + hl - r)];
     else
       score = fast9_score(g + (ry + kCircle) * gw + (rx + hl - r), gw, p.t);
     s[i] = score;
@@ -328,7 +251,7 @@ fast_score_nms_kernel(const Params p) {
   __syncthreads();
 
   // 3. row maxima of the raw window, for the tile's columns
-  const int reach = (FAST_ABLATE & 2) ? 0 : 2 * r;
+  const int reach = 2 * r;
   for (int i = tid; i < rh * TW; i += kThreads) {
     const int ry = i / TW;
     const float* row = s + ry * rw + (i - ry * TW);
@@ -361,7 +284,6 @@ fast_score_nms_kernel(const Params p) {
         make_float4(keep_max(raw4.x, pooled.x), keep_max(raw4.y, pooled.y),
                     keep_max(raw4.z, pooled.z), keep_max(raw4.w, pooled.w));
     const size_t o = (size_t)y * W + x;
-    if ((FAST_ABLATE & 4) && raw4.x != -1.0f) continue;   // never -1: no store
     if (lv.vec == 4) {          // 4 | W and 4 | x: the group is inside
       *reinterpret_cast<float4*>(lv.raw + o) = raw4;
       *reinterpret_cast<float4*>(lv.nms + o) = nms4;
@@ -444,128 +366,5 @@ extern "C" int fast_score_nms_levels_launch(
     }
     fast_score_nms_kernel<-1><<<total_tiles, kThreads, smem, st>>>(p);
   }
-  return (int)cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The kernel of the first port: one launch per level, 32 x 32 tiles, scalar
-// loads, the arc test as 16 mask compares, a (2r+1)^2 window maximum. Kept
-// only as the yardstick that chip_smoke.py and the card-only test time and
-// compare against in the same call; nothing on the main path calls it.
-
-namespace tile32 {
-
-constexpr int kTile = 32;
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
-
-__constant__ int kOffX[16] = {0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3, -3, -3, -2, -1};
-__constant__ int kOffY[16] = {-3, -3, -2, -1, 0, 1, 2, 3, 3, 3, 2, 1, 0, -1, -2, -3};
-
-__device__ __forceinline__ bool has_arc(int mask) {
-#pragma unroll
-  for (int s = 0; s < 16; ++s) {
-    const int arc = ((0x1FF << s) | (0x1FF >> (16 - s))) & 0xFFFF;
-    if ((mask & arc) == arc) return true;
-  }
-  return false;
-}
-
-__global__ void kernel(const float* __restrict__ gray,
-                       float* __restrict__ raw_out,
-                       float* __restrict__ nms_out, int H, int W, float t,
-                       int r) {
-  extern __shared__ float smem[];
-  const int gw = kTile + 2 * (kCircle + r);  // gray window side
-  const int rw = kTile + 2 * r;              // raw window side
-  float* g = smem;                           // gw * gw
-  float* s = smem + gw * gw;                 // rw * rw
-
-  const int tx0 = blockIdx.x * kTile;
-  const int ty0 = blockIdx.y * kTile;
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  const int nthreads = kThreadsX * kThreadsY;
-
-  const int gy0 = ty0 - kCircle - r;
-  const int gx0 = tx0 - kCircle - r;
-  for (int i = tid; i < gw * gw; i += nthreads) {
-    const int y = gy0 + i / gw;
-    const int x = gx0 + i % gw;
-    float v = 0.0f;
-    if (y >= 0 && y < H && x >= 0 && x < W) v = __fmul_rn(gray[y * W + x], 255.0f);
-    g[i] = v;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < rw * rw; i += nthreads) {
-    const int ry = i / rw;
-    const int rx = i % rw;
-    const int y = ty0 - r + ry;
-    const int x = tx0 - r + rx;
-    float score;
-    if (y < 0 || y >= H || x < 0 || x >= W) {
-      score = -CUDART_INF_F;
-    } else if (y < kCircle || y >= H - kCircle || x < kCircle || x >= W - kCircle) {
-      score = 0.0f;
-    } else {
-      const int cy = ry + kCircle;
-      const int cx = rx + kCircle;
-      const float c = g[cy * gw + cx];
-      int mask_b = 0, mask_d = 0;
-      float excess_b = 0.0f, excess_d = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const float nb = g[(cy + kOffY[k]) * gw + (cx + kOffX[k])];
-        const float diff = __fsub_rn(nb, c);
-        mask_b |= (diff > t) << k;
-        mask_d |= (diff < -t) << k;
-        excess_b = __fadd_rn(excess_b, fmaxf(__fsub_rn(diff, t), 0.0f));
-        excess_d = __fadd_rn(excess_d, fmaxf(__fsub_rn(-diff, t), 0.0f));
-      }
-      const float sb = has_arc(mask_b) ? excess_b : 0.0f;
-      const float sd = has_arc(mask_d) ? excess_d : 0.0f;
-      score = __fadd_rn(sb, sd);
-    }
-    s[i] = score;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < kTile * kTile; i += nthreads) {
-    const int oy = i / kTile;
-    const int ox = i % kTile;
-    const int y = ty0 + oy;
-    const int x = tx0 + ox;
-    if (y >= H || x >= W) continue;
-    const float center = s[(oy + r) * rw + (ox + r)];
-    float pooled = -CUDART_INF_F;
-    for (int dy = 0; dy <= 2 * r; ++dy) {
-      const float* row = s + (oy + dy) * rw + ox;
-      for (int dx = 0; dx <= 2 * r; ++dx) pooled = fmaxf(pooled, row[dx]);
-    }
-    raw_out[y * W + x] = center;
-    nms_out[y * W + x] = (center >= pooled && center > 0.0f) ? center : 0.0f;
-  }
-}
-
-}  // namespace tile32
-
-extern "C" int fast_score_nms_tile32_launch(const float* gray, float* raw,
-                                            float* nms, int H, int W,
-                                            float threshold, int nms_radius,
-                                            void* stream) {
-  const int gw = tile32::kTile + 2 * (kCircle + nms_radius);
-  const int rw = tile32::kTile + 2 * nms_radius;
-  const size_t smem = sizeof(float) * (size_t)(gw * gw + rw * rw);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        tile32::kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 block(tile32::kThreadsX, tile32::kThreadsY);
-  const dim3 grid((W + tile32::kTile - 1) / tile32::kTile,
-                  (H + tile32::kTile - 1) / tile32::kTile);
-  tile32::kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      gray, raw, nms, H, W, threshold, nms_radius);
   return (int)cudaGetLastError();
 }

@@ -22,6 +22,7 @@ import torch
 from putslam_tpu_torch.config import CameraConfig, RansacConfig
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.ops import kabsch
+from putslam_tpu_torch.utils.indexing import take_row
 
 
 class RansacResult(NamedTuple):
@@ -76,10 +77,20 @@ def _pair_errors(cfg: RansacConfig, cam: Optional[CameraConfig], T, p, q,
 
 
 def draw_uniforms(cfg: RansacConfig, generator: Optional[torch.Generator],
-                  device) -> torch.Tensor:
-    """(used_pairs, H) uniforms in [0, 1) for one RANSAC call."""
+                  device, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(used_pairs, H) uniforms in [0, 1) for one RANSAC call; ``out``: a
+    buffer of that shape to draw into (the same numbers)."""
     return torch.rand((cfg.used_pairs, cfg.n_hypotheses), generator=generator,
-                      device=device)
+                      device=device, out=out)
+
+
+def draw_named(cfg: RansacConfig, names, generator: Optional[torch.Generator],
+               device, out: Optional[dict] = None) -> dict:
+    """One (used_pairs, H) uniform tensor per name, drawn in the order of
+    ``names``; ``out``: buffers of those names to draw into."""
+    return {n: draw_uniforms(cfg, generator, device,
+                             out=None if out is None else out[n])
+            for n in names}
 
 
 def sample_indices(cfg: RansacConfig, valid, u, quality=None,
@@ -125,8 +136,8 @@ def estimate(cfg: RansacConfig, cam: Optional[CameraConfig], p, q, valid,
         / torch.clamp(counts, min=1)
     score = counts.to(torch.float32) - mean_err / (torch.max(mean_err) + 1e-6)
     best = torch.argmax(score)
-    T_best = T[best]
-    inl_best = inl[best]
+    T_best = take_row(T, best)
+    inl_best = take_row(inl, best)
 
     for _ in range(cfg.refit_iterations):
         T_n = kabsch.weighted_kabsch(p, q, inl_best.to(p.dtype))

@@ -16,11 +16,18 @@ def _eye3(ref: torch.Tensor) -> torch.Tensor:
     return torch.eye(3, dtype=ref.dtype, device=ref.device)
 
 
+def _unit_rows(width: int, one: int, batch_shape, dtype, device):
+    """(..., width) rows of zeros with a 1 in column ``one``, made on the
+    device by kernels alone: a Python scalar written into a device tensor
+    crosses from the host (a synchronising copy, and no copy at all inside
+    a CUDA graph)."""
+    row = (torch.arange(width, device=device) == one).to(dtype)
+    return row.expand(tuple(batch_shape) + (width,)).clone()
+
+
 def quat_identity(batch_shape=(), dtype=torch.float32, device=None):
     """Identity quaternions (..., 4) = [1, 0, 0, 0]."""
-    q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
-    q[..., 0] = 1.0
-    return q
+    return _unit_rows(4, 0, batch_shape, dtype, device)
 
 
 def quat_normalize(q):
@@ -28,7 +35,7 @@ def quat_normalize(q):
 
 
 def quat_conj(q):
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def quat_mul(a, b):
@@ -100,9 +107,7 @@ def quat_angle(q):
 
 
 def identity(batch_shape=(), dtype=torch.float32, device=None):
-    p = torch.zeros(tuple(batch_shape) + (7,), dtype=dtype, device=device)
-    p[..., 3] = 1.0
-    return p
+    return _unit_rows(7, 3, batch_shape, dtype, device)
 
 
 def make_pose(t, q):

@@ -22,18 +22,25 @@ backend. ``run_slam(archive=)`` absorbs the state into a host
 ``slam_map.archive.MapArchive`` at every chunk boundary, and
 ``run_slam_global`` polishes the archived graph after the run.
 
-Where the JAX package branches on device values with ``lax.cond`` (retry,
-keyframe bookkeeping, loop-closure verification, BA), this port branches on
-the host: a few device → host syncs per frame. ``lax.scan`` is a Python
-loop. The JAX package computes the loop-closure signature and scores on
-every frame and keeps them on keyframes; the port computes them on
-keyframes only.
+A frame is three segments: ``slam_track`` (device work alone, no host
+read: the JAX package's ``lax.cond`` on the VO retry, the map retry ladder
+and the loop-closure verification become passes that always run, selected
+with ``torch.where``), one packed host read of [is_keyframe, run_ba]
+(``read_flags``), and on a keyframe ``slam_keyframe``, the eager
+``bundle_adjust`` on its cadence and ``slam_finish``; the JAX package's
+``lax.cond`` on keyframe bookkeeping and BA are that read. ``slam_step``
+runs them eagerly; ``models/compiled.py`` replays them from CUDA graphs,
+which the sequence functions do on a CUDA device (``graph=``). The JAX
+package computes the loop-closure signature and scores on every frame and
+keeps them on keyframes; the port computes them on keyframes only.
 
 RANSAC draws come from an explicit ``torch.Generator``, or — for a test
 that replays the JAX package's key chain — from ``draws``, a mapping with
-one (used_pairs, H) uniform tensor per RANSAC call of the frame: ``vo``
-(and ``vo_retry`` with ``matcher.retry_hamming_slack > 0``), ``map``,
-``retry0``, ``retry1`` and, with loop closure, ``lc``.
+one (used_pairs, H) uniform tensor per RANSAC call of the frame
+(``draw_names``): ``vo`` (and ``vo_retry`` with
+``matcher.retry_hamming_slack > 0``), ``map``, ``retry0``, ``retry1`` and,
+with loop closure, ``lc``. Every one is drawn on every frame
+(``frame_draws``), so the stream does not depend on a branch.
 
 ``LCQueue`` (``loopclosure/bow.py``) and ``EKFState`` (``motion/ekf.py``)
 are re-exported here.
@@ -64,7 +71,8 @@ from putslam_tpu_torch.motion.ekf import EKFState  # noqa: F401
 from putslam_tpu_torch.ops import rgbd
 from putslam_tpu_torch.parallel import dist_ba
 from putslam_tpu_torch.slam_map import features_map as fm
-from putslam_tpu_torch.utils.device import as_tensor, resolve_device
+from putslam_tpu_torch.utils.device import (as_tensor, resolve_device,
+                                            use_graphs)
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows, take_row
 
 
@@ -211,17 +219,18 @@ def slam_init(cfg: SlamConfig, gray, depth, init_pose=None,
         g, kf_idx.expand(N), lm_idx, feat.xyz,
         torch.full((N,), _obs_info(cfg), dtype=torch.float32, device=dev),
         feat.has_depth & (lm_dist < 1e-4),
-        gen=m.lm_gen[lm_idx], kf_gen=m.kf_gen[kf_idx].expand(N),
+        gen=m.lm_gen[lm_idx], kf_gen=take_row(m.kf_gen, kf_idx).expand(N),
         info=_full_obs_info(cfg, feat.uv_undist, feat.xyz,
                             _obs_dirs(cfg, gray, depth, feat)))
     K = cfg.map.max_keyframes
     V = cfg.loop_closure.vocab_size
     Q = cfg.loop_closure.queue_capacity
-    kf_sig = torch.zeros((K, V), dtype=torch.float32, device=dev)
-    kf_sig[kf_idx] = bow.signature(bow.make_vocab(V, dev), feat.desc,
-                                   feat.valid)
-    sig_valid = torch.zeros((K,), dtype=torch.bool, device=dev)
-    sig_valid[kf_idx] = True
+    at = kf_idx.reshape(1)
+    kf_sig = set_rows(torch.zeros((K, V), dtype=torch.float32, device=dev),
+                      at, bow.signature(bow.make_vocab(V, dev), feat.desc,
+                                        feat.valid)[None])
+    sig_valid = set_rows(torch.zeros((K,), dtype=torch.bool, device=dev), at,
+                         True)
     return SlamState(
         map=m, graph=g, prev_feat=feat, pose=init_pose,
         pose_smooth=init_pose, last_kf_idx=kf_idx, last_kf_pose=init_pose,
@@ -240,24 +249,155 @@ def _tree_where(cond, a, b):
     return type(a)(*(torch.where(cond, x, y) for x, y in zip(a, b)))
 
 
-def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
-              draws: Optional[dict] = None,
-              generator: Optional[torch.Generator] = None,
-              gt_pose=None, playback: bool = False):
-    """One frame. Returns (state', SlamOutputs).
+def draw_names(cfg: SlamConfig, playback: bool = False):
+    """The RANSAC calls of one frame, in the order their uniforms are drawn:
+    ``vo`` (and ``vo_retry`` with ``matcher.retry_hamming_slack > 0``; none
+    in playback), ``map``, ``retry0`` … and, with loop closure, ``lc``."""
+    names = [] if playback else vo_mod.vo_draw_names(cfg)
+    names.append("map")
+    names += [f"retry{a}" for a in range(cfg.matcher.retries)]
+    if cfg.loop_closure.enabled:
+        names.append("lc")
+    return names
 
-    ``playback`` (``putslam_tpu/models/slam.py:214-248``): ``gt_pose`` is
-    the pose prediction, no VO runs (its result is the constant identity /
-    ok), the emitted pose is not smoothed and the EKF is left alone."""
+
+def frame_draws(cfg: SlamConfig, generator: Optional[torch.Generator], device,
+                playback: bool = False, out: Optional[dict] = None) -> dict:
+    """Every uniform of one frame, drawn whether or not the frame runs the
+    call: the random stream does not depend on a branch (the JAX package
+    splits its keys the same way on every frame). ``out``: buffers of
+    those names to draw into."""
+    return ransac_mod.draw_named(cfg.ransac, draw_names(cfg, playback),
+                                 generator, device, out)
+
+
+class Track(NamedTuple):
+    """What the track segment of a frame hands the keyframe segments, and
+    the state and outputs the frame ends with if it is no keyframe."""
+    feat: Features
+    obs_dirs: Optional[torch.Tensor]
+    vo_res: vo_mod.VOStepResult
+    ekf_pred: EKFState
+    pose_new: torch.Tensor
+    gm: fm.GuidedMatchResult       # valid: the matched (inlier) landmarks
+    p_cam: torch.Tensor
+    covis: torch.Tensor
+    n_matched: torch.Tensor
+    map_ok: torch.Tensor
+    res_map_ok: torch.Tensor
+    first_pass_ratio: torch.Tensor
+    flags: torch.Tensor            # (2,) bool [is_keyframe, run_ba]
+    tail_state: SlamState
+    tail_outs: SlamOutputs
+
+
+class KeyframeUpdate(NamedTuple):
+    """The map, graph and loop-closure stores after a keyframe's
+    bookkeeping (and its bundle adjustment, where one runs)."""
+    map: fm.MapState
+    graph: graph_mod.GraphState
+    kf_sig: torch.Tensor
+    sig_valid: torch.Tensor
+    lc_queue: LCQueue
+    n_lc_edges: torch.Tensor
+    chi2: torch.Tensor
+
+
+def _lc_pop_verify(cfg: SlamConfig, m, g, lc_queue, n_lc, u):
+    """Pop the best queued candidate and verify it, masked: the
+    verification runs on every frame and an empty queue adds no edge, as
+    the ``lax.cond`` of ``putslam_tpu/models/slam.py:529`` computes it.
+    Returns (graph, queue, n_lc_edges)."""
+    cand_a, cand_b, cand_p, lc_queue = bow.pop_best(lc_queue)
+    ca = torch.clamp(cand_a, min=0)
+    cb = torch.clamp(cand_b, min=0)
+    vres = lc_verify.verify_candidate(cfg, m, g, ca, cb, u=u)
+    ok = vres.ok & torch.isfinite(cand_p)
+    g = graph_mod.add_pose_pose(
+        g, ca, cb, vres.rel_pose, torch.full((), 200.0, device=ok.device), ok,
+        gen_i=take_row(m.kf_gen, ca), gen_j=take_row(m.kf_gen, cb))
+    return g, lc_queue, n_lc + ok.to(torch.int32)
+
+
+def _finish(cfg: SlamConfig, state: SlamState, tr, kb: KeyframeUpdate,
+            is_kf: bool, playback: bool):
+    """The end of a frame: on a keyframe the map compression, then the
+    re-anchor of the live pose on the last keyframe, the smoothed output
+    pose, the EKF correction and the new state. Returns (state, outputs)."""
+    K = state.map.kf_pose.shape[0]
+    dev = state.pose.device
+    m = kb.map
+    if is_kf:
+        m = fm.compress_map(cfg, m, cfg.map.max_frames_window)
+        kf_ring = torch.remainder(state.map.n_kf, K)
+        kf_pose_before = tr.pose_new
+    else:
+        kf_ring = torch.remainder(state.last_kf_idx, K)
+        kf_pose_before = state.last_kf_pose
+    kf_pose_after = take_row(m.kf_pose, kf_ring)
+    pose_out = se3.compose(kf_pose_after,
+                           se3.compose(se3.inverse(kf_pose_before),
+                                       tr.pose_new))
+
+    # ---- smoothed output trajectory (cfg.pose_blend_alpha) --------------
+    if playback or cfg.pose_blend_alpha >= 1.0:
+        pose_smooth_out = pose_out
+    else:
+        smooth_pred = se3.compose(state.pose_smooth, tr.vo_res.rel_pose)
+        delta_s = se3.boxminus(pose_out, smooth_pred)
+        mag = torch.linalg.norm(delta_s[:3])
+        alpha = torch.where(mag > cfg.pose_blend_snap,
+                            torch.ones_like(mag),
+                            torch.full_like(mag, cfg.pose_blend_alpha))
+        pose_smooth_out = se3.retract(smooth_pred, alpha * delta_s)
+
+    # ---- EKF measurement update with the accepted frame pose; a fully
+    # failed frame keeps the prediction, so the velocity coasts -----------
+    ekf_new = tr.ekf_pred
+    if cfg.motion_model.enabled and not playback:
+        ekf_corr = ekf_mod.correct(cfg.motion_model, tr.ekf_pred, pose_out)
+        ekf_new = _tree_where(tr.vo_res.ok | tr.map_ok, ekf_corr, tr.ekf_pred)
+
+    decay = cfg.matcher.degraded_ema_decay
+    state_new = state._replace(
+        map=m, graph=kb.graph, prev_feat=tr.feat, pose=pose_out,
+        pose_smooth=pose_smooth_out,
+        last_kf_idx=kf_ring.to(torch.int32) if is_kf else state.last_kf_idx,
+        last_kf_pose=kf_pose_after if is_kf else state.last_kf_pose,
+        frames_since_kf=(torch.zeros_like(state.frames_since_kf) if is_kf
+                         else state.frames_since_kf + 1),
+        frame_idx=state.frame_idx + 1,
+        kf_sig=kb.kf_sig, sig_valid=kb.sig_valid, lc_queue=kb.lc_queue,
+        n_lc_edges=kb.n_lc_edges, ekf=ekf_new,
+        health=decay * state.health + (1.0 - decay) * tr.first_pass_ratio,
+        frames_since_map_ok=torch.where(
+            tr.map_ok, torch.zeros_like(state.frames_since_map_ok),
+            torch.where(tr.res_map_ok, state.frames_since_map_ok + 1,
+                        state.frames_since_map_ok)),
+    )
+    outs = SlamOutputs(
+        pose=pose_smooth_out, vo_ok=tr.vo_res.ok, map_ok=tr.map_ok,
+        n_map_matches=tr.gm.n_candidates,
+        n_map_inliers=tr.n_matched.to(torch.int32),
+        is_keyframe=torch.full((), is_kf, dtype=torch.bool, device=dev),
+        ba_ran=tr.flags[1] if is_kf else torch.zeros(
+            (), dtype=torch.bool, device=dev),
+        chi2=kb.chi2, n_landmarks=torch.sum(m.lm_valid).to(torch.int32),
+        anchor_ring=kf_ring.to(torch.int32),
+        anchor_seq=take_row(m.kf_seq, kf_ring), anchor_pose=kf_pose_after)
+    return state_new, outs
+
+
+def slam_track(cfg: SlamConfig, state: SlamState, gray, depth, draws: dict,
+               gt_pose=None, playback: bool = False) -> Track:
+    """The track segment of a frame, device work alone (no host read):
+    detection, the VO prediction, guided map matching with every pass of
+    the retry ladder, the correction gate, the keyframe and BA decisions
+    (as device flags), and the whole frame as it ends if it is no keyframe
+    (the masked loop-closure pop and verification included)."""
     dev = state.pose.device
     m0 = state.map
     L = m0.capacity
-    K = m0.kf_pose.shape[0]
-
-    def uniforms(name):
-        if draws is not None:
-            return draws[name]
-        return ransac_mod.draw_uniforms(cfg.ransac, generator, dev)
 
     feat = detect_and_describe(cfg, gray, depth)
     N = feat.capacity
@@ -266,8 +406,6 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
     # ---- 1. frame-to-frame VO prediction --------------------------------
     ekf_pred = state.ekf
     if playback:
-        # device scalars, as vo_step returns them: the host branches below
-        # read vo_res.ok the same way on every path
         degraded = torch.zeros((), dtype=torch.bool, device=dev)
         vo_res = vo_mod.VOStepResult(
             se3.identity(device=dev),
@@ -275,13 +413,12 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
             torch.zeros((), dtype=torch.int32, device=dev),
             torch.ones((), dtype=torch.float32, device=dev),
             torch.ones((), dtype=torch.bool, device=dev))
-        pose_pred = as_tensor(gt_pose, dev, torch.float32)
+        pose_pred = gt_pose
     else:
         degraded = state.health < cfg.matcher.degraded_health_ratio
-        vo_res = vo_mod.vo_step(
-            cfg, state.prev_feat, feat, u=uniforms("vo"), generator=generator,
-            force_retry=degraded,
-            u_retry=None if draws is None else draws.get("vo_retry"))
+        vo_res = vo_mod.vo_step(cfg, state.prev_feat, feat, u=draws["vo"],
+                                force_retry=degraded,
+                                u_retry=draws.get("vo_retry"))
         pose_pred = se3.compose(state.pose, vo_res.rel_pose)
     if cfg.motion_model.enabled and not playback:
         # where VO failed, the EKF's constant-velocity prediction replaces
@@ -344,24 +481,25 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
                              res_c.inliers & on)
         return gm_s, res_c._replace(inliers=inliers_L)
 
-    gm, res_map = run_guided(1.0, uniforms("map"))
+    gm, res_map = run_guided(1.0, draws["map"])
     first_pass_ratio = res_map.inlier_ratio
     scale = 1.0
     for attempt in range(cfg.matcher.retries):
         scale *= cfg.matcher.retry_radius_growth
-        need_retry = (~res_map.ok) | degraded | \
-            (res_map.inlier_ratio < cfg.matcher.retry_inlier_ratio)
-        if bool(need_retry):
-            # each widening also relaxes the Hamming gate and the RANSAC
-            # inlier thresholds
-            gm2, res2 = run_guided(
-                scale, uniforms(f"retry{attempt}"),
-                hamming_slack=(attempt + 1) * cfg.matcher.retry_hamming_slack,
-                thr_scale=cfg.matcher.retry_threshold_growth ** (attempt + 1))
-            # rescue only: adopt the widened pass when the strict one failed
-            better = res2.ok & ~res_map.ok
-            gm = _tree_where(better, gm2, gm)
-            res_map = _tree_where(better, res2, res_map)
+        # the JAX package widens under a lax.cond when the pass failed, the
+        # frame is degraded or the inlier ratio is low
+        # (putslam_tpu/models/slam.py:351), and adopts the widened pass only
+        # when the strict one failed outright. A pass it skips is never
+        # adopted (a failed pass is itself a reason to widen), so every
+        # pass runs here and the rescue is a select, each widening relaxing
+        # the Hamming gate and the RANSAC inlier thresholds too
+        gm2, res2 = run_guided(
+            scale, draws[f"retry{attempt}"],
+            hamming_slack=(attempt + 1) * cfg.matcher.retry_hamming_slack,
+            thr_scale=cfg.matcher.retry_threshold_growth ** (attempt + 1))
+        better = res2.ok & ~res_map.ok
+        gm = _tree_where(better, gm2, gm)
+        res_map = _tree_where(better, res2, res_map)
     p_cam = feat.xyz[torch.clamp(gm.feat_idx, 0, N - 1)]
     # correction sanity gate with the drift budget
     correction = torch.linalg.norm(se3.translation(res_map.pose)
@@ -377,168 +515,173 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
     pose_new = torch.where(map_ok, res_map.pose, pose_pred)
     matched_lm = gm.valid & res_map.inliers & map_ok
 
-    # ---- 3. keyframe decision -------------------------------------------
+    # ---- 3. keyframe decision, and the BA cadence it leads to -----------
     gm_matched = gm._replace(valid=matched_lm)
     covis = fm.covisibility_ratio(gm_matched, m0, m0.n_kf - 1)
     n_matched = torch.sum(matched_lm)
-    is_kf_t = (((covis < cfg.map.covisibility_keyframe)
-                | (n_matched < cfg.map.min_keyframe_matches))
-               & (state.frames_since_kf >= cfg.map.min_frames_between_keyframes)
-               & (vo_res.ok | map_ok))
-    is_kf = bool(is_kf_t)
+    is_kf = (((covis < cfg.map.covisibility_keyframe)
+              | (n_matched < cfg.map.min_keyframe_matches))
+             & (state.frames_since_kf >= cfg.map.min_frames_between_keyframes)
+             & (vo_res.ok | map_ok))
+    n_kf_new = m0.n_kf + 1
+    do_ba = is_kf & (torch.remainder(
+        n_kf_new, cfg.backend.optimize_every_n_frames) == 0) & (n_kf_new > 2)
 
+    # ---- the frame as it ends if it is no keyframe ------------------------
+    g, lc_queue, n_lc = state.graph, state.lc_queue, state.n_lc_edges
+    if cfg.loop_closure.enabled:
+        g, lc_queue, n_lc = _lc_pop_verify(cfg, m0, g, lc_queue, n_lc,
+                                           draws["lc"])
+    chi2 = torch.zeros((cfg.backend.gn_iterations,), dtype=torch.float32,
+                       device=dev)
+    tr = Track(feat, obs_dirs, vo_res, ekf_pred, pose_new, gm_matched, p_cam,
+               covis, n_matched, map_ok, res_map.ok, first_pass_ratio,
+               torch.stack([is_kf, do_ba]), None, None)
+    tail_state, tail_outs = _finish(
+        cfg, state, tr, KeyframeUpdate(m0, g, state.kf_sig, state.sig_valid,
+                                       lc_queue, n_lc, chi2),
+        is_kf=False, playback=playback)
+    return tr._replace(tail_state=tail_state, tail_outs=tail_outs)
+
+
+def slam_keyframe(cfg: SlamConfig, state: SlamState, tr: Track,
+                  draws: dict) -> KeyframeUpdate:
+    """The keyframe segment: the keyframe and its landmarks into the map,
+    its observations and odometry edge into the graph, its loop-closure
+    signature, scores and candidates, then the masked pop and verification
+    (the edge enters the graph before the BA)."""
+    dev = state.pose.device
+    m0, feat, gm = state.map, tr.feat, tr.gm
+    L = m0.capacity
+    N = feat.capacity
+    K = m0.kf_pose.shape[0]
     kf_seq_new = m0.n_kf
     kf_idx_new = torch.remainder(m0.n_kf, K)
+    matched_lm = gm.valid
 
-    # ---- 4. keyframe bookkeeping ----------------------------------------
-    m, g = m0, state.graph
-    if is_kf:
-        m, _ = fm.add_keyframe(cfg, m, pose_new, covis)
-        m = fm.update_matched_landmarks(cfg, m, pose_new, feat, gm_matched,
-                                        kf_seq_new)
-        fidx = torch.clamp(gm.feat_idx, 0, N - 1).long()
-        feat_matched = torch.zeros((N,), dtype=torch.int32, device=dev)
-        feat_matched.index_add_(0, fidx, matched_lm.to(torch.int32))
-        want_provision = (
-            (gm.n_candidates < cfg.map.add_features_when_map_size_less_than)
-            | (n_matched < cfg.map.add_features_when_measurements_less_than)
-        ) & (torch.sum(m.lm_valid)
-             < cfg.map.add_no_features_when_map_size_greater_than)
-        m = fm.add_landmarks(cfg, m, pose_new, feat,
-                             (feat_matched > 0) | ~want_provision, kf_seq_new)
-        g = graph_mod.reclaim_observation_slots(g, m.lm_gen, m.kf_gen)
-        g = graph_mod.add_observations(
-            g, kf_idx_new.expand(L),
-            torch.arange(L, dtype=torch.int32, device=dev), p_cam,
-            torch.full((L,), _obs_info(cfg), dtype=torch.float32, device=dev),
-            matched_lm, gen=m.lm_gen, kf_gen=m.kf_gen[kf_idx_new].expand(L),
-            info=_full_obs_info(cfg, feat.uv_undist[fidx], p_cam,
-                                _rows(obs_dirs, fidx)))
-        rel_kf = se3.relative(state.last_kf_pose, pose_new)
-        add_pp = (n_matched < cfg.map.max_measurements_pose_to_pose) \
-            if cfg.map.add_pose_to_pose_edges else False
-        prev_ring = torch.remainder(state.last_kf_idx, K)
-        g = graph_mod.add_pose_pose(
-            g, prev_ring, kf_idx_new, rel_kf,
-            torch.full((), 100.0, device=dev), add_pp,
-            gen_i=m.kf_gen[prev_ring], gen_j=m.kf_gen[kf_idx_new])
+    m, _ = fm.add_keyframe(cfg, m0, tr.pose_new, tr.covis)
+    m = fm.update_matched_landmarks(cfg, m, tr.pose_new, feat, gm, kf_seq_new)
+    fidx = torch.clamp(gm.feat_idx, 0, N - 1).long()
+    feat_matched = torch.zeros((N,), dtype=torch.int32, device=dev)
+    feat_matched.index_add_(0, fidx, matched_lm.to(torch.int32))
+    want_provision = (
+        (gm.n_candidates < cfg.map.add_features_when_map_size_less_than)
+        | (tr.n_matched < cfg.map.add_features_when_measurements_less_than)
+    ) & (torch.sum(m.lm_valid)
+         < cfg.map.add_no_features_when_map_size_greater_than)
+    m = fm.add_landmarks(cfg, m, tr.pose_new, feat,
+                         (feat_matched > 0) | ~want_provision, kf_seq_new)
+    g = graph_mod.reclaim_observation_slots(state.graph, m.lm_gen, m.kf_gen)
+    g = graph_mod.add_observations(
+        g, kf_idx_new.expand(L),
+        torch.arange(L, dtype=torch.int32, device=dev), tr.p_cam,
+        torch.full((L,), _obs_info(cfg), dtype=torch.float32, device=dev),
+        matched_lm, gen=m.lm_gen,
+        kf_gen=take_row(m.kf_gen, kf_idx_new).expand(L),
+        info=_full_obs_info(cfg, feat.uv_undist[fidx], tr.p_cam,
+                            _rows(tr.obs_dirs, fidx)))
+    rel_kf = se3.relative(state.last_kf_pose, tr.pose_new)
+    add_pp = (tr.n_matched < cfg.map.max_measurements_pose_to_pose) \
+        if cfg.map.add_pose_to_pose_edges else \
+        torch.zeros((), dtype=torch.bool, device=dev)
+    prev_ring = torch.remainder(state.last_kf_idx, K)
+    g = graph_mod.add_pose_pose(
+        g, prev_ring, kf_idx_new, rel_kf,
+        torch.full((), 100.0, device=dev), add_pp,
+        gen_i=take_row(m.kf_gen, prev_ring),
+        gen_j=take_row(m.kf_gen, kf_idx_new))
 
-    # ---- 4b. loop closure: its edge enters the graph before the BA -------
     kf_sig, sig_valid = state.kf_sig, state.sig_valid
     lc_queue, n_lc = state.lc_queue, state.n_lc_edges
     if cfg.loop_closure.enabled:
         lc = cfg.loop_closure
-        if is_kf:
-            sig = bow.signature(bow.make_vocab(lc.vocab_size, dev), feat.desc,
-                                feat.valid)
-            # the slot this keyframe recycles still holds the evicted
-            # keyframe's signature: it takes no part in the scoring
-            scores = bow.score_against(
-                kf_sig, sig, set_rows(sig_valid, kf_idx_new.reshape(1),
-                                      False))
-            lc_queue = bow.push_candidates(lc_queue, kf_idx_new, scores,
-                                           m.kf_seq, m.n_kf, lc.tail_skip,
-                                           lc.min_probability)
-            kf_sig = set_rows(kf_sig, kf_idx_new.reshape(1), sig[None])
-            sig_valid = set_rows(sig_valid, kf_idx_new.reshape(1), True)
-        # pop and verify one candidate per frame
-        cand_a, cand_b, cand_p, lc_queue = bow.pop_best(lc_queue)
-        if bool(torch.isfinite(cand_p)):
-            ca = torch.clamp(cand_a, min=0)
-            cb = torch.clamp(cand_b, min=0)
-            vres = lc_verify.verify_candidate(cfg, m, g, ca, cb,
-                                              u=uniforms("lc"))
-            g = graph_mod.add_pose_pose(
-                g, ca, cb, vres.rel_pose, torch.full((), 200.0, device=dev),
-                vres.ok, gen_i=take_row(m.kf_gen, ca),
-                gen_j=take_row(m.kf_gen, cb))
-            n_lc = n_lc + vres.ok.to(torch.int32)
+        sig = bow.signature(bow.make_vocab(lc.vocab_size, dev), feat.desc,
+                            feat.valid)
+        # the slot this keyframe recycles still holds the evicted
+        # keyframe's signature: it takes no part in the scoring
+        at = kf_idx_new.reshape(1)
+        scores = bow.score_against(kf_sig, sig,
+                                   set_rows(sig_valid, at, False))
+        lc_queue = bow.push_candidates(lc_queue, kf_idx_new, scores,
+                                       m.kf_seq, m.n_kf, lc.tail_skip,
+                                       lc.min_probability)
+        kf_sig = set_rows(kf_sig, at, sig[None])
+        sig_valid = set_rows(sig_valid, at, True)
+        g, lc_queue, n_lc = _lc_pop_verify(cfg, m, g, lc_queue, n_lc,
+                                           draws["lc"])
+    chi2 = torch.zeros((cfg.backend.gn_iterations,), dtype=torch.float32,
+                       device=dev)
+    return KeyframeUpdate(m, g, kf_sig, sig_valid, lc_queue, n_lc, chi2)
 
-    # ---- 5. periodic bundle adjustment -----------------------------------
-    do_ba = is_kf and bool(
-        (torch.remainder(m.n_kf, cfg.backend.optimize_every_n_frames) == 0)
-        & (m.n_kf > 2))
+
+def bundle_adjust(cfg: SlamConfig, m: fm.MapState, g: graph_mod.GraphState):
+    """The periodic windowed BA of a keyframe frame (eager: its chi² stop
+    test reads the card). Returns (kf_pose, lm_pos, obs_valid, chi2)."""
+    window = cfg.map.max_frames_window
+    if 0 < cfg.backend.ba_window < cfg.map.max_keyframes:
+        if cfg.backend.ba_window < window:
+            warnings.warn(
+                f"backend.ba_window={cfg.backend.ba_window} clamps the "
+                f"configured map.max_frames_window={window}: keyframes "
+                f"beyond the solver's compaction capacity are frozen "
+                f"in-loop. Raise backend.ba_window for full parity.",
+                stacklevel=2)
+        window = min(window, cfg.backend.ba_window)
+    slot0 = torch.arange(m.kf_valid.shape[0], device=m.kf_valid.device) == 0
+    fixed = fm.active_window_fixed(m, window) | slot0
+    res = opt_mod.optimize_graph(
+        cfg.backend, m.kf_pose, m.kf_valid, m.lm_pos, m.lm_valid, g, fixed,
+        lm_gen=m.lm_gen, kf_gen=m.kf_gen, cam=cfg.camera)
+    g = graph_mod.prune_observations(
+        g, res.obs_sq_err > cfg.backend.chi2_prune_threshold)
+    return res.kf_pose, res.lm_pos, g.obs_valid, res.chi2
+
+
+def slam_finish(cfg: SlamConfig, state: SlamState, tr: Track,
+                kb: KeyframeUpdate, playback: bool = False):
+    """The finish segment of a keyframe frame: compression, re-anchor,
+    smoothing, EKF and the new state. Returns (state, outputs)."""
+    return _finish(cfg, state, tr, kb, is_kf=True, playback=playback)
+
+
+def read_flags(tr: Track):
+    """The frame's one host read: (is_keyframe, run_ba) as Python bools."""
+    is_kf, do_ba = tr.flags.tolist()
+    return is_kf, do_ba
+
+
+def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
+              draws: Optional[dict] = None,
+              generator: Optional[torch.Generator] = None,
+              gt_pose=None, playback: bool = False):
+    """One frame, eagerly. Returns (state', SlamOutputs).
+
+    The track segment runs on the device alone; one packed host read of
+    [is_keyframe, run_ba] decides the rest: a frame that is no keyframe
+    ends there, a keyframe runs the bookkeeping, the BA on its cadence and
+    the finish. ``compiled.SlamGraphs`` replays the same three segments
+    from CUDA graphs.
+
+    ``playback`` (``putslam_tpu/models/slam.py:214-248``): ``gt_pose`` is
+    the pose prediction, no VO runs (its result is the constant identity /
+    ok), the emitted pose is not smoothed and the EKF is left alone."""
+    dev = state.pose.device
+    if draws is None:
+        draws = frame_draws(cfg, generator, dev, playback)
+    if playback:
+        gt_pose = as_tensor(gt_pose, dev, torch.float32)
+    tr = slam_track(cfg, state, gray, depth, draws, gt_pose, playback)
+    is_kf, do_ba = read_flags(tr)
+    if not is_kf:
+        return tr.tail_state, tr.tail_outs
+    kb = slam_keyframe(cfg, state, tr, draws)
     if do_ba:
-        window = cfg.map.max_frames_window
-        if 0 < cfg.backend.ba_window < cfg.map.max_keyframes:
-            if cfg.backend.ba_window < window:
-                warnings.warn(
-                    f"backend.ba_window={cfg.backend.ba_window} clamps the "
-                    f"configured map.max_frames_window={window}: keyframes "
-                    f"beyond the solver's compaction capacity are frozen "
-                    f"in-loop. Raise backend.ba_window for full parity.",
-                    stacklevel=2)
-            window = min(window, cfg.backend.ba_window)
-        fixed = fm.active_window_fixed(m, window)
-        fixed[0] = True
-        res = opt_mod.optimize_graph(
-            cfg.backend, m.kf_pose, m.kf_valid, m.lm_pos, m.lm_valid, g, fixed,
-            lm_gen=m.lm_gen, kf_gen=m.kf_gen, cam=cfg.camera)
-        m = m._replace(kf_pose=res.kf_pose, lm_pos=res.lm_pos)
-        g = graph_mod.prune_observations(
-            g, res.obs_sq_err > cfg.backend.chi2_prune_threshold)
-        chi2 = res.chi2
-    else:
-        chi2 = torch.zeros((cfg.backend.gn_iterations,), dtype=torch.float32,
-                           device=dev)
-    if is_kf:
-        m = fm.compress_map(cfg, m, cfg.map.max_frames_window)
-
-    # ---- re-anchor the live pose on the (possibly moved) last keyframe ---
-    if is_kf:
-        kf_ring, kf_pose_before = kf_idx_new, pose_new
-    else:
-        kf_ring = torch.remainder(state.last_kf_idx, K)
-        kf_pose_before = state.last_kf_pose
-    kf_pose_after = m.kf_pose[kf_ring]
-    pose_out = se3.compose(kf_pose_after,
-                           se3.compose(se3.inverse(kf_pose_before), pose_new))
-
-    # ---- smoothed output trajectory (cfg.pose_blend_alpha) --------------
-    if playback or cfg.pose_blend_alpha >= 1.0:
-        pose_smooth_out = pose_out
-    else:
-        smooth_pred = se3.compose(state.pose_smooth, vo_res.rel_pose)
-        delta_s = se3.boxminus(pose_out, smooth_pred)
-        mag = torch.linalg.norm(delta_s[:3])
-        alpha = torch.where(mag > cfg.pose_blend_snap,
-                            torch.ones_like(mag),
-                            torch.full_like(mag, cfg.pose_blend_alpha))
-        pose_smooth_out = se3.retract(smooth_pred, alpha * delta_s)
-
-    # ---- EKF measurement update with the accepted frame pose; a fully
-    # failed frame keeps the prediction, so the velocity coasts -----------
-    ekf_new = ekf_pred
-    if cfg.motion_model.enabled and not playback:
-        ekf_corr = ekf_mod.correct(cfg.motion_model, ekf_pred, pose_out)
-        ekf_new = _tree_where(vo_res.ok | map_ok, ekf_corr, ekf_pred)
-
-    decay = cfg.matcher.degraded_ema_decay
-    state_new = state._replace(
-        map=m, graph=g, prev_feat=feat, pose=pose_out,
-        pose_smooth=pose_smooth_out,
-        last_kf_idx=kf_idx_new.to(torch.int32) if is_kf else state.last_kf_idx,
-        last_kf_pose=kf_pose_after if is_kf else state.last_kf_pose,
-        frames_since_kf=(torch.zeros_like(state.frames_since_kf) if is_kf
-                         else state.frames_since_kf + 1),
-        frame_idx=state.frame_idx + 1,
-        kf_sig=kf_sig, sig_valid=sig_valid, lc_queue=lc_queue,
-        n_lc_edges=n_lc, ekf=ekf_new,
-        health=decay * state.health + (1.0 - decay) * first_pass_ratio,
-        frames_since_map_ok=torch.where(
-            map_ok, torch.zeros_like(state.frames_since_map_ok),
-            torch.where(res_map.ok, state.frames_since_map_ok + 1,
-                        state.frames_since_map_ok)),
-    )
-    outs = SlamOutputs(
-        pose=pose_smooth_out, vo_ok=vo_res.ok, map_ok=map_ok,
-        n_map_matches=gm.n_candidates,
-        n_map_inliers=n_matched.to(torch.int32),
-        is_keyframe=is_kf_t, ba_ran=torch.tensor(do_ba, device=dev),
-        chi2=chi2, n_landmarks=torch.sum(m.lm_valid).to(torch.int32),
-        anchor_ring=kf_ring.to(torch.int32), anchor_seq=m.kf_seq[kf_ring],
-        anchor_pose=kf_pose_after)
-    return state_new, outs
+        kf_pose, lm_pos, obs_valid, chi2 = bundle_adjust(cfg, kb.map,
+                                                         kb.graph)
+        kb = kb._replace(map=kb.map._replace(kf_pose=kf_pose, lm_pos=lm_pos),
+                         graph=kb.graph._replace(obs_valid=obs_valid),
+                         chi2=chi2)
+    return slam_finish(cfg, state, tr, kb, playback)
 
 
 def _stack_outputs(outs):
@@ -546,9 +689,17 @@ def _stack_outputs(outs):
 
 
 def slam_sequence(cfg: SlamConfig, state: SlamState, grays, depths,
-                  draws=None, generator: Optional[torch.Generator] = None):
+                  draws=None, generator: Optional[torch.Generator] = None,
+                  graph: Optional[bool] = None):
     """Run ``slam_step`` over stacked frames (T, H, W). ``draws``: optional
-    per-frame list of draw mappings. Returns (state, stacked outputs)."""
+    per-frame list of draw mappings. ``graph``: replay the step from CUDA
+    graphs (``models/compiled.py``); None is on for a CUDA state, off
+    elsewhere. Returns (state, stacked outputs)."""
+    if use_graphs(graph, state.pose.device):
+        from putslam_tpu_torch.models import compiled
+
+        return compiled.run_sequence(cfg, state, grays, depths, draws=draws,
+                                     generator=generator)
     outs = []
     for i in range(grays.shape[0]):
         state, o = slam_step(cfg, state, grays[i], depths[i],
@@ -560,10 +711,16 @@ def slam_sequence(cfg: SlamConfig, state: SlamState, grays, depths,
 
 def slam_sequence_playback(cfg: SlamConfig, state: SlamState, grays, depths,
                            gt_poses, draws=None,
-                           generator: Optional[torch.Generator] = None):
+                           generator: Optional[torch.Generator] = None,
+                           graph: Optional[bool] = None):
     """Playback over stacked frames: the given poses drive the map and the
-    backend (``putslam_tpu/models/slam.py:626``). Returns (state, stacked
-    outputs)."""
+    backend (``putslam_tpu/models/slam.py:626``). ``graph`` as in
+    ``slam_sequence``. Returns (state, stacked outputs)."""
+    if use_graphs(graph, state.pose.device):
+        from putslam_tpu_torch.models import compiled
+
+        return compiled.run_sequence(cfg, state, grays, depths, draws=draws,
+                                     generator=generator, gt_poses=gt_poses)
     outs = []
     for i in range(grays.shape[0]):
         state, o = slam_step(cfg, state, grays[i], depths[i],
@@ -575,10 +732,10 @@ def slam_sequence_playback(cfg: SlamConfig, state: SlamState, grays, depths,
 
 
 def run_playback(cfg: SlamConfig, grays, depths, gt_poses, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", graph: Optional[bool] = None):
     """Host wrapper of the playback mode
     (``putslam_tpu/models/slam.py:636``). Returns (poses (T, 7) numpy,
-    outputs (numpy), final state)."""
+    outputs (numpy), final state). ``graph`` as in ``slam_sequence``."""
     check_config(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -587,7 +744,7 @@ def run_playback(cfg: SlamConfig, grays, depths, gt_poses, seed: int = 0,
     gt = as_tensor(gt_poses, dev, torch.float32)
     state = slam_init(cfg, g[0], d[0], gt[0], device=dev)
     state, outs = slam_sequence_playback(cfg, state, g[1:], d[1:], gt[1:],
-                                         generator=gen)
+                                         generator=gen, graph=graph)
     outs = _outputs_to_numpy(outs)
     poses = np.concatenate([gt[0].cpu().numpy()[None], outs.pose], axis=0)
     return poses, outs, state
@@ -621,8 +778,11 @@ def _outputs_to_numpy(outs: SlamOutputs) -> SlamOutputs:
 
 
 def run_slam(cfg: SlamConfig, grays, depths, init_pose=None, seed: int = 0,
-             chunk_size: int = 0, device="cuda", archive=None):
-    """Returns (poses (T, 7) numpy, outputs (numpy), final state).
+             chunk_size: int = 0, device="cuda", archive=None,
+             graph: Optional[bool] = None):
+    """Returns (poses (T, 7) numpy, outputs (numpy), final state). ``graph``
+    as in ``slam_sequence``: on a CUDA device each frame is replayed from
+    CUDA graphs unless it is False.
 
     ``chunk_size`` > 0 moves the sequence to the device in blocks of that
     many frames; the tail block is padded with copies of its last frame and
@@ -652,7 +812,8 @@ def run_slam(cfg: SlamConfig, grays, depths, init_pose=None, seed: int = 0,
             pad = chunk - (e - s)
             gc = torch.cat([gc, gc[-1:].expand(pad, -1, -1)])
             dc = torch.cat([dc, dc[-1:].expand(pad, -1, -1)])
-        state, outs = slam_sequence(cfg, state, gc, dc, generator=gen)
+        state, outs = slam_sequence(cfg, state, gc, dc, generator=gen,
+                                    graph=graph)
         outs_chunks.append(_outputs_to_numpy(outs))
         if archive is not None:
             archive.absorb(state)
@@ -815,7 +976,7 @@ def reanchor_trajectory(state: SlamState, outs: SlamOutputs):
 
 def run_slam_global(cfg: SlamConfig, grays, depths, init_pose=None,
                     seed: int = 0, chunk_size: int = 64, device="cuda",
-                    **gba_kw):
+                    graph: Optional[bool] = None, **gba_kw):
     """run_slam with a host map archive, then the offline global bundle
     adjustment over the full archived graph, history the device rings
     evicted included (``putslam_tpu/models/slam.py:913-942``). The per-frame
@@ -830,7 +991,7 @@ def run_slam_global(cfg: SlamConfig, grays, depths, init_pose=None,
     archive = MapArchive()
     poses_before, outs, state = run_slam(cfg, grays, depths, init_pose, seed,
                                          chunk_size=chunk_size, device=device,
-                                         archive=archive)
+                                         archive=archive, graph=graph)
     kf_polished = global_bundle_adjust(cfg, archive, device=device, **gba_kw)
     seqs = outs.anchor_seq
     good = (seqs >= 0) & (seqs < len(kf_polished))
@@ -845,11 +1006,13 @@ def run_slam_global(cfg: SlamConfig, grays, depths, init_pose=None,
 
 
 def run_slam_final(cfg: SlamConfig, grays, depths, init_pose=None,
-                   seed: int = 0, chunk_size: int = 0, device="cuda"):
+                   seed: int = 0, chunk_size: int = 0, device="cuda",
+                   graph: Optional[bool] = None):
     """run_slam + finalize + the re-anchored trajectory. Returns
     (poses_before (T, 7), poses_after (T, 7), outputs, final state)."""
     poses_before, outs, state = run_slam(cfg, grays, depths, init_pose, seed,
-                                         chunk_size=chunk_size, device=device)
+                                         chunk_size=chunk_size, device=device,
+                                         graph=graph)
     state = finalize(cfg, state)
     poses_after = np.concatenate(
         [poses_before[:1], reanchor_trajectory(state, outs).cpu().numpy()],

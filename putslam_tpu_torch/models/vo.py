@@ -30,7 +30,8 @@ from putslam_tpu_torch.geometry import camera as camera_mod
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.ops import fast as fast_mod
 from putslam_tpu_torch.ops import brief, klt, matching
-from putslam_tpu_torch.utils.device import as_tensor, resolve_device
+from putslam_tpu_torch.utils.device import (as_tensor, resolve_device,
+                                            use_graphs)
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows
 
 
@@ -74,6 +75,22 @@ def widened_ransac(rcfg, growth: float):
                                       * growth))
 
 
+def vo_draw_names(cfg: SlamConfig):
+    """The RANSAC calls of one VO step, in the order their uniforms are
+    drawn whatever the step decides: ``vo``, then ``vo_retry`` with
+    ``matcher.retry_hamming_slack > 0``."""
+    return ["vo"] + (["vo_retry"] if cfg.matcher.retry_hamming_slack > 0
+                     else [])
+
+
+def vo_draws(cfg: SlamConfig, generator: Optional[torch.Generator], device,
+             out: Optional[dict] = None) -> dict:
+    """Every uniform of one VO step (``out``: the buffers of the captured
+    step to draw into)."""
+    return ransac_mod.draw_named(cfg.ransac, vo_draw_names(cfg), generator,
+                                 device, out)
+
+
 def vo_step(cfg: SlamConfig, prev: Features, curr: Features,
             u: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None,
@@ -83,14 +100,21 @@ def vo_step(cfg: SlamConfig, prev: Features, curr: Features,
     T minimising ‖T·xyz_curr − xyz_prev‖ (new_pose = prev_pose ∘ T).
     ``u``: optional RANSAC uniforms, else drawn from ``generator``.
 
-    With ``matcher.retry_hamming_slack > 0`` a failed or starved match (or
-    ``force_retry``, a bool or 0-d tensor) runs once more with the Hamming
-    gate widened by the slack and the RANSAC thresholds by
+    With ``matcher.retry_hamming_slack > 0`` the match runs once more with
+    the Hamming gate widened by the slack and the RANSAC thresholds by
     ``retry_threshold_growth`` (uniforms ``u_retry``), and the second result
-    is adopted only when the strict pass failed outright. The decision to
-    run it is made on the host (one sync), where the JAX package has a
-    ``lax.cond``."""
+    is adopted only when the strict pass failed outright. The JAX package
+    runs that pass under a ``lax.cond`` on a starved match (or
+    ``force_retry``); a pass it skips is never adopted (a failed strict
+    pass is itself starved), so the port runs it on every step and selects:
+    no host decision, and ``force_retry`` changes nothing."""
     mc = cfg.matcher
+    retry = mc.retry_hamming_slack > 0
+    dev = prev.xyz.device
+    if u is None:
+        u = ransac_mod.draw_uniforms(cfg.ransac, generator, dev)
+    if retry and u_retry is None:
+        u_retry = ransac_mod.draw_uniforms(cfg.ransac, generator, dev)
     dist = matching.hamming_matrix(prev.desc, curr.desc, prev.valid, curr.valid)
 
     def match_and_estimate(max_hamming, rcfg, uniforms):
@@ -98,22 +122,17 @@ def vo_step(cfg: SlamConfig, prev: Features, curr: Features,
         p = curr.xyz[m.idx_b]
         valid = m.valid & prev.has_depth & curr.has_depth[m.idx_b]
         res = ransac_mod.estimate(rcfg, cfg.camera, p, prev.xyz, valid,
-                                  u=uniforms, generator=generator)
+                                  u=uniforms)
         return torch.sum(valid).to(torch.int32), res
 
     n_matches, res = match_and_estimate(mc.max_hamming, cfg.ransac, u)
-    if mc.retry_hamming_slack > 0:
-        starved = (~res.ok) | (res.inlier_ratio < mc.retry_inlier_ratio) \
-            | force_retry
-        if bool(starved):
-            n2, r2 = match_and_estimate(
-                mc.max_hamming + mc.retry_hamming_slack,
-                widened_ransac(cfg.ransac, mc.retry_threshold_growth),
-                u_retry)
-            better = r2.ok & ~res.ok
-            n_matches = torch.where(better, n2, n_matches)
-            res = type(res)(*(torch.where(better, a, b)
-                              for a, b in zip(r2, res)))
+    if retry:
+        n2, r2 = match_and_estimate(
+            mc.max_hamming + mc.retry_hamming_slack,
+            widened_ransac(cfg.ransac, mc.retry_threshold_growth), u_retry)
+        better = r2.ok & ~res.ok
+        n_matches = torch.where(better, n2, n_matches)
+        res = type(res)(*(torch.where(better, a, b) for a, b in zip(r2, res)))
     too_far = torch.linalg.norm(se3.translation(res.pose)) > cfg.max_vo_translation
     rel = torch.where(too_far, se3.identity(dtype=res.pose.dtype,
                                             device=res.pose.device), res.pose)
@@ -128,15 +147,30 @@ def detect_sequence(cfg: SlamConfig, grays, depths):
             for i in range(grays.shape[0])]
 
 
+def normalise_poses(poses):
+    """Unit quaternions on a stacked (T, 7) trajectory."""
+    return se3.make_pose(se3.translation(poses),
+                         se3.quat_normalize(se3.rotation_quat(poses)))
+
+
 def vo_sequence(cfg: SlamConfig, grays, depths,
                 generator: Optional[torch.Generator] = None, init_pose=None,
-                draws=None):
+                draws=None, graph: Optional[bool] = None):
     """VO over a stacked (T, H, W) sequence. Returns (poses (T, 7),
     per-step results stacked over T−1 steps). ``draws``: optional per-step
-    list of RANSAC uniforms."""
+    list of RANSAC uniforms. ``graph``: each step detection + ``vo_step``
+    replayed from a CUDA graph (``models/compiled.py``); None is on for CUDA
+    frames, off elsewhere."""
     dev = grays.device
     if init_pose is None:
         init_pose = se3.identity(dtype=grays.dtype, device=dev)
+    if use_graphs(graph, dev):
+        from putslam_tpu_torch.models import compiled
+
+        poses, stats = compiled.vo_run_sequence(cfg, grays, depths, init_pose,
+                                                draws=draws,
+                                                generator=generator)
+        return normalise_poses(poses), stats
     feats = detect_sequence(cfg, grays, depths)
     steps = [vo_step(cfg, feats[i], feats[i + 1],
                      u=None if draws is None else draws[i],
@@ -145,12 +179,9 @@ def vo_sequence(cfg: SlamConfig, grays, depths,
     poses = [init_pose]
     for st in steps:
         poses.append(se3.compose(poses[-1], st.rel_pose))
-    poses = torch.stack(poses)
-    poses = se3.make_pose(se3.translation(poses),
-                          se3.quat_normalize(se3.rotation_quat(poses)))
     stats = VOStepResult(*(torch.stack(x) for x in zip(*steps))) if steps \
         else None
-    return poses, stats
+    return normalise_poses(torch.stack(poses)), stats
 
 
 # ---------------------------------------------------------------------------
@@ -256,11 +287,12 @@ def vo_sequence_tracking(cfg: SlamConfig, grays, depths,
 
 
 def run_vo(cfg: SlamConfig, grays, depths, seed: int = 0, init_pose=None,
-           device="cuda"):
+           device="cuda", graph: Optional[bool] = None):
     """Arrays or tensors in, numpy out: (poses (T, 7), stats). Frames are
     moved to ``device``; RANSAC draws from a generator seeded with
-    ``seed``. Dispatches on ``cfg.vo_version``: 1 is KLT tracking, any other
-    value matching (``putslam_tpu/models/vo.py:278-281``)."""
+    ``seed``. Dispatches on ``cfg.vo_version``: 1 is KLT tracking (eager),
+    any other value matching (``putslam_tpu/models/vo.py:278-281``), whose
+    steps ``graph`` replays as ``vo_sequence`` does."""
     check_vo_config(cfg)
     dev = resolve_device(device)
     g = as_tensor(grays, dev, torch.float32)
@@ -269,8 +301,12 @@ def run_vo(cfg: SlamConfig, grays, depths, seed: int = 0, init_pose=None,
     gen.manual_seed(seed)
     ip = None if init_pose is None else as_tensor(init_pose, dev,
                                                   torch.float32)
-    seq = vo_sequence_tracking if cfg.vo_version == 1 else vo_sequence
-    poses, stats = seq(cfg, g, d, generator=gen, init_pose=ip)
+    if cfg.vo_version == 1:
+        poses, stats = vo_sequence_tracking(cfg, g, d, generator=gen,
+                                            init_pose=ip)
+    else:
+        poses, stats = vo_sequence(cfg, g, d, generator=gen, init_pose=ip,
+                                   graph=graph)
     return (poses.cpu().numpy(),
             None if stats is None else VOStepResult(
                 *(x.cpu().numpy() for x in stats)))

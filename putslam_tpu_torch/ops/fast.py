@@ -55,8 +55,9 @@ def fast_score_map(gray: torch.Tensor, threshold: float) -> torch.Tensor:
     score = torch.where(is_bright, excess_b, zero) + torch.where(
         is_dark, excess_d, zero)
     H, W = gray.shape
-    inside = torch.zeros_like(is_bright)
-    inside[3:H - 3, 3:W - 3] = True
+    ys = torch.arange(H, device=img.device)[:, None]
+    xs = torch.arange(W, device=img.device)[None, :]
+    inside = (ys >= 3) & (ys < H - 3) & (xs >= 3) & (xs < W - 3)
     return torch.where(inside, score, zero)
 
 

@@ -14,7 +14,9 @@ rebuilds; what ``ptxas -v`` said of it is kept beside it (``build_log``).
 (``output_layout``). ``fast_score_nms`` is its one-level case. A CPU tensor
 goes through the plain PyTorch version (``ops/fast.py``), a CUDA tensor
 launches the kernel or raises. ``fast_score_nms.launches`` counts kernel
-launches.
+launches: one a call, or, for a launch recorded into a CUDA graph
+(``fast_score_nms.recorded``), one a replay, counted by the replaying code
+(``models/compiled.py``).
 """
 
 from __future__ import annotations
@@ -113,11 +115,6 @@ class _Library:
                                 ints, ints, ints, ctypes.c_int,
                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         self.levels.restype = ctypes.c_int
-        self.tile32 = lib.fast_score_nms_tile32_launch
-        self.tile32.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-        self.tile32.restype = ctypes.c_int
         for fn in (lib.fast_score_nms_tile_w, lib.fast_score_nms_tile_h):
             fn.argtypes, fn.restype = [], ctypes.c_int
         self.tile_w = lib.fast_score_nms_tile_w()
@@ -238,7 +235,12 @@ def launch_levels(levels: Sequence[torch.Tensor], threshold: float,
             float(threshold), int(nms_radius), stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-    fast_score_nms.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        # recorded into a CUDA graph: it launches at every replay, and the
+        # replay counts it (models/compiled.py)
+        fast_score_nms.recorded += 1
+    else:
+        fast_score_nms.launches += 1
     return maps
 
 
@@ -268,27 +270,5 @@ def fast_score_nms(gray: torch.Tensor, threshold: float, nms_radius: int):
     return fast_score_nms_levels([gray], threshold, nms_radius)[0]
 
 
-fast_score_nms.launches = 0
-
-
-def fast_score_nms_tile32(gray: torch.Tensor, threshold: float,
-                          nms_radius: int):
-    """The first port's kernel (one launch per level, 32×32 tiles), kept as
-    the yardstick the new kernel is timed against in the same call. CUDA
-    only; not counted in ``fast_score_nms.launches``; nothing on the main
-    path calls it."""
-    what = "fast_score_nms_tile32"
-    _check_levels([gray], nms_radius, what)
-    if gray.device.type != "cuda":
-        raise ValueError(f"{what}: needs a CUDA tensor, got {gray.device}")
-    lib = _library()
-    H, W = gray.shape
-    raw = torch.empty_like(gray)
-    nms = torch.empty_like(gray)
-    with torch.cuda.device(gray.device):
-        stream = torch.cuda.current_stream(gray.device).cuda_stream
-        err = lib.tile32(gray.data_ptr(), raw.data_ptr(), nms.data_ptr(), H,
-                         W, float(threshold), int(nms_radius), stream)
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-    return raw, nms
+fast_score_nms.launches = 0     # launches made (a graph's: one a replay)
+fast_score_nms.recorded = 0     # launches recorded into CUDA graphs

@@ -54,10 +54,17 @@ _SCHARR_Y = np.array([[-3, -10, -3], [0, 0, 0], [3, 10, 3]],
                      np.float32) / 32.0
 
 
+_SCHARR: dict = {}
+
+
 def image_gradients(gray):
-    """Scharr gradients: (gx (H,W), gy (H,W))."""
-    w = torch.from_numpy(np.stack([_SCHARR_X, _SCHARR_Y])[:, None]).to(
-        gray.device)
+    """Scharr gradients: (gx (H,W), gy (H,W)). The filters are copied to a
+    device once (a host → device copy per frame would read back on a
+    CUDA device, and cannot sit in a CUDA graph)."""
+    w = _SCHARR.get(gray.device)
+    if w is None:
+        w = _SCHARR[gray.device] = torch.from_numpy(
+            np.stack([_SCHARR_X, _SCHARR_Y])[:, None]).to(gray.device)
     g = F.conv2d(gray[None, None], w, padding=1)[0]
     return g[0], g[1]
 

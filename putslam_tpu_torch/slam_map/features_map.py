@@ -16,7 +16,7 @@ import torch
 from putslam_tpu_torch.config import SlamConfig
 from putslam_tpu_torch.frontend.detector import Features
 from putslam_tpu_torch.geometry import se3
-from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows
+from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows, take_row
 
 DESC_BITS = 256
 
@@ -244,8 +244,8 @@ def add_landmarks(cfg: SlamConfig, m: MapState, pose, feat: Features,
     desc = set_rows(m.lm_desc[:, 0], slot, feat.desc[safe_cand])
     vdir = set_rows(m.lm_view_dir[:, 0], slot, view_dir)
     # a (re)used slot keeps descriptor view 0 only
-    fresh = torch.zeros_like(m.lm_slot_used[:1])
-    fresh[:, 0] = True
+    fresh = (torch.arange(m.lm_slot_used.shape[1], device=slot.device)
+             == 0)[None]
     used = set_rows(m.lm_slot_used, slot, fresh)
     gen = set_rows(m.lm_gen, slot, m.lm_gen[torch.clamp(slot, max=L - 1)] + 1)
     return m._replace(
@@ -304,28 +304,30 @@ def add_keyframe(cfg: SlamConfig, m: MapState, pose, covis_with_prev
                  ) -> Tuple[MapState, torch.Tensor]:
     """Append a keyframe to the ring (index n_kf mod K), bump the slot's
     generation when it recycles a keyframe, reset its covisibility row and
-    column, and record the covisibility with the previous keyframe."""
+    column, and record the covisibility with the previous keyframe. Device
+    ops only: the slot is a device index, never a host one."""
     K = m.kf_pose.shape[0]
-    idx = torch.remainder(m.n_kf, K).long()
-    prev = torch.remainder(m.n_kf - 1, K).long()
-    recycled = m.kf_valid[idx]
-    kf_pose = m.kf_pose.clone()
-    kf_pose[idx] = pose
-    kf_valid = m.kf_valid.clone()
-    kf_valid[idx] = True
-    kf_seq = m.kf_seq.clone()
-    kf_seq[idx] = m.n_kf
-    kf_gen = m.kf_gen.clone()
-    kf_gen[idx] += recycled.to(torch.int32)
-    covis = m.covis.clone()
-    covis[idx, :] = 0.0
-    covis[:, idx] = 0.0
-    c = torch.as_tensor(covis_with_prev, dtype=covis.dtype, device=covis.device)
-    covis[idx, prev] = c
-    covis[prev, idx] = c
-    return m._replace(kf_pose=kf_pose, kf_valid=kf_valid, kf_seq=kf_seq,
-                      kf_gen=kf_gen, n_kf=m.n_kf + 1, covis=covis), \
-        idx.to(torch.int32)
+    dev = m.kf_pose.device
+    idx = torch.remainder(m.n_kf, K).long().reshape(1)
+    prev = torch.remainder(m.n_kf - 1, K).long().reshape(1)
+    recycled = take_row(m.kf_valid, idx[0])
+    c = covis_with_prev if torch.is_tensor(covis_with_prev) else torch.full(
+        (), covis_with_prev, dtype=m.covis.dtype, device=dev)
+    ring = torch.arange(K, device=dev)
+    is_idx = ring == idx
+    covis = torch.where(is_idx[:, None] | is_idx[None, :],
+                        torch.zeros_like(m.covis), m.covis)
+    pair = (is_idx[:, None] & (ring == prev)[None, :]) \
+        | ((ring == prev)[:, None] & is_idx[None, :])
+    covis = torch.where(pair, c.to(m.covis.dtype), covis)
+    return m._replace(
+        kf_pose=set_rows(m.kf_pose, idx, pose[None]),
+        kf_valid=set_rows(m.kf_valid, idx, True),
+        kf_seq=set_rows(m.kf_seq, idx, m.n_kf.reshape(1)),
+        kf_gen=set_rows(m.kf_gen, idx, (take_row(m.kf_gen, idx[0])
+                                        + recycled.to(torch.int32))
+                        .reshape(1)),
+        n_kf=m.n_kf + 1, covis=covis), idx[0].to(torch.int32)
 
 
 def covisibility_ratio(gm: GuidedMatchResult, m: MapState, last_kf_seq):

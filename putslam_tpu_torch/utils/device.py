@@ -28,3 +28,15 @@ def as_numpy(x) -> np.ndarray:
     """``x`` (tensor on any device, numpy array, sequence) as a numpy
     array on the host."""
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def use_graphs(graph, device) -> bool:
+    """Whether a sequence replays its step from CUDA graphs: ``graph=None``
+    means yes on a CUDA device and no elsewhere; True on another device
+    raises."""
+    dev = torch.device(device)
+    if graph is None:
+        return dev.type == "cuda"
+    if graph and dev.type != "cuda":
+        raise ValueError(f"graph=True needs a CUDA device, not {dev}")
+    return bool(graph)

@@ -93,15 +93,29 @@ def test_cuda_unaligned_level_takes_the_narrow_path(cuda):
     assert torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p)
 
 
-@pytest.mark.parametrize("shape", FR1_SHAPES)
-def test_cuda_tile32_yardstick_matches_plain(cuda, shape):
-    g = _image(shape, True).to(cuda)
+def test_cuda_kernel_replays_from_a_graph(cuda):
+    """Captured into a CUDA graph, the launch is recorded once and runs at
+    every replay on the frame the static buffer holds; each replay counts
+    as the launch it is (models/compiled.py adds them)."""
+    shapes = FR1_SHAPES
+    src = [_image(sh, True).to(cuda) for sh in shapes]
+    levels = [torch.zeros_like(x) for x in src]
+    fast_cuda.fast_score_nms_levels(levels, 20.0, 3)        # warm up
+    graph = torch.cuda.CUDAGraph()
     before = fast_cuda.fast_score_nms.launches
-    raw_k, nms_k = fast_cuda.fast_score_nms_tile32(g, 20.0, 3)
-    assert fast_cuda.fast_score_nms.launches == before   # not the port's kernel
-    raw_p, nms_p = _plain(g)
-    torch.cuda.synchronize()
-    assert torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p)
+    recorded = fast_cuda.fast_score_nms.recorded
+    with torch.cuda.graph(graph):
+        maps = fast_cuda.fast_score_nms_levels(levels, 20.0, 3)
+    assert fast_cuda.fast_score_nms.recorded == recorded + 1
+    assert fast_cuda.fast_score_nms.launches == before
+    for k in range(3):
+        for dst, x in zip(levels, src):
+            dst.copy_(torch.roll(x, k, dims=1))
+        graph.replay()
+        torch.cuda.synchronize()
+        for (raw_k, nms_k), g in zip(maps, levels):
+            raw_p, nms_p = _plain(g)
+            assert torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p)
 
 
 def test_cuda_wrapper_checks_inputs(cuda):
@@ -121,8 +135,6 @@ def test_cuda_wrapper_checks_inputs(cuda):
     for bad in (-1, 17):
         with pytest.raises(ValueError, match="nms_radius"):
             fast_cuda.fast_score_nms_levels([g], 20.0, bad)
-    with pytest.raises(ValueError):
-        fast_cuda.fast_score_nms_tile32(g.cpu(), 20.0, 3)
     before = fast_cuda.fast_score_nms.launches
     assert len(fast_cuda.fast_score_nms_levels([g] * 8, 20.0, 3)) == 8
     assert fast_cuda.fast_score_nms.launches == before + 1

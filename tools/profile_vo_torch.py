@@ -10,7 +10,8 @@ yaw 0.1) rendered on the device, times the stages of ``tools/profile_vo.py``
 over the whole sequence:
 
 - ``vo_sequence`` end to end (detection, matching and RANSAC of every pair,
-  the pose chain);
+  the pose chain; on a CUDA device each step replayed from a CUDA graph,
+  ``models/compiled.py``);
 - ``detect_sequence``: detect + describe of every frame, all levels (one
   launch of the FAST kernel a frame);
 - ``fast.detect`` at level 0 of every frame;
