@@ -12,6 +12,7 @@ from typing import NamedTuple
 import torch
 
 from putslam_tpu_torch.geometry import se3
+from putslam_tpu_torch.utils import control
 from putslam_tpu_torch.utils.indexing import set_rows
 
 
@@ -75,11 +76,18 @@ def add_observations(g: GraphState, kf_idx, lm_idx, xyz, weight, mask,
     m32 = mask.to(torch.int32)
     rank = torch.cumsum(m32, dim=0) - 1
     n_new = torch.sum(m32)
-    cursor = torch.remainder(g.n_obs + rank, M)
-    key = torch.where(g.obs_valid, g.obs_seq, torch.full_like(g.obs_seq, -1))
-    order = torch.sort(key, stable=True).indices
-    sorted_slots = order[torch.clamp(rank, 0, M - 1).long()]
-    slot = torch.where(g.n_obs + n_new >= M, sorted_slots, cursor.long())
+    cursor = torch.remainder(g.n_obs + rank, M).long()
+
+    def sorted_slots():
+        # the lax.cond of putslam_tpu/backend/graph.py:115: the sort only
+        # once the store has ever filled; until then the cursor is the
+        # dead-first order
+        key = torch.where(g.obs_valid, g.obs_seq,
+                          torch.full_like(g.obs_seq, -1))
+        order = torch.sort(key, stable=True).indices
+        return order[torch.clamp(rank, 0, M - 1).long()]
+
+    slot = control.cond(g.n_obs + n_new >= M, sorted_slots, cursor)
     slot = torch.where(mask, slot, torch.full_like(slot, M))
     n = mask.shape[0]
     zeros_i = torch.zeros((n,), dtype=torch.int32, device=mask.device)

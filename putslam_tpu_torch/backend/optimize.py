@@ -37,6 +37,7 @@ from putslam_tpu_torch.backend.graph import GraphState
 from putslam_tpu_torch.config import BackendConfig, CameraConfig
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.geometry.uncertainty import chol3x3, inv3x3
+from putslam_tpu_torch.utils import control
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows
 
 
@@ -210,7 +211,11 @@ def _solve_reduced(S, b_red, dead, lam: float):
                         b_red)
     Lc, info = torch.linalg.cholesky_ex(S)
     Lc = torch.where(info != 0, torch.full_like(Lc, math.nan), Lc)
-    dc = torch.cholesky_solve(b_red[:, None], Lc)[:, 0]
+    # L·Lᵀ·dc = b as two triangular solves: on the card cholesky_solve's
+    # cuSOLVER route cannot sit in a conditional graph node's body (the
+    # graph fails to instantiate), cuBLAS's triangular solve can
+    y = torch.linalg.solve_triangular(Lc, b_red[:, None], upper=False)
+    dc = torch.linalg.solve_triangular(Lc.T, y, upper=True)[:, 0]
     dc = torch.where(torch.isfinite(dc), dc, torch.zeros_like(dc))
     return torch.where(torch.all(torch.abs(dc) < 1e3), dc,
                        torch.zeros_like(dc))
@@ -408,7 +413,10 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
                     cam: CameraConfig = None) -> BAResult:
     """``bcfg.gn_iterations`` Gauss-Newton steps on poses and landmarks,
     stopping early (chi² reported unchanged) once an iteration fails to
-    improve chi² by ``chi2_ratio_termination``. ``fixed_kf`` (K,) bool
+    improve chi² by ``chi2_ratio_termination``: each iteration is a
+    ``control.cond`` on the device flag ``~done`` (masked by default, an IF
+    node in a captured frame, a host read under
+    ``control.branching("host")``). ``fixed_kf`` (K,) bool
     freezes the gauge/window; generations mask stale edges."""
     check_backend_config(bcfg)
     dev = kf_pose.device
@@ -516,17 +524,23 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
                                          frozen_full, ~lm_dead_c)
         return new_pose, new_lm_c, chi2
 
+    # the carry of the JAX package's scan, on the device: the chi²-ratio
+    # stop is the lax.cond of putslam_tpu/backend/optimize.py:680, one
+    # control.cond per iteration; a stopped run repeats its last chi²
+    kf_pose = kf_pose.clone()
     lm_pos_c = lm_pos[torch.clamp(sel_lm, max=L - 1)]
     prev_chi2 = torch.full((), math.inf, dtype=f32, device=dev)
-    done = False
+    done = torch.zeros((), dtype=torch.bool, device=dev)
     chi2s = []
+
+    def iteration():
+        new_pose, new_lm_c, chi2 = do_iteration(kf_pose, lm_pos_c)
+        return (new_pose, new_lm_c, chi2,
+                chi2 >= bcfg.chi2_ratio_termination * prev_chi2)
+
     for _ in range(bcfg.gn_iterations):
-        if not done:
-            kf_pose, lm_pos_c, chi2 = do_iteration(kf_pose, lm_pos_c)
-            # one host sync per iteration: the chi²-ratio termination
-            done = bool(chi2 >= bcfg.chi2_ratio_termination * prev_chi2)
-            prev_chi2 = chi2
-        chi2s.append(prev_chi2)
+        control.cond(~done, iteration, (kf_pose, lm_pos_c, prev_chi2, done))
+        chi2s.append(prev_chi2.clone())
     lm_out = set_rows(lm_pos, torch.where(lm_dead_c, torch.full_like(
         sel_lm, L), sel_lm), lm_pos_c)
     sq_final = _final_sq_errors(bcfg, kf_pose, lm_out, lm_valid, g, lm_gen,

@@ -2,39 +2,41 @@
 
 The counterpart of the JAX package's ``jax.jit(slam_step)`` under
 ``lax.scan`` (``putslam_tpu/models/slam.py:213``, ``:615-622``). A JAX frame
-is one device program; here a frame is split into the fixed-shape segments
-of ``models/slam.py``, each captured once per (config, shapes) with
-``torch.cuda.CUDAGraph`` and replayed:
+is one device program that never returns to the host, its data-dependent
+branches ``lax.cond``s. Here a frame is ``slam.slam_frame`` captured once
+per (config, shapes) with ``torch.cuda.CUDAGraph`` and replayed, one replay
+a frame: every ``utils/control.cond`` on its path (the VO retry, each
+widening of the map retry ladder, the sorted observation slots, the
+loop-closure verification, the keyframe bookkeeping, the bundle adjustment
+and each of its Gauss-Newton iterations) is a conditional IF node, so the
+card skips what the frame does not need and the host reads nothing:
 
-* **track** (``slam_track``): detection with the FAST kernel, VO, guided
-  matching with the whole retry ladder, the correction gate, the keyframe
-  and BA decisions and the frame as it ends if it is no keyframe (the
-  masked loop-closure pop and verification included). It commits that end
-  into the state masked by the keyframe flag, so a keyframe's segments
-  still read the frame's start.
-* one packed host read of [is_keyframe, run_ba] (``slam.read_flags``);
-* **keyframe** (``slam_keyframe``): the map, graph and loop-closure
-  bookkeeping; then the bundle adjustment, eager, on its cadence (its chi²
-  stop test reads the card), written into the segment's outputs;
-* **finish** (``slam_finish``): compression, re-anchor, smoothing, EKF and
-  the state update.
+    track → IF(not a keyframe){tail} → IF(keyframe){bookkeeping →
+    IF(run_ba){BA: IF(~done){iteration} × gn_iterations} → finish}
 
-A frame that is no keyframe is one replay and one host read. The state and
-the frame's inputs live in static buffers that every replay reads and
-writes; the RANSAC uniforms are drawn into static buffers from the caller's
-generator outside the graphs, in the order the eager step draws them
-(``slam.frame_draws``), so both paths see the same stream. The graphs of one
-runner share one memory pool and replay in one order on one stream.
+The state, the frame's inputs and its ``SlamOutputs`` live in static
+buffers that every replay reads and writes; ``step`` returns a device copy
+of the outputs. The RANSAC uniforms are drawn into static buffers from the
+caller's generator outside the graph, in the order the eager step draws
+them (``slam.frame_draws``), so both paths see the same stream. The graphs
+of one runner share one memory pool, and their IF bodies a second one
+(``utils/graph_cond.py``), and replay in one order on one stream.
 
-The VO-only path (``vo_sequence``) captures detection + ``vo_step`` + the
-pose update as one segment and reads nothing on the host.
+The VO paths are one graph a step as well: ``VoGraphs`` (matching VO:
+detection + ``vo_step`` with its retry node + the pose update) and
+``TrackGraphs`` (tracking VO, ``vo_version=1``: KLT, patch refine, RANSAC,
+the masked refill with its level-0 FAST launch, the pose update).
 
-A capture or replay that fails raises: there is no fallback to the eager
-step. ``capture=False`` runs the same segments on the same static buffers
-without graphs (on any device): the CPU tests hold that against the eager
-step. ``fast_score_nms.launches`` counts one launch per replay of a
-segment that holds the FAST kernel (the kernel launch a capture records);
-the warm-up pass before a capture is not counted.
+Before a capture the step runs once, masked (``control.branching
+("masked")``: every branch, for the lazy initialisation of both sides) on a
+side stream, under ``control.checking()``, which raises where a branch body
+writes to a tensor it did not make. A capture or replay that fails raises:
+there is no fallback to the eager step. ``capture=False`` runs the same
+step on the same static buffers without graphs (on any device), each
+``cond`` a host read of its predicate (``control.branching("host")``): the
+CPU tests hold that against the eager step. ``fast_score_nms.launches``
+counts one launch per replay of a graph that holds the FAST kernel (the
+kernel launch a capture records); the warm-up pass is not counted.
 """
 
 from __future__ import annotations
@@ -51,48 +53,14 @@ from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.models import slam as slam_mod
 from putslam_tpu_torch.models import vo as vo_mod
 from putslam_tpu_torch.ops import fast_cuda
+from putslam_tpu_torch.utils import control, graph_cond
+from putslam_tpu_torch.utils.control import assign as _assign
+from putslam_tpu_torch.utils.control import clone as _clone
+from putslam_tpu_torch.utils.control import leaves as _leaves
 from putslam_tpu_torch.utils.device import as_tensor
 
 MAX_CACHED = 4      # runners kept, each with its buffers and graph pool
 _RUNNERS: "OrderedDict[tuple, object]" = OrderedDict()
-
-
-def _leaves(tree):
-    """The tensors of a tree of NamedTuples, tuples, lists and dicts, in
-    order; None leaves are skipped."""
-    if tree is None:
-        return []
-    if torch.is_tensor(tree):
-        return [tree]
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    return [x for t in tree for x in _leaves(t)]
-
-
-def _clone(tree):
-    if tree is None or torch.is_tensor(tree):
-        return None if tree is None else tree.clone()
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    items = [_clone(x) for x in tree]
-    if hasattr(tree, "_fields"):           # a NamedTuple
-        return type(tree)(*items)
-    return type(tree)(items)
-
-
-def _assign(dst, src, where=None):
-    """Copy every leaf of ``src`` into the leaf of ``dst`` at its place
-    (``where``: a 0-d bool, True keeps ``dst``). Leaves that are ``dst``'s
-    own are skipped; a source that shares storage with a destination is
-    read before any destination is written."""
-    pairs = [(d, s) for d, s in zip(_leaves(dst), _leaves(src)) if s is not d]
-    if where is not None:
-        pairs = [(d, torch.where(where, d, s)) for d, s in pairs]
-    held = {d.untyped_storage().data_ptr() for d, _ in pairs}
-    pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in held else s)
-             for d, s in pairs]
-    for d, s in pairs:
-        d.copy_(s)
 
 
 def graph_pool_bytes(pool) -> Optional[int]:
@@ -115,9 +83,9 @@ def _draw_buffers(cfg, names, device) -> dict:
 
 
 class _Segment:
-    """One segment ``fn(commit)`` of a runner: run eagerly (``capture``
-    False), or warmed up once on a side stream, captured into a CUDA graph
-    in the runner's pool and replayed."""
+    """One step ``fn(commit)`` of a runner: run with its branches read on
+    the host (``capture`` False), or warmed up once on a side stream,
+    captured into a CUDA graph in the runner's pool and replayed."""
 
     def __init__(self, runner, fn):
         self.runner = runner
@@ -132,23 +100,26 @@ class _Segment:
         side = torch.cuda.Stream(r.device)
         side.wait_stream(torch.cuda.current_stream(r.device))
         counted = fast_cuda.fast_score_nms.launches
-        with torch.cuda.stream(side):
-            self.fn(commit=False)          # lazy initialisation, not a frame
+        with torch.cuda.stream(side), control.branching("masked"), \
+                control.checking():
+            self.fn(commit=False)          # lazy initialisation, not a step
         fast_cuda.fast_score_nms.launches = counted
         torch.cuda.current_stream(r.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         recorded = fast_cuda.fast_score_nms.recorded
-        with torch.cuda.graph(graph, pool=r.pool):
+        graph_cond.prepare(r.device, r.body_pool)
+        with torch.cuda.graph(graph, pool=r.pool), \
+                control.branching("capture"):
             self.out = self.fn(commit=True)
         self.fast_launches = fast_cuda.fast_score_nms.recorded - recorded
-        if r.pool is None:
-            r.pool = graph.pool()
         self.graph = graph
+        r.captured = True
         r.capture_s += time.perf_counter() - t0
 
     def run(self):
         if not self.runner.capture:
-            self.out = self.fn(commit=True)
+            with control.branching("host"):
+                self.out = self.fn(commit=True)
             return self.out
         if self.graph is None:
             self._capture()
@@ -160,27 +131,53 @@ class _Segment:
 class _Runner:
     def __init__(self, device, capture: bool):
         self.device = torch.device(device)
-        if capture and self.device.type != "cuda":
-            raise ValueError(f"CUDA graphs need a CUDA device, not "
-                             f"{self.device}")
         self.capture = capture
         self.pool = None
+        self.captured = False
         self.capture_s = 0.0
+        if capture:
+            if self.device.type != "cuda":
+                raise ValueError(f"CUDA graphs need a CUDA device, not "
+                                 f"{self.device}")
+            backend = torch.cuda.memory.get_allocator_backend()
+            if backend != "native":
+                # a conditional node's body may hold no allocation node
+                raise RuntimeError(f"the graph runners need the caching "
+                                   f"allocator's native backend, not "
+                                   f"{backend!r}")
+            self.pool = torch.cuda.graph_pool_handle()
+            self.body_pool = torch.cuda.MemPool()
 
     def pool_mib(self) -> Optional[float]:
-        """MiB of the graphs' memory pool (None before a capture, or where
-        the allocator does not say)."""
-        if self.pool is None:
+        """MiB of the graphs' memory pools, the graph's own and its IF
+        bodies' (None before a capture, or where the allocator does not
+        say)."""
+        if not self.captured:
             return None
-        b = graph_pool_bytes(self.pool)
-        return None if b is None else b / 2 ** 20
+        b = [graph_pool_bytes(p) for p in (self.pool, self.body_pool.id)]
+        return None if None in b else sum(b) / 2 ** 20
+
+
+def _outputs_like(cfg, device) -> slam_mod.SlamOutputs:
+    """Static buffers for a frame's SlamOutputs."""
+    def z(shape=(), dtype=torch.bool):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    i32, f32 = torch.int32, torch.float32
+    return slam_mod.SlamOutputs(
+        pose=z((7,), f32), vo_ok=z(), map_ok=z(), n_map_matches=z((), i32),
+        n_map_inliers=z((), i32), is_keyframe=z(), ba_ran=z(),
+        chi2=z((cfg.backend.gn_iterations,), f32), n_landmarks=z((), i32),
+        anchor_ring=z((), i32), anchor_seq=z((), i32),
+        anchor_pose=z((7,), f32))
 
 
 class SlamGraphs(_Runner):
     """The SLAM step (``playback`` or not) of one config and frame shape as
-    three segments on static buffers: ``load`` a state, ``step`` frames,
-    ``state`` holds the state after the last step (overwritten by the next
-    one: clone what must outlive it)."""
+    one graph (``slam.slam_frame``) on static buffers: ``load`` a state,
+    ``step`` frames; ``state`` holds the state after the last step
+    (overwritten by the next one: clone what must outlive it), and
+    ``frame.out`` the last frame's ``slam.Track``."""
 
     def __init__(self, cfg, state: slam_mod.SlamState, frame_shape,
                  playback: bool = False, capture: bool = True):
@@ -188,43 +185,20 @@ class SlamGraphs(_Runner):
         self.cfg, self.playback = cfg, playback
         dev = self.device
         self.state = _clone(state)
+        self.outs = _outputs_like(cfg, dev)
         self.gray = torch.zeros(tuple(frame_shape), device=dev)
         self.depth = torch.zeros(tuple(frame_shape), device=dev)
         self.gt_pose = se3.identity(device=dev) if playback else None
         self.draws = _draw_buffers(cfg, slam_mod.draw_names(cfg, playback),
                                    dev)
-        self.track = _Segment(self, self._track)
-        self.keyframe = _Segment(self, self._keyframe)
-        self.finish = _Segment(self, self._finish)
+        self.frame = _Segment(self, self._frame)
 
-    def _track(self, commit):
-        tr = slam_mod.slam_track(self.cfg, self.state, self.gray, self.depth,
-                                 self.draws, self.gt_pose, self.playback)
-        if commit:
-            # a frame that is no keyframe ends here; on a keyframe the state
-            # stays as the frame found it, for the keyframe segments
-            _assign(self.state, tr.tail_state, where=tr.flags[0])
-        return tr
-
-    def _keyframe(self, commit):
-        kb = slam_mod.slam_keyframe(self.cfg, self.state, self.track.out,
-                                    self.draws)
-        # the bundle adjustment writes into these between the replays: they
-        # must be the segment's own
-        state_leaves = {id(x) for x in _leaves(self.state)}
-        own = [kb.map.kf_pose, kb.map.lm_pos, kb.graph.obs_valid, kb.chi2]
-        if any(id(x) in state_leaves for x in own):
-            raise RuntimeError("keyframe segment returned a state buffer "
-                               "for a BA output")
-        return kb
-
-    def _finish(self, commit):
-        state, outs = slam_mod.slam_finish(self.cfg, self.state,
-                                           self.track.out, self.keyframe.out,
-                                           self.playback)
-        if commit:
-            _assign(self.state, state)
-        return outs
+    def _frame(self, commit):
+        out = (self.state, self.outs)
+        return slam_mod.slam_frame(self.cfg, self.state, self.gray,
+                                   self.depth, self.draws,
+                                   out if commit else _clone(out),
+                                   self.gt_pose, self.playback)
 
     def load(self, state: slam_mod.SlamState) -> None:
         _assign(self.state, state)
@@ -242,19 +216,8 @@ class SlamGraphs(_Runner):
         else:
             for name, buf in self.draws.items():
                 buf.copy_(draws[name])
-        tr = self.track.run()
-        is_kf, do_ba = slam_mod.read_flags(tr)
-        if not is_kf:
-            return _clone(tr.tail_outs)
-        kb = self.keyframe.run()
-        if do_ba:
-            kf_pose, lm_pos, obs_valid, chi2 = slam_mod.bundle_adjust(
-                self.cfg, kb.map, kb.graph)
-            kb.map.kf_pose.copy_(kf_pose)
-            kb.map.lm_pos.copy_(lm_pos)
-            kb.graph.obs_valid.copy_(obs_valid)
-            kb.chi2.copy_(chi2)
-        return _clone(self.finish.run())
+        self.frame.run()
+        return _clone(self.outs)
 
 
 class VoGraphs(_Runner):
@@ -301,6 +264,48 @@ class VoGraphs(_Runner):
                 ransac_mod.draw_uniforms(self.cfg.ransac, generator,
                                          self.device,
                                          out=self.draws["vo_retry"])
+        return _clone(self.segment.run())
+
+
+class TrackGraphs(_Runner):
+    """The tracking VO step (``vo_version=1``) of one config and frame
+    shape as one graph: ``vo_step_tracking`` (KLT, patch refine, RANSAC,
+    the masked refill with its level-0 FAST launch) and the pose update;
+    ``load`` the first frame's tracks and pose."""
+
+    def __init__(self, cfg, ts0: vo_mod.TrackState, pose0, frame_shape,
+                 capture: bool = True):
+        super().__init__(pose0.device, capture)
+        self.cfg = cfg
+        dev = self.device
+        self.ts = _clone(ts0)
+        self.pose = pose0.clone()
+        self.gray = torch.zeros(tuple(frame_shape), device=dev)
+        self.depth = torch.zeros(tuple(frame_shape), device=dev)
+        self.draws = _draw_buffers(cfg, ["vo"], dev)
+        self.segment = _Segment(self, self._step)
+
+    def _step(self, commit):
+        ts, res = vo_mod.vo_step_tracking(self.cfg, self.ts, self.gray,
+                                          self.depth, u=self.draws["vo"])
+        pose = se3.compose(self.pose, res.rel_pose)
+        if commit:
+            _assign((self.ts, self.pose), (ts, pose))
+        return res, pose
+
+    def load(self, ts0: vo_mod.TrackState, pose0) -> None:
+        _assign((self.ts, self.pose), (ts0, pose0))
+
+    def step(self, gray, depth, u: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None):
+        """One step. Returns (VOStepResult, pose) (fresh tensors)."""
+        self.gray.copy_(gray)
+        self.depth.copy_(depth)
+        if u is None:
+            ransac_mod.draw_uniforms(self.cfg.ransac, generator, self.device,
+                                     out=self.draws["vo"])
+        else:
+            self.draws["vo"].copy_(u)
         return _clone(self.segment.run())
 
 
@@ -351,18 +356,16 @@ def run_sequence(cfg, state, grays, depths, draws=None,
     return _clone(runner.state), slam_mod._stack_outputs(outs)
 
 
-def vo_run_sequence(cfg, grays, depths, init_pose, draws=None,
-                    generator: Optional[torch.Generator] = None,
-                    capture: bool = True):
-    """``vo_sequence`` through a runner: frame 0 detected eagerly, every
-    later frame one replay. Returns (poses (T, 7) before the final
-    normalisation, stacked per-step results or None)."""
-    feat0 = detect_and_describe(cfg, grays[0], depths[0])
-    key = ("vo", cfg, capture, init_pose.device, tuple(grays.shape[1:]),
+def _run_steps(kind, make, carry0, cfg, grays, depths, init_pose, draws,
+               generator, capture):
+    """A VO sequence through the cached runner ``make(carry0)`` of ``kind``:
+    frame 0 eagerly (``carry0``), every later frame one replay. Returns
+    (poses (T, 7), stacked per-step results or None)."""
+    key = (kind, cfg, capture, init_pose.device, tuple(grays.shape[1:]),
            init_pose.dtype)
-    runner = _cached(key, lambda: VoGraphs(cfg, feat0, init_pose,
-                                           grays.shape[1:], capture))
-    runner.load(feat0, init_pose)
+    runner = _cached(key, lambda: make(cfg, carry0, init_pose,
+                                       grays.shape[1:], capture))
+    runner.load(carry0, init_pose)
     steps, poses = [], [init_pose]
     for i in range(1, grays.shape[0]):
         res, pose = runner.step(grays[i], depths[i],
@@ -373,3 +376,25 @@ def vo_run_sequence(cfg, grays, depths, init_pose, draws=None,
     stats = vo_mod.VOStepResult(*(torch.stack(x) for x in zip(*steps))) \
         if steps else None
     return torch.stack(poses), stats
+
+
+def vo_run_sequence(cfg, grays, depths, init_pose, draws=None,
+                    generator: Optional[torch.Generator] = None,
+                    capture: bool = True):
+    """``vo_sequence`` through a runner: frame 0 detected eagerly, every
+    later frame one replay. Returns (poses (T, 7) before the final
+    normalisation, stacked per-step results or None)."""
+    feat0 = detect_and_describe(cfg, grays[0], depths[0])
+    return _run_steps("vo", VoGraphs, feat0, cfg, grays, depths, init_pose,
+                      draws, generator, capture)
+
+
+def track_run_sequence(cfg, grays, depths, init_pose, draws=None,
+                       generator: Optional[torch.Generator] = None,
+                       capture: bool = True):
+    """``vo_sequence_tracking`` through a runner: frame 0's tracks detected
+    eagerly, every later frame one replay. Returns (poses (T, 7), stacked
+    per-step results or None)."""
+    ts0 = vo_mod.init_tracking(cfg, grays[0], depths[0])
+    return _run_steps("track", TrackGraphs, ts0, cfg, grays, depths,
+                      init_pose, draws, generator, capture)

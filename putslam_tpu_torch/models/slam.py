@@ -22,17 +22,22 @@ backend. ``run_slam(archive=)`` absorbs the state into a host
 ``slam_map.archive.MapArchive`` at every chunk boundary, and
 ``run_slam_global`` polishes the archived graph after the run.
 
-A frame is three segments: ``slam_track`` (device work alone, no host
-read: the JAX package's ``lax.cond`` on the VO retry, the map retry ladder
-and the loop-closure verification become passes that always run, selected
-with ``torch.where``), one packed host read of [is_keyframe, run_ba]
-(``read_flags``), and on a keyframe ``slam_keyframe``, the eager
-``bundle_adjust`` on its cadence and ``slam_finish``; the JAX package's
-``lax.cond`` on keyframe bookkeeping and BA are that read. ``slam_step``
-runs them eagerly; ``models/compiled.py`` replays them from CUDA graphs,
-which the sequence functions do on a CUDA device (``graph=``). The JAX
-package computes the loop-closure signature and scores on every frame and
-keeps them on keyframes; the port computes them on keyframes only.
+A frame is ``slam_track`` (detection, VO, the map matching and its retry
+ladder, the keyframe and BA decisions as device flags), then either
+``slam_tail`` (a frame that is no keyframe: the loop-closure pop and
+verification and the frame's end) or ``slam_keyframe``, ``bundle_adjust``
+on its cadence and ``slam_finish``. The JAX package's ``lax.cond``s go
+through ``utils/control.cond``: the VO retry, each widening of the ladder,
+the loop-closure verification, the sorted observation slots and each
+Gauss-Newton iteration everywhere, and in ``slam_frame`` the keyframe
+bookkeeping and the BA too. ``slam_step`` runs a frame eagerly: one packed
+host read of [is_keyframe, run_ba] (``read_flags``) picks its branch, and
+the other branches run masked (no host read). ``slam_frame`` is the frame
+as one program with every branch a ``cond``: ``models/compiled.py``
+replays it from one CUDA graph a frame with conditional nodes, and the
+sequence functions do so on a CUDA device (``graph=``). The JAX package
+computes the loop-closure signature and scores on every frame and keeps
+them on keyframes; the port computes them on keyframes only.
 
 RANSAC draws come from an explicit ``torch.Generator``, or — for a test
 that replays the JAX package's key chain — from ``draws``, a mapping with
@@ -71,6 +76,7 @@ from putslam_tpu_torch.motion.ekf import EKFState  # noqa: F401
 from putslam_tpu_torch.ops import rgbd
 from putslam_tpu_torch.parallel import dist_ba
 from putslam_tpu_torch.slam_map import features_map as fm
+from putslam_tpu_torch.utils import control
 from putslam_tpu_torch.utils.device import (as_tensor, resolve_device,
                                             use_graphs)
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows, take_row
@@ -272,8 +278,7 @@ def frame_draws(cfg: SlamConfig, generator: Optional[torch.Generator], device,
 
 
 class Track(NamedTuple):
-    """What the track segment of a frame hands the keyframe segments, and
-    the state and outputs the frame ends with if it is no keyframe."""
+    """What the track part of a frame hands the rest of the frame."""
     feat: Features
     obs_dirs: Optional[torch.Tensor]
     vo_res: vo_mod.VOStepResult
@@ -287,8 +292,6 @@ class Track(NamedTuple):
     res_map_ok: torch.Tensor
     first_pass_ratio: torch.Tensor
     flags: torch.Tensor            # (2,) bool [is_keyframe, run_ba]
-    tail_state: SlamState
-    tail_outs: SlamOutputs
 
 
 class KeyframeUpdate(NamedTuple):
@@ -303,20 +306,32 @@ class KeyframeUpdate(NamedTuple):
     chi2: torch.Tensor
 
 
+_PP_FIELDS = ("pp_i", "pp_j", "pp_rel", "pp_w", "pp_gen_i", "pp_gen_j",
+              "pp_valid", "n_pp")
+
+
 def _lc_pop_verify(cfg: SlamConfig, m, g, lc_queue, n_lc, u):
-    """Pop the best queued candidate and verify it, masked: the
-    verification runs on every frame and an empty queue adds no edge, as
-    the ``lax.cond`` of ``putslam_tpu/models/slam.py:529`` computes it.
-    Returns (graph, queue, n_lc_edges)."""
+    """Pop the best queued candidate and, when there is one, verify it and
+    add its correction edge: the ``lax.cond`` on ``isfinite(cand_p)`` of
+    ``putslam_tpu/models/slam.py:529``. Returns (graph, queue,
+    n_lc_edges)."""
     cand_a, cand_b, cand_p, lc_queue = bow.pop_best(lc_queue)
     ca = torch.clamp(cand_a, min=0)
     cb = torch.clamp(cand_b, min=0)
-    vres = lc_verify.verify_candidate(cfg, m, g, ca, cb, u=u)
-    ok = vres.ok & torch.isfinite(cand_p)
-    g = graph_mod.add_pose_pose(
-        g, ca, cb, vres.rel_pose, torch.full((), 200.0, device=ok.device), ok,
-        gen_i=take_row(m.kf_gen, ca), gen_j=take_row(m.kf_gen, cb))
-    return g, lc_queue, n_lc + ok.to(torch.int32)
+
+    def verify():
+        vres = lc_verify.verify_candidate(cfg, m, g, ca, cb, u=u)
+        g2 = graph_mod.add_pose_pose(
+            g, ca, cb, vres.rel_pose,
+            torch.full((), 200.0, device=ca.device), vres.ok,
+            gen_i=take_row(m.kf_gen, ca), gen_j=take_row(m.kf_gen, cb))
+        return [getattr(g2, f) for f in _PP_FIELDS], \
+            n_lc + vres.ok.to(torch.int32)
+
+    pp, n_lc = control.cond(
+        torch.isfinite(cand_p), verify,
+        control.clone(([getattr(g, f) for f in _PP_FIELDS], n_lc)))
+    return g._replace(**dict(zip(_PP_FIELDS, pp))), lc_queue, n_lc
 
 
 def _finish(cfg: SlamConfig, state: SlamState, tr, kb: KeyframeUpdate,
@@ -390,11 +405,10 @@ def _finish(cfg: SlamConfig, state: SlamState, tr, kb: KeyframeUpdate,
 
 def slam_track(cfg: SlamConfig, state: SlamState, gray, depth, draws: dict,
                gt_pose=None, playback: bool = False) -> Track:
-    """The track segment of a frame, device work alone (no host read):
-    detection, the VO prediction, guided map matching with every pass of
-    the retry ladder, the correction gate, the keyframe and BA decisions
-    (as device flags), and the whole frame as it ends if it is no keyframe
-    (the masked loop-closure pop and verification included)."""
+    """The track part of a frame, device work alone (no host read outside
+    a ``control.cond`` predicate): detection, the VO prediction, guided map
+    matching with its retry ladder, the correction gate, and the keyframe
+    and BA decisions as device flags."""
     dev = state.pose.device
     m0 = state.map
     L = m0.capacity
@@ -483,23 +497,30 @@ def slam_track(cfg: SlamConfig, state: SlamState, gray, depth, draws: dict,
 
     gm, res_map = run_guided(1.0, draws["map"])
     first_pass_ratio = res_map.inlier_ratio
+    if cfg.matcher.retries:
+        # the ladder's buffers: the widenings write into them
+        gm, res_map = control.clone((gm, res_map))
     scale = 1.0
     for attempt in range(cfg.matcher.retries):
         scale *= cfg.matcher.retry_radius_growth
-        # the JAX package widens under a lax.cond when the pass failed, the
-        # frame is degraded or the inlier ratio is low
-        # (putslam_tpu/models/slam.py:351), and adopts the widened pass only
-        # when the strict one failed outright. A pass it skips is never
-        # adopted (a failed pass is itself a reason to widen), so every
-        # pass runs here and the rescue is a select, each widening relaxing
-        # the Hamming gate and the RANSAC inlier thresholds too
-        gm2, res2 = run_guided(
-            scale, draws[f"retry{attempt}"],
-            hamming_slack=(attempt + 1) * cfg.matcher.retry_hamming_slack,
-            thr_scale=cfg.matcher.retry_threshold_growth ** (attempt + 1))
-        better = res2.ok & ~res_map.ok
-        gm = _tree_where(better, gm2, gm)
-        res_map = _tree_where(better, res2, res_map)
+        # the lax.cond of putslam_tpu/models/slam.py:351: widen when the
+        # pass failed, the frame is degraded or the inlier ratio is low, and
+        # adopt the widened pass only when the strict one failed outright,
+        # each widening relaxing the Hamming gate and the RANSAC inlier
+        # thresholds too
+        need_retry = ~res_map.ok | degraded | \
+            (res_map.inlier_ratio < cfg.matcher.retry_inlier_ratio)
+
+        def wider(attempt=attempt, scale=scale):
+            gm2, res2 = run_guided(
+                scale, draws[f"retry{attempt}"],
+                hamming_slack=(attempt + 1) * cfg.matcher.retry_hamming_slack,
+                thr_scale=cfg.matcher.retry_threshold_growth ** (attempt + 1))
+            better = res2.ok & ~res_map.ok
+            return (_tree_where(better, gm2, gm),
+                    _tree_where(better, res2, res_map))
+
+        control.cond(need_retry, wider, (gm, res_map))
     p_cam = feat.xyz[torch.clamp(gm.feat_idx, 0, N - 1)]
     # correction sanity gate with the drift budget
     correction = torch.linalg.norm(se3.translation(res_map.pose)
@@ -526,30 +547,34 @@ def slam_track(cfg: SlamConfig, state: SlamState, gray, depth, draws: dict,
     n_kf_new = m0.n_kf + 1
     do_ba = is_kf & (torch.remainder(
         n_kf_new, cfg.backend.optimize_every_n_frames) == 0) & (n_kf_new > 2)
+    return Track(feat, obs_dirs, vo_res, ekf_pred, pose_new, gm_matched,
+                 p_cam, covis, n_matched, map_ok, res_map.ok,
+                 first_pass_ratio, torch.stack([is_kf, do_ba]))
 
-    # ---- the frame as it ends if it is no keyframe ------------------------
+
+def slam_tail(cfg: SlamConfig, state: SlamState, tr: Track, draws: dict,
+              playback: bool = False):
+    """The end of a frame that is no keyframe: the loop-closure pop and
+    verification, the re-anchor, smoothing, EKF and the new state. Returns
+    (state, outputs)."""
     g, lc_queue, n_lc = state.graph, state.lc_queue, state.n_lc_edges
     if cfg.loop_closure.enabled:
-        g, lc_queue, n_lc = _lc_pop_verify(cfg, m0, g, lc_queue, n_lc,
+        g, lc_queue, n_lc = _lc_pop_verify(cfg, state.map, g, lc_queue, n_lc,
                                            draws["lc"])
     chi2 = torch.zeros((cfg.backend.gn_iterations,), dtype=torch.float32,
-                       device=dev)
-    tr = Track(feat, obs_dirs, vo_res, ekf_pred, pose_new, gm_matched, p_cam,
-               covis, n_matched, map_ok, res_map.ok, first_pass_ratio,
-               torch.stack([is_kf, do_ba]), None, None)
-    tail_state, tail_outs = _finish(
-        cfg, state, tr, KeyframeUpdate(m0, g, state.kf_sig, state.sig_valid,
-                                       lc_queue, n_lc, chi2),
-        is_kf=False, playback=playback)
-    return tr._replace(tail_state=tail_state, tail_outs=tail_outs)
+                       device=state.pose.device)
+    return _finish(cfg, state, tr,
+                   KeyframeUpdate(state.map, g, state.kf_sig, state.sig_valid,
+                                  lc_queue, n_lc, chi2),
+                   is_kf=False, playback=playback)
 
 
 def slam_keyframe(cfg: SlamConfig, state: SlamState, tr: Track,
                   draws: dict) -> KeyframeUpdate:
-    """The keyframe segment: the keyframe and its landmarks into the map,
-    its observations and odometry edge into the graph, its loop-closure
-    signature, scores and candidates, then the masked pop and verification
-    (the edge enters the graph before the BA)."""
+    """A keyframe's bookkeeping: the keyframe and its landmarks into the
+    map, its observations and odometry edge into the graph, its
+    loop-closure signature, scores and candidates, then the pop and
+    verification (the edge enters the graph before the BA)."""
     dev = state.pose.device
     m0, feat, gm = state.map, tr.feat, tr.gm
     L = m0.capacity
@@ -615,8 +640,9 @@ def slam_keyframe(cfg: SlamConfig, state: SlamState, tr: Track,
 
 
 def bundle_adjust(cfg: SlamConfig, m: fm.MapState, g: graph_mod.GraphState):
-    """The periodic windowed BA of a keyframe frame (eager: its chi² stop
-    test reads the card). Returns (kf_pose, lm_pos, obs_valid, chi2)."""
+    """The periodic windowed BA of a keyframe frame (its chi² stop test is
+    a ``control.cond`` per Gauss-Newton iteration). Returns (kf_pose,
+    lm_pos, obs_valid, chi2)."""
     window = cfg.map.max_frames_window
     if 0 < cfg.backend.ba_window < cfg.map.max_keyframes:
         if cfg.backend.ba_window < window:
@@ -639,15 +665,45 @@ def bundle_adjust(cfg: SlamConfig, m: fm.MapState, g: graph_mod.GraphState):
 
 def slam_finish(cfg: SlamConfig, state: SlamState, tr: Track,
                 kb: KeyframeUpdate, playback: bool = False):
-    """The finish segment of a keyframe frame: compression, re-anchor,
-    smoothing, EKF and the new state. Returns (state, outputs)."""
+    """The end of a keyframe frame: compression, re-anchor, smoothing, EKF
+    and the new state. Returns (state, outputs)."""
     return _finish(cfg, state, tr, kb, is_kf=True, playback=playback)
 
 
+def _ba_targets(kb: KeyframeUpdate):
+    """The tensors of a keyframe update that its bundle adjustment sets."""
+    return kb.map.kf_pose, kb.map.lm_pos, kb.graph.obs_valid, kb.chi2
+
+
 def read_flags(tr: Track):
-    """The frame's one host read: (is_keyframe, run_ba) as Python bools."""
+    """The eager frame's one host read: (is_keyframe, run_ba) as Python
+    bools."""
     is_kf, do_ba = tr.flags.tolist()
     return is_kf, do_ba
+
+
+def slam_frame(cfg: SlamConfig, state: SlamState, gray, depth, draws: dict,
+               out, gt_pose=None, playback: bool = False) -> Track:
+    """One frame as the JAX step runs it, every branch a ``control.cond``:
+    the track part, then IF(not a keyframe){``slam_tail``} and
+    IF(keyframe){``slam_keyframe`` → IF(run_ba){``bundle_adjust``} →
+    ``slam_finish``} (``putslam_tpu/models/slam.py:447`` and ``:539``),
+    each writing the frame's end into ``out`` = (state, SlamOutputs)
+    buffers. ``out`` may be ``state`` itself: the keyframe branch reads
+    ``state`` only where the tail did not run. Returns the Track."""
+    tr = slam_track(cfg, state, gray, depth, draws, gt_pose, playback)
+    is_kf, do_ba = tr.flags[0], tr.flags[1]
+    control.cond(~is_kf, lambda: slam_tail(cfg, state, tr, draws, playback),
+                 out)
+
+    def keyframe():
+        kb = slam_keyframe(cfg, state, tr, draws)
+        control.cond(do_ba, lambda: bundle_adjust(cfg, kb.map, kb.graph),
+                     _ba_targets(kb))
+        return slam_finish(cfg, state, tr, kb, playback)
+
+    control.cond(is_kf, keyframe, out)
+    return tr
 
 
 def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
@@ -656,11 +712,11 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
               gt_pose=None, playback: bool = False):
     """One frame, eagerly. Returns (state', SlamOutputs).
 
-    The track segment runs on the device alone; one packed host read of
-    [is_keyframe, run_ba] decides the rest: a frame that is no keyframe
-    ends there, a keyframe runs the bookkeeping, the BA on its cadence and
-    the finish. ``compiled.SlamGraphs`` replays the same three segments
-    from CUDA graphs.
+    The track part runs on the device alone (its ``control.cond``s masked);
+    one packed host read of [is_keyframe, run_ba] decides the rest: a frame
+    that is no keyframe runs ``slam_tail``, a keyframe the bookkeeping, the
+    BA on its cadence and the finish. ``compiled.SlamGraphs`` replays
+    ``slam_frame``, the same parts with the read made by the card.
 
     ``playback`` (``putslam_tpu/models/slam.py:214-248``): ``gt_pose`` is
     the pose prediction, no VO runs (its result is the constant identity /
@@ -673,7 +729,7 @@ def slam_step(cfg: SlamConfig, state: SlamState, gray, depth,
     tr = slam_track(cfg, state, gray, depth, draws, gt_pose, playback)
     is_kf, do_ba = read_flags(tr)
     if not is_kf:
-        return tr.tail_state, tr.tail_outs
+        return slam_tail(cfg, state, tr, draws, playback)
     kb = slam_keyframe(cfg, state, tr, draws)
     if do_ba:
         kf_pose, lm_pos, obs_valid, chi2 = bundle_adjust(cfg, kb.map,
@@ -841,7 +897,10 @@ def _polish(cfg: SlamConfig, state: SlamState, solve):
                      torch.argmin(seqs).reshape(1), True)
     kf_pose, lm_pos = m.kf_pose, m.lm_pos
     for prune in (True, False):
-        res = solve(bcfg, kf_pose, lm_pos, lm_valid, g, fixed)
+        # an end-of-run solve: its chi² stop reads the host and skips the
+        # iterations it does not need
+        with control.branching("host"):
+            res = solve(bcfg, kf_pose, lm_pos, lm_valid, g, fixed)
         if res is None:
             return None, g
         kf_pose, lm_pos, sq = res

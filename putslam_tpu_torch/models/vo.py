@@ -30,6 +30,7 @@ from putslam_tpu_torch.geometry import camera as camera_mod
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.ops import fast as fast_mod
 from putslam_tpu_torch.ops import brief, klt, matching
+from putslam_tpu_torch.utils import control
 from putslam_tpu_torch.utils.device import (as_tensor, resolve_device,
                                             use_graphs)
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows
@@ -100,14 +101,14 @@ def vo_step(cfg: SlamConfig, prev: Features, curr: Features,
     T minimising ‖T·xyz_curr − xyz_prev‖ (new_pose = prev_pose ∘ T).
     ``u``: optional RANSAC uniforms, else drawn from ``generator``.
 
-    With ``matcher.retry_hamming_slack > 0`` the match runs once more with
-    the Hamming gate widened by the slack and the RANSAC thresholds by
-    ``retry_threshold_growth`` (uniforms ``u_retry``), and the second result
-    is adopted only when the strict pass failed outright. The JAX package
-    runs that pass under a ``lax.cond`` on a starved match (or
-    ``force_retry``); a pass it skips is never adopted (a failed strict
-    pass is itself starved), so the port runs it on every step and selects:
-    no host decision, and ``force_retry`` changes nothing."""
+    With ``matcher.retry_hamming_slack > 0`` a starved match (failed,
+    ``force_retry``, or an inlier ratio under ``retry_inlier_ratio``) runs
+    once more with the Hamming gate widened by the slack and the RANSAC
+    thresholds by ``retry_threshold_growth`` (uniforms ``u_retry``), and the
+    second result is adopted only when the strict pass failed outright: the
+    ``lax.cond`` of ``putslam_tpu/models/vo.py:94`` as a ``control.cond``.
+    A pass it skips is never adopted (a failed strict pass is itself
+    starved), so every mode gives the same result."""
     mc = cfg.matcher
     retry = mc.retry_hamming_slack > 0
     dev = prev.xyz.device
@@ -127,12 +128,22 @@ def vo_step(cfg: SlamConfig, prev: Features, curr: Features,
 
     n_matches, res = match_and_estimate(mc.max_hamming, cfg.ransac, u)
     if retry:
-        n2, r2 = match_and_estimate(
-            mc.max_hamming + mc.retry_hamming_slack,
-            widened_ransac(cfg.ransac, mc.retry_threshold_growth), u_retry)
-        better = r2.ok & ~res.ok
-        n_matches = torch.where(better, n2, n_matches)
-        res = type(res)(*(torch.where(better, a, b) for a, b in zip(r2, res)))
+        force = force_retry if torch.is_tensor(force_retry) else torch.full(
+            (), bool(force_retry), dtype=torch.bool, device=dev)
+        starved = ~res.ok | force | (res.inlier_ratio < mc.retry_inlier_ratio)
+
+        def wider():
+            n2, r2 = match_and_estimate(
+                mc.max_hamming + mc.retry_hamming_slack,
+                widened_ransac(cfg.ransac, mc.retry_threshold_growth),
+                u_retry)
+            better = r2.ok & ~res.ok
+            return (torch.where(better, n2, n_matches),
+                    type(res)(*(torch.where(better, a, b)
+                                for a, b in zip(r2, res))))
+
+        n_matches, res = control.cond(starved, wider,
+                                      control.clone((n_matches, res)))
     too_far = torch.linalg.norm(se3.translation(res.pose)) > cfg.max_vo_translation
     rel = torch.where(too_far, se3.identity(dtype=res.pose.dtype,
                                             device=res.pose.device), res.pose)
@@ -265,13 +276,21 @@ def vo_step_tracking(cfg: SlamConfig, ts: TrackState, gray, depth,
 
 def vo_sequence_tracking(cfg: SlamConfig, grays, depths,
                          generator: Optional[torch.Generator] = None,
-                         init_pose=None, draws=None):
+                         init_pose=None, draws=None,
+                         graph: Optional[bool] = None):
     """Tracking VO over a stacked (T, H, W) sequence: (poses (T, 7),
     per-step results stacked over T−1 steps). ``draws``: optional per-step
-    list of RANSAC uniforms."""
+    list of RANSAC uniforms. ``graph``: each step replayed from a CUDA
+    graph (``models/compiled.py``) as ``vo_sequence`` does; None is on for
+    CUDA frames, off elsewhere."""
     dev = grays.device
     pose = se3.identity(dtype=grays.dtype, device=dev) if init_pose is None \
         else init_pose
+    if use_graphs(graph, dev):
+        from putslam_tpu_torch.models import compiled
+
+        return compiled.track_run_sequence(cfg, grays, depths, pose,
+                                           draws=draws, generator=generator)
     ts = init_tracking(cfg, grays[0], depths[0])
     poses, steps = [pose], []
     for i in range(1, grays.shape[0]):
@@ -290,9 +309,10 @@ def run_vo(cfg: SlamConfig, grays, depths, seed: int = 0, init_pose=None,
            device="cuda", graph: Optional[bool] = None):
     """Arrays or tensors in, numpy out: (poses (T, 7), stats). Frames are
     moved to ``device``; RANSAC draws from a generator seeded with
-    ``seed``. Dispatches on ``cfg.vo_version``: 1 is KLT tracking (eager),
-    any other value matching (``putslam_tpu/models/vo.py:278-281``), whose
-    steps ``graph`` replays as ``vo_sequence`` does."""
+    ``seed``. Dispatches on ``cfg.vo_version``: 1 is KLT tracking, any
+    other value matching (``putslam_tpu/models/vo.py:278-281``); ``graph``
+    replays the steps of either from CUDA graphs (None: on for a CUDA
+    device)."""
     check_vo_config(cfg)
     dev = resolve_device(device)
     g = as_tensor(grays, dev, torch.float32)
@@ -303,7 +323,7 @@ def run_vo(cfg: SlamConfig, grays, depths, seed: int = 0, init_pose=None,
                                                   torch.float32)
     if cfg.vo_version == 1:
         poses, stats = vo_sequence_tracking(cfg, g, d, generator=gen,
-                                            init_pose=ip)
+                                            init_pose=ip, graph=graph)
     else:
         poses, stats = vo_sequence(cfg, g, d, generator=gen, init_pose=ip,
                                    graph=graph)

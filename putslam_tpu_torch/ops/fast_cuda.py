@@ -63,25 +63,30 @@ def _flags(defines: Sequence[str]) -> Tuple[str, ...]:
 
 
 def library_path(defines: Sequence[str] = ()) -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(_flags(defines)).encode()
+    return compiled_path(SOURCE, _flags(defines))
+
+
+def compiled_path(source: Path, flags: Sequence[str]) -> Path:
+    """Where ``compile_library`` puts ``source`` built with ``flags``: named
+    by a hash of both."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()
                             ).hexdigest()[:16]
-    return BUILD_DIR / f"fast_score_nms_{digest}.so"
+    return BUILD_DIR / f"{source.stem}_{digest}.so"
 
 
-def build(defines: Sequence[str] = ()) -> Path:
-    """Compile the kernel library if this source has not been built yet with
-    these ``-D`` defines (the source's build-time variants; none for the
-    main path). Returns its path. Raises with the compiler's output on
-    failure."""
-    out = library_path(defines)
+def compile_library(source: Path, flags: Sequence[str]) -> Path:
+    """Compile ``source`` with ``nvcc`` and ``flags`` into a shared library
+    in ``BUILD_DIR`` unless it is built already; what nvcc printed is kept
+    beside it (``.log``). Returns its path. Raises with the compiler's
+    output on failure."""
+    out = compiled_path(source, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [_nvcc(), *_flags(defines), "-o", tmp, str(SOURCE)]
+        cmd = [_nvcc(), *flags, "-o", tmp, str(source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
@@ -93,6 +98,14 @@ def build(defines: Sequence[str] = ()) -> Path:
         if os.path.exists(tmp):
             os.unlink(tmp)
     return out
+
+
+def build(defines: Sequence[str] = ()) -> Path:
+    """Compile the kernel library if this source has not been built yet with
+    these ``-D`` defines (the source's build-time variants; none for the
+    main path). Returns its path. Raises with the compiler's output on
+    failure."""
+    return compile_library(SOURCE, _flags(defines))
 
 
 def build_log(defines: Sequence[str] = ()) -> str:

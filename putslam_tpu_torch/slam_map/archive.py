@@ -33,6 +33,7 @@ import torch
 from putslam_tpu_torch.backend import optimize as opt_mod
 from putslam_tpu_torch.backend.graph import GraphState
 from putslam_tpu_torch.parallel import dist_ba
+from putslam_tpu_torch.utils import control
 from putslam_tpu_torch.utils.device import resolve_device
 
 _GEN_BASE = np.int64(1) << 24  # (slot, gen) -> slot * _GEN_BASE + gen codes
@@ -366,7 +367,10 @@ def global_bundle_adjust(cfg, archive: MapArchive,
                     bcfg, mesh, *args, up(np.zeros((lm_cap,), np.int32)),
                     cam=cfg.camera)
             if mesh is None or int(overflow) > 0:
-                res = opt_mod.gauss_newton_mm(bcfg, *args, cam=cfg.camera)
+                # an offline solve: its chi² stop reads the host and skips
+                # the iterations it does not need
+                with control.branching("host"):
+                    res = opt_mod.gauss_newton_mm(bcfg, *args, cam=cfg.camera)
                 kf_o, lm_o = res.kf_pose, res.lm_pos
             kf_out = kf_o.cpu().numpy()
             lm_out = lm_o.cpu().numpy()

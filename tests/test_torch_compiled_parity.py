@@ -1,10 +1,11 @@
 """The segmented step (``models/compiled.py``) equals the eager step.
 
-``SlamGraphs(capture=False)`` runs the track, keyframe and finish segments
-on the runner's static buffers exactly as the CUDA graphs replay them (the
-masked commit of a frame that is no keyframe, the BA written into the
-keyframe segment's outputs, the finish committing the state), only without
-graphs. Over tiny sequences fed the JAX key chain's uniforms it must equal
+``SlamGraphs(capture=False)`` runs the frame (``slam.slam_frame``) on the
+runner's static buffers exactly as its CUDA graph replays it (the branches
+of a frame that is no keyframe and of a keyframe, the BA inside the
+keyframe branch, each committing the state), only without a graph: each
+branch's predicate is read on the host, and those are the frame's only
+reads; its bodies write only to tensors they made (``control.checking``). Over tiny sequences fed the JAX key chain's uniforms it must equal
 the port's eager ``slam_step`` bit for bit, outputs and state, frame by
 frame; and follow the JAX ``slam_step`` within the tolerances of
 tests/test_torch_slam.py (poses 1e-4, keyframe / BA / inlier / landmark
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 from _torch_port import port_cfg, t
+from test_torch_compiled_step import PredicateReadsOnly
 from test_torch_slam import (_check_frame, jax_draws, revisit_lc_config,
                              slice_config)
 
@@ -36,6 +38,7 @@ from putslam_tpu_torch.io import synthetic as tsyn
 from putslam_tpu_torch.models import compiled
 from putslam_tpu_torch.models import slam as tslam
 from putslam_tpu_torch.models import vo as tvo
+from putslam_tpu_torch.utils import control
 
 
 def _equal_trees(a, b, what):
@@ -90,11 +93,15 @@ def test_segmented_step_equals_eager_and_follows_jax(name):
         gt = None if given is None else t(given[i])
         ts, to = tslam.slam_step(pcfg, ts, t(g[i]), t(d[i]), draws=draws,
                                  gt_pose=gt, playback=playback)
-        ro = runner.step(t(g[i]), t(d[i]), draws=draws, gt_pose=gt)
+        gi, di = t(g[i]), t(d[i])
+        with control.checking(), PredicateReadsOnly() as mode:
+            ro = runner.step(gi, di, draws=draws, gt_pose=gt)
+        assert mode.reads == mode.predicates >= 2, (i, mode.reads,
+                                                    mode.predicates)
         _equal_trees(ro, to, f"frame {i} outputs")
         _equal_trees(runner.state, ts, f"frame {i} state")
         _check_frame(i, ro, jo)
-        seen["ladder"] += int(runner.track.out.first_pass_ratio
+        seen["ladder"] += int(runner.frame.out.first_pass_ratio
                               < pcfg.matcher.retry_inlier_ratio)
         seen["keyframe"] += int(ro.is_keyframe)
         seen["ba"] += int(ro.ba_ran)

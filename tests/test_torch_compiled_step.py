@@ -1,15 +1,19 @@
-"""The compiled frame's segments read nothing back from the device.
+"""The compiled frame reads nothing back from the device but its branches.
 
-``models/compiled.py`` captures the track, keyframe and finish segments of
-the SLAM step (and the VO-only step) into CUDA graphs, where a host read
-cannot happen. On the CPU the same segments run under a dispatch mode that
-raises on every operator that would read the device from the host:
+``models/compiled.py`` captures the SLAM frame (``slam.slam_frame``: the
+track part, the keyframe bookkeeping, the bundle adjustment and the
+frame's end, every data-dependent branch a ``control.cond``) and the
+VO-only step into CUDA graphs, where a host read cannot happen and each
+branch is a conditional node that the card decides. On the CPU the runner
+(``capture=False``) reads each branch's predicate on the host instead
+(``control.branching("host")``); the frame runs under a dispatch mode that
+raises on every other operator that would read the device from the host:
 ``aten._local_scalar_dense`` (``.item()``, ``bool()``, ``int()``, 0-d tensor
-indexing), ``aten.nonzero`` (a data-dependent shape) and
-``aten.lift_fresh`` (a tensor made from host data, a host → device copy on
-the card). The one host read of a frame, [is_keyframe, run_ba], is made
-outside the segments; the bundle adjustment between the keyframe and the
-finish segment runs eagerly and is not checked here.
+indexing) outside a predicate read, ``aten.nonzero`` (a data-dependent
+shape) and ``aten.lift_fresh`` (a tensor made from host data, a host →
+device copy on the card). The bundle adjustment runs inside the frame and
+is checked with it; so is the guard that a branch body writes only to
+tensors it made (``control.checking``).
 
 Each option the captured step can run with is one case, at
 ``tiny_test_config()`` on the port's own rendered frames; a keyframe-dense
@@ -27,6 +31,7 @@ from putslam_tpu_torch.io import synthetic
 from putslam_tpu_torch.models import compiled
 from putslam_tpu_torch.models import slam as tslam
 from putslam_tpu_torch.models import vo as tvo
+from putslam_tpu_torch.utils import control
 
 HOST_READS = {
     torch.ops.aten._local_scalar_dense.default,
@@ -41,6 +46,29 @@ class NoHostRead(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func in HOST_READS:
             raise AssertionError(f"host read in a captured segment: {func}")
+        return func(*args, **(kwargs or {}))
+
+
+class PredicateReadsOnly(TorchDispatchMode):
+    """Raises on an operator that reads the device from the host, except a
+    branch predicate's read by ``control.cond``; counts the reads it let
+    through in ``reads`` and the predicates read meanwhile in
+    ``predicates``."""
+
+    def __enter__(self):
+        self.reads = 0
+        self._before = control.predicate_reads
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self.predicates = control.predicate_reads - self._before
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.reads += 1
+        elif func in HOST_READS:
+            raise AssertionError(f"host read in a captured step: {func}")
         return func(*args, **(kwargs or {}))
 
 
@@ -94,7 +122,7 @@ CASES = ("default", "loop_closure", "motion_model", "uncertainty_normal",
          "pose_to_pose", "playback")
 
 
-def _frames(cfg, n=4):
+def _frames(cfg, n=5):
     poses = synthetic.orbit_trajectory(n, radius=0.10, yaw_amp=0.1)
     grays, depths = synthetic.render_sequence(cfg.camera, poses)
     return grays, depths, poses
@@ -102,10 +130,11 @@ def _frames(cfg, n=4):
 
 @pytest.mark.parametrize("case", CASES)
 def test_segments_make_no_host_read(case):
-    """The runner's track, keyframe and finish segments (their commits into
-    the static state included) over two frames under the mode, as a CUDA
-    graph would replay them; the flag read and the BA outside it. A first
-    eager frame warms the caches (the BRIEF bank, the BoW vocabulary)."""
+    """The runner's frame (its commit into the static state included) over
+    three frames under the mode, as a CUDA graph would replay it: the only
+    reads are its branch predicates, one each, and its bodies write only to
+    tensors they made. A first eager frame warms the caches (the BRIEF
+    bank, the BoW vocabulary)."""
     cfg = _cfg(case)
     playback = case == "playback"
     grays, depths, poses = _frames(cfg)
@@ -119,34 +148,25 @@ def test_segments_make_no_host_read(case):
                                  capture=False)
     runner.load(state)
     n_kf = 0
-    for i in (2, 3):
+    for i in (2, 3, 4):
         runner.gray.copy_(grays[i])
         runner.depth.copy_(depths[i])
         if playback:
             runner.gt_pose.copy_(poses[i])
         tslam.frame_draws(cfg, gen, "cpu", playback, out=runner.draws)
-        with NoHostRead():
-            tr = runner.track.run()
-        is_kf, do_ba = tslam.read_flags(tr)
-        if not is_kf:
-            continue
-        n_kf += 1
-        with NoHostRead():
-            kb = runner.keyframe.run()
-        if do_ba:
-            for dst, src in zip((kb.map.kf_pose, kb.map.lm_pos,
-                                 kb.graph.obs_valid, kb.chi2),
-                                tslam.bundle_adjust(cfg, kb.map, kb.graph)):
-                dst.copy_(src)
-        with NoHostRead():
-            outs = runner.finish.run()
-        assert bool(outs.is_keyframe)
-    assert n_kf >= 1                     # the keyframe segments ran
+        with control.checking(), PredicateReadsOnly() as mode:
+            runner.frame.run()
+        # the keyframe and not-keyframe branches at least
+        assert mode.reads == mode.predicates >= 2, (mode.reads,
+                                                     mode.predicates)
+        n_kf += int(runner.outs.is_keyframe)
+    assert n_kf >= 1                     # the keyframe branch ran
 
 
 def test_vo_segment_makes_no_host_read():
     """The VO-only segment (detection, vo_step with the widened rescue, the
-    pose update, the commit into its buffers) on the CPU without graphs."""
+    pose update, the commit into its buffers) on the CPU without graphs:
+    the rescue's predicate is its one read."""
     cfg = tiny_test_config()
     cfg = cfg.replace(matcher=dataclasses.replace(
         cfg.matcher, retry_hamming_slack=8.0, retry_threshold_growth=1.5))
@@ -160,8 +180,9 @@ def test_vo_segment_makes_no_host_read():
         runner.gray.copy_(grays[i])
         runner.depth.copy_(depths[i])
         tvo.vo_draws(cfg, gen, "cpu", out=runner.draws)
-        with NoHostRead():
+        with control.checking(), PredicateReadsOnly() as mode:
             res, pose = runner.segment.run()
+        assert mode.reads == mode.predicates == 1   # the retry's predicate
         assert torch.equal(runner.pose, pose)
 
 

@@ -4,11 +4,12 @@ workload of ``chip_smoke.py`` (phase 7), on a CUDA card.
 
 Usage (repository root, one card):
     python tools/lc_spread_torch.py [--reps 40] [--out data/lc_spread]
-                                    [--no-loop-closure]
+                                    [--no-loop-closure] [--graph]
 
 Each repetition runs ``run_slam`` on the same 64-frame leave-and-return
 sequence at the fr1 widths (every tracked frame a keyframe, loop closure
-on), then ``finalize`` by hand, step by step, and appends one JSON line to
+on; eagerly, as the in-loop solves are traced, or with ``--graph`` from
+CUDA graphs, untraced), then ``finalize`` by hand, step by step, and appends one JSON line to
 ``<out>/reps.jsonl`` (a short form of it is printed): the ATE before and
 after, and for each of ``finalize``'s two
 ``optimize_graph`` calls, and for every bundle adjustment the loop ran
@@ -154,6 +155,10 @@ def main():
     ap.add_argument("--out", default="data/lc_spread")
     ap.add_argument("--keep-over", type=float, default=0.02)
     ap.add_argument("--no-loop-closure", action="store_true")
+    ap.add_argument("--graph", action="store_true",
+                    help="replay the frames from one CUDA graph each (the "
+                         "card's default path); its in-loop solves, inside "
+                         "the graph, are not traced")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -165,7 +170,7 @@ def main():
     from putslam_tpu_torch.geometry import se3
     from putslam_tpu_torch.io import synthetic
     from putslam_tpu_torch.models import slam
-    from putslam_tpu_torch.utils import checkpoint
+    from putslam_tpu_torch.utils import checkpoint, control
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -192,9 +197,19 @@ def main():
     rows = []
     for rep in range(args.reps):
         loop_solves = []
-        with traced_solves(opt_mod, loop_solves):
+        if args.graph:
             pb, outs, state = slam.run_slam(cfg, grays, depths,
-                                            init_pose=gt[0], device=dev)
+                                            init_pose=gt[0], device=dev,
+                                            graph=True)
+        else:
+            # the traced solves read the card: the frames run eagerly, each
+            # branch read on the host, so the Gauss-Newton loop stops where
+            # its chi² test says, as the captured frame's does on the card
+            with traced_solves(opt_mod, loop_solves), \
+                    control.branching("host"):
+                pb, outs, state = slam.run_slam(cfg, grays, depths,
+                                                init_pose=gt[0], device=dev,
+                                                graph=False)
         # the in-loop BA calls: frame, chi² at each iteration, their solves
         loop_ba = [dict(frame=int(i) + 1,
                         chi2=[float(c) for c in outs.chi2[i]],
@@ -239,6 +254,7 @@ def main():
     ates = np.array([r["ate_final"] for r in rows])
     summary = dict(
         device=smi, reps=args.reps, loop_closure=not args.no_loop_closure,
+        graph=args.graph,
         ate_final_min=float(ates.min()), ate_final_median=float(np.median(ates)),
         ate_final_max=float(ates.max()),
         over_0p05=int((ates >= 0.05).sum()),
