@@ -104,7 +104,13 @@ Phases (any failed check raises and the script exits non-zero):
      keyframe ring that wraps (``run_slam_global``, chunks of 16): more than
      32 keyframes archived, all that were made. Per absorb its ms and host
      syncs, per window the ms of host assembly and of the solve, and the
-     count of windows whose solve moved no keyframe.
+     count of windows whose solve moved no keyframe. The window solves are
+     replays of one CUDA graph (``compiled.WindowGraphs``, captured on the
+     first window); the first run's archive is polished again eagerly and
+     twice replayed: per window the assembly ms and the solve ms of both
+     (the replay's includes the copy of the window into its buffers, the
+     eager's follows its upload), the polished keyframes of the two within
+     FINALIZE_DIST_TOL.
  15. the state tools: the bench run stopped after frame 32, written with
      ``checkpoint.save_state`` (the generator's state beside it), loaded
      into a fresh ``slam_init`` state and continued: equal to the
@@ -155,6 +161,20 @@ Phases (any failed check raises and the script exits non-zero):
      result) and ``refine_patch_alignment_affine`` polishing the KLT
      tracks of 512 keypoints of phase 5's frames 0 -> 1 (98 % of the points
      within 1e-3 px of the CPU result), ms a call each.
+ 18. the compiled end of the run: ``finalize`` eager (``graph=False``, each
+     Gauss-Newton iteration's stop read on the host) and replayed from its
+     CUDA graph (``compiled.FinalizeGraphs``, both solves' iterations IF
+     nodes, the chi² prune and ``check_trajectory`` inside) on 7b's
+     keyframe_dense and revisit_lc final states and on 16c's handheld
+     state: ms of the first call (the capture included) and of a warm one,
+     host syncs of a warm call (0 on the graph path), kernels and device
+     ms (torch.profiler), IF nodes, capture s, both pools' MiB, the
+     Gauss-Newton iterations the stop skipped; the handheld poses graph
+     against eager within FINALIZE_DIST_TOL; the finalized ATE of each
+     under its gate. Then ``check_trajectory`` on the card against the CPU
+     on keyframe_dense's polished map with odometry edges and three
+     keyframes moved by 0.5 m: the same repairs, poses within
+     CHECK_TRAJECTORY_TOL; ms a call.
 Then one JSON line describing the kernel, the nvidia-smi line, and the
 final status line.
 """
@@ -291,6 +311,9 @@ RAGGED_SHAPES = ((33, 35), (65, 97))
 # is about twice the largest run-to-run spread
 COMPILED_PROFILED = 4
 COMPILED_POSE_TOL = 0.1
+# phase 18: check_trajectory on the card against the CPU, the CPU test's
+# tolerance against the JAX package (tests/test_torch_finalize.py)
+CHECK_TRAJECTORY_TOL = 1e-5
 # build-time variants of csrc/fast_score_nms.cu, timed beside the default
 # (32x24 tiles, 128 threads, plain vector loads, sums only behind an arc)
 VARIANTS = {
@@ -753,34 +776,59 @@ def recorded_archive():
     ``with`` block: every absorb is timed (between two synchronisations) and
     its host syncs counted, and the archive and the last absorbed state's
     ``n_kf`` are remembered. Inside ``global_bundle_adjust`` every windowed
-    solve (``gauss_newton_mm``) is recorded: its free keyframes and
-    observations, the ms of host work since the solve before it (the
-    window's assembly and upload) and of the solve to its last kernel, and
-    whether any free keyframe moved."""
+    solve is recorded, replayed (``compiled.WindowGraphs.solve``: the copy
+    of the window's arrays into the runner's buffers, the replay, the copy
+    out; on the first window the capture too) or eager (``gauss_newton_mm``
+    with its stop read on the host, after the window's upload): its path,
+    free keyframes and observations, the ms of host work since the solve
+    before it (the window's assembly, and the upload on the eager path)
+    and of the solve to its last kernel, and whether any free keyframe
+    moved."""
     from putslam_tpu_torch.backend import optimize as opt_mod
+    from putslam_tpu_torch.models import compiled
     from putslam_tpu_torch.slam_map import archive as archive_mod
+    from putslam_tpu_torch.utils import control
 
     rec = {"absorbs": [], "windows": [], "archive": None, "n_kf": None,
            "gba_s": 0.0}
     real_absorb = archive_mod.MapArchive.absorb
     real_gba = archive_mod.global_bundle_adjust
     real_solve = opt_mod.gauss_newton_mm
+    real_window = compiled.WindowGraphs.solve
     mark = [0.0]
 
-    def solve(bcfg, kf_pose, kf_valid, lm_pos, lm_valid, g, fixed, **kw):
+    def record(path, call, kf_of, kf_sub, kf_valid, g, frozen,
+               capture=False):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        res = real_solve(bcfg, kf_pose, kf_valid, lm_pos, lm_valid, g, fixed,
-                         **kw)
+        res = call()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        free = kf_valid & ~fixed
+        free = (kf_valid & ~frozen).cpu()
         rec["windows"].append(dict(
-            n_free=int(free.sum()), n_obs=int(g.n_obs),
-            assemble_ms=1e3 * (t1 - mark[0]), solve_ms=1e3 * (t2 - t1),
-            moved=not torch.equal(res.kf_pose[free], kf_pose[free])))
+            path=path, capture=capture, n_free=int(free.sum()),
+            n_obs=int(g.n_obs), assemble_ms=1e3 * (t1 - mark[0]),
+            solve_ms=1e3 * (t2 - t1),
+            moved=not torch.equal(kf_of(res).cpu()[free],
+                                  kf_sub.cpu()[free])))
         mark[0] = time.perf_counter()
         return res
+
+    def solve(bcfg, kf_pose, kf_valid, lm_pos, lm_valid, g, fixed, *rest,
+              **kw):
+        def call():
+            return real_solve(bcfg, kf_pose, kf_valid, lm_pos, lm_valid, g,
+                              fixed, *rest, **kw)
+        if control.mode() != "host":       # a runner's warm-up or capture
+            return call()
+        return record("eager", call, lambda r: r.kf_pose, kf_pose, kf_valid,
+                      g, fixed)
+
+    def window(self, kf_sub, kf_valid, lm_sub, lm_valid, g, frozen):
+        return record("graph", lambda: real_window(
+            self, kf_sub, kf_valid, lm_sub, lm_valid, g, frozen),
+            lambda r: r[0], kf_sub, kf_valid, g, frozen,
+            capture=self.segment.graph is None)
 
     def absorb(self, state):
         torch.cuda.synchronize()
@@ -792,11 +840,13 @@ def recorded_archive():
     def gba(cfg, archive, **kw):
         t0 = mark[0] = time.perf_counter()
         opt_mod.gauss_newton_mm = solve
+        compiled.WindowGraphs.solve = window
         try:
             out = real_gba(cfg, archive, **kw)
         finally:
             opt_mod.gauss_newton_mm = real_solve
-        rec["gba_s"] += time.perf_counter() - t0
+            compiled.WindowGraphs.solve = real_window
+            rec["gba_s"] += time.perf_counter() - t0
         return out
 
     archive_mod.MapArchive.absorb = absorb
@@ -838,13 +888,55 @@ def print_archive(tag, rec, dense):
           f"{ms[-1]:.2f} ms (min / median / max), host syncs per absorb "
           f"{syncs}; global BA {rec['gba_s']:.3f} s, {len(win)} windows: "
           + "; ".join(f"window {i}: {w['n_free']} free, {w['n_obs']} "
-                      f"observations, assembly and upload "
-                      f"{w['assemble_ms']:.1f} ms, solve {w['solve_ms']:.1f} "
-                      f"ms, {'moved' if w['moved'] else 'moved no keyframe'}"
+                      f"observations, assembly {w['assemble_ms']:.1f} ms, "
+                      f"{w['path']} solve {w['solve_ms']:.1f} ms"
+                      f"{' (capture included)' if w['capture'] else ''}, "
+                      f"{'moved' if w['moved'] else 'moved no keyframe'}"
                       for i, w in enumerate(win))
           + f"; windows with free keyframes that moved none: {stalled} of "
           f"{len(win)}",
           flush=True)
+
+
+def compare_window_solves(cfg, dev, archive):
+    """The global BA of ``archive`` at the defaults eagerly and replayed
+    (the runner already captured), per window the assembly ms and both
+    solves' ms. Returns the largest difference of the polished keyframes."""
+    import numpy as np
+
+    from putslam_tpu_torch.models import compiled
+    from putslam_tpu_torch.slam_map import archive as archive_mod
+
+    out = {}
+    with recorded_archive() as rec:
+        for mode in ("eager", "graph", "graph again"):
+            t0 = time.perf_counter()
+            out[mode] = archive_mod.global_bundle_adjust(
+                cfg, archive, device=dev, graph=mode != "eager")
+            out[mode + " s"] = time.perf_counter() - t0
+    n = len(rec["windows"]) // 3
+    eager, graph = rec["windows"][:n], rec["windows"][2 * n:]
+    check(n > 0 and all(w["path"] == "eager" for w in eager)
+          and all(w["path"] == "graph" and not w["capture"] for w in graph),
+          "global BA: windows not recorded as eager, then replayed")
+    d = float(np.abs(out["graph"] - out["eager"]).max())
+    d2 = float(np.abs(out["graph again"] - out["graph"]).max())
+    runner = [r for k, r in compiled._END_RUNNERS.items()
+              if k[0] == "window"][-1]
+    print(f"[14] the global BA's window solves, eager against replayed "
+          f"(capture {runner.capture_s:.3f} s, graph pools "
+          f"{runner.pool_mib():.1f} MiB): eager {out['eager s']:.3f} s, "
+          f"graph {out['graph s']:.3f} s, again {out['graph again s']:.3f} s;"
+          f" polished keyframes graph against eager {d:.2e}, graph twice "
+          f"{d2:.2e}; " + "; ".join(
+              f"window {i}: {e['n_free']} free, assembly "
+              f"{g['assemble_ms']:.1f} ms, solve eager {e['solve_ms']:.1f} "
+              f"ms (after {e['assemble_ms']:.1f} ms of assembly and upload),"
+              f" graph {g['solve_ms']:.1f} ms"
+              for i, (e, g) in enumerate(zip(eager, graph))), flush=True)
+    check(d < FINALIZE_DIST_TOL, f"global BA: replayed window solves {d:.2e} "
+          f"from eager")
+    return d
 
 
 def phase_archive(cfg, dev, root, grays, depths, gt, ref_report):
@@ -882,6 +974,7 @@ def phase_archive(cfg, dev, root, grays, depths, gt, ref_report):
           f"{ref_report['ate_rmse_m']:.5f} m)", flush=True)
     print_archive(f"{n} frames, chunks of 64, the covisibility rule's own "
                   "keyframes", rec, dense)
+    compare_window_solves(cfg, dev, rec["archive"])
 
     # a keyframe ring that wraps: every tracked frame a keyframe, 32 slots,
     # chunks short enough that no chunk appends more than the ring holds
@@ -1220,7 +1313,8 @@ def phase_distributed(cfg, dev, dense_state, window_fixed, root, h_gt, work):
     (PNG-quantised: the covisibility rule makes its keyframes on these
     frames, 18 in 128, and 6 on the float frames as rendered), ``h_gt`` its
     poses; ``work``: a directory for files. Returns the kernel launches of
-    the session VO and of the multi-session SLAM runs."""
+    the session VO and of the multi-session SLAM runs, and (c)'s handheld
+    state with the outputs of its run."""
     import numpy as np
 
     from putslam_tpu_torch.backend import optimize as opt_mod
@@ -1429,7 +1523,7 @@ def phase_distributed(cfg, dev, dense_state, window_fixed, root, h_gt, work):
     finally:
         multihost.shutdown()
     print(f"[16] wall {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return n_vo, n_multi
+    return n_vo, n_multi, (st_h, outs_h)
 
 
 def tools_module(name):
@@ -1773,7 +1867,8 @@ def phase_compiled(cells, dev):
     bit-equality, ATE gate). Each cell runs ``slam_sequence`` from one
     ``slam_init`` state from CUDA graphs and eagerly with the same
     per-frame draws. Returns the FAST launches of the graph runs, by
-    cell."""
+    cell, and each cell's (config, final state, outputs, truth, gate) of
+    its graph run."""
     import numpy as np
 
     from putslam_tpu_torch.eval import ate as ate_mod
@@ -1784,7 +1879,7 @@ def phase_compiled(cells, dev):
     def fmt(x, spec):
         return "not measured" if x is None else format(x, spec)
 
-    launches = {}
+    launches, finals = {}, {}
     for tag, (c, g, d, truth, pose_tol, gate) in cells.items():
         n = g.shape[0] - 1
         state0 = slam.slam_init(c, g[0], d[0],
@@ -1813,7 +1908,8 @@ def phase_compiled(cells, dev):
             after = np.concatenate([truth[:1], slam.reanchor_trajectory(
                 fin, slam._outputs_to_numpy(outs)).cpu().numpy()])
             rows[mode] = r = dict(
-                outs=outs, s=dt, launches=n_launch, syncs=n_sync / n,
+                outs=outs, state=st, s=dt, launches=n_launch,
+                syncs=n_sync / n,
                 spread=float((outs.pose - outs2.pose).abs().max()),
                 ate_b=ate_mod.ate_rmse_aligned_frames(truth, poses),
                 ate_f=ate_mod.ate_rmse_aligned_frames(truth, after))
@@ -1873,6 +1969,7 @@ def phase_compiled(cells, dev):
         check(graph["ate_f"] < gate,
               f"{tag}: graph finalized ATE {graph['ate_f']:.5f} m over {gate}")
         launches[tag] = graph["launches"]
+        finals[tag] = (c, graph["state"], graph["outs"], truth, gate)
         compiled.clear_cache()
     # what the retry ladder's two widened passes, run on every frame, cost:
     # the bench cell replayed without them (not checked)
@@ -1901,7 +1998,166 @@ def phase_compiled(cells, dev):
               f"{100 * ms / top_ms:5.1f} % {calls / COMPILED_PROFILED:6.1f} "
               f"calls a frame  {name[:110]}", flush=True)
     compiled.clear_cache()
-    return launches
+    return launches, finals
+
+
+def skipped_iterations(chi2, ratio):
+    """Gauss-Newton iterations each solve of a finalize skipped: the rows
+    of ``chi2`` (2, n) as ``gauss_newton_mm`` reports them, its stop rule
+    (an iteration that fails to improve chi² by ``ratio`` is the last)
+    applied again on the host in float32."""
+    import numpy as np
+
+    r = np.float32(ratio)
+    out = []
+    for row in chi2.cpu().numpy():
+        prev, ran = np.float32(np.inf), 0
+        for x in row:
+            ran += 1
+            if x >= r * prev:
+                break
+            prev = x
+        out.append(len(row) - ran)
+    return out
+
+
+def phase_compiled_end(cells, dev):
+    """Phase 18, the compiled end of the run: ``cells`` maps a name to
+    (config, final state, its run's outputs (frames 1 on), truth (T, 7),
+    ATE gate, pose tolerance against eager or None). On each state
+    ``finalize`` runs eagerly (``graph=False``: each Gauss-Newton iteration's
+    stop read on the host) and replayed from its CUDA graph
+    (``compiled.FinalizeGraphs``, captured on the first call): ms of the
+    first call and of a warm one, host syncs of a warm call (sync-debug
+    count), kernels and device ms (torch.profiler), IF nodes, capture s,
+    pools MiB, Gauss-Newton iterations skipped; graph against eager poses
+    (within the cell's tolerance where it has one) and the finalized ATE
+    of both over frames 1 on (the graph's under the gate). Then ``check_trajectory`` on
+    the card against the CPU on the first cell's polished map with
+    odometry edges added and three keyframes moved by 0.5 m."""
+    from putslam_tpu_torch.eval import ate as ate_mod
+    from putslam_tpu_torch.geometry import se3
+    from putslam_tpu_torch.models import compiled, slam
+    from putslam_tpu_torch.utils import control, graph_cond
+
+    def fmt(x, spec):
+        return "not measured" if x is None else format(x, spec)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    compiled.clear_cache()
+    for tag, (c, st, outs, truth, gate, pose_tol) in cells.items():
+        kv = st.map.kf_valid
+        n_free = int(kv.sum()) - 1
+        fins, rows = {}, {}
+        for mode in ("eager", "graph"):
+            graph = mode == "graph"
+            nodes = graph_cond.launches
+
+            def call():
+                return slam.finalize(c, st, graph=graph)
+            fin, first_ms = wall(call)
+            nodes = graph_cond.launches - nodes
+            _, warm_ms = wall(call)
+            _, n_sync = count_syncs(call)
+            kernels, dev_ms = device_kernels(call)
+            if graph:
+                runner = compiled.finalize_runner(c, st)
+                chi2 = runner.chi2
+                pools = [compiled.graph_pool_bytes(p)
+                         for p in (runner.pool, runner.body_pool.id)]
+                extra = (f"; capture {runner.capture_s:.3f} s, IF nodes "
+                         f"{nodes}, graph pools "
+                         f"{fmt(runner.pool_mib(), '.1f')} MiB (the graph's "
+                         f"{fmt(pools[0] and pools[0] / 2 ** 20, '.1f')}, "
+                         f"its IF bodies' "
+                         f"{fmt(pools[1] and pools[1] / 2 ** 20, '.1f')})")
+            else:
+                with control.branching("host"):
+                    chi2 = slam.finalize_map(c, st.map, st.graph)[2]
+                extra = ""
+            skipped = skipped_iterations(chi2,
+                                         c.backend.chi2_ratio_termination)
+            after = slam.reanchor_trajectory(fin, outs).cpu().numpy()
+            ate_f = ate_mod.ate_rmse_aligned_frames(truth[1:],
+                                                    after[:len(truth) - 1])
+            fins[mode], rows[mode] = fin, dict(warm_ms=warm_ms, ate=ate_f)
+            busy = None if dev_ms is None else dev_ms / warm_ms
+            print(f"[18] {tag} finalize {mode} ({n_free} free keyframes of "
+                  f"K={st.map.kf_pose.shape[0]}, {c.backend.solver}): first "
+                  f"call {first_ms:.1f} ms, warm {warm_ms:.1f} ms; host syncs "
+                  f"{n_sync}; kernels {fmt(kernels, 'd')}, device "
+                  f"{fmt(dev_ms, '.2f')} ms, busy share {fmt(busy, '.3f')} "
+                  f"(profiler); Gauss-Newton iterations skipped "
+                  f"{skipped[0]} + {skipped[1]} of "
+                  f"2 x {c.backend.final_gn_iterations}; finalized ATE "
+                  f"{ate_f:.5f} m{extra}", flush=True)
+            if graph:
+                check(n_sync == 0, f"{tag}: {n_sync} host syncs in the "
+                      f"replayed finalize")
+                check(ate_f < gate, f"{tag}: graph finalized ATE "
+                      f"{ate_f:.5f} m over {gate}")
+        e, g = fins["eager"], fins["graph"]
+        dpose = float((g.map.kf_pose - e.map.kf_pose)[kv].abs().max())
+        same_masks = (torch.equal(g.map.lm_valid, e.map.lm_valid),
+                      int((g.graph.obs_valid != e.graph.obs_valid).sum()))
+        print(f"[18] {tag}: graph / eager {rows['eager']['warm_ms'] / rows['graph']['warm_ms']:.2f}x "
+              f"(warm); keyframe poses graph against eager {dpose:.3e}"
+              f"{'' if pose_tol is None else f' (tolerance {pose_tol})'}; "
+              f"lm_valid equal {same_masks[0]}, observations pruned "
+              f"differently {same_masks[1]}", flush=True)
+        if pose_tol is not None:
+            check(dpose <= pose_tol, f"{tag}: replayed finalize {dpose:.2e} "
+                  f"from eager (tolerance {pose_tol})")
+
+    # check_trajectory on the card against the CPU, on a map it must repair
+    c, st = next(iter(cells.values()))[:2]
+    fin = slam.finalize(c, st)
+    m, g = fin.map, fin.graph
+    seqs = torch.where(m.kf_valid, m.kf_seq,
+                       torch.full_like(m.kf_seq, 2 ** 31 - 1))
+    order = torch.sort(seqs, stable=True).indices[:int(m.kf_valid.sum())]
+    e = order.numel() - 1
+    E = g.pp_i.shape[0]
+    check(3 <= e <= E, f"check_trajectory: {e} odometry edges for {E} slots")
+    pad = E - e
+
+    def ring(x, fill):
+        return torch.cat([x, torch.full((pad,) + x.shape[1:], fill,
+                                        dtype=x.dtype, device=dev)])
+    i, j = order[:-1], order[1:]
+    rel = se3.relative(m.kf_pose[i], m.kf_pose[j])
+    g = g._replace(pp_i=ring(i.int(), 0), pp_j=ring(j.int(), 0),
+                   pp_rel=ring(rel, 0.0), pp_gen_i=ring(m.kf_gen[i], 0),
+                   pp_gen_j=ring(m.kf_gen[j], 0),
+                   pp_valid=ring(torch.ones_like(i, dtype=torch.bool), False),
+                   n_pp=torch.full_like(g.n_pp, e))
+    moved = order[torch.tensor([e // 4, e // 2, 3 * e // 4], device=dev)]
+    kf_pose = m.kf_pose.clone()
+    kf_pose[moved, 0] += 0.5
+    m = m._replace(kf_pose=kf_pose)
+    card = slam.check_trajectory(c, m, g)
+    cpu = slam.check_trajectory(
+        c, m._replace(**{k: getattr(m, k).cpu() for k in m._fields}),
+        g._replace(**{k: getattr(g, k).cpu() for k in g._fields}))
+    d_ct = float((card[0].cpu() - cpu[0]).abs().max())
+    ms_ct = median_ms(lambda: slam.check_trajectory(c, m, g), runs=20)
+    check(int(card[1]) == int(cpu[1]) >= 2,
+          f"check_trajectory: {int(card[1])} repairs on the card, "
+          f"{int(cpu[1])} on the CPU")
+    check(d_ct <= CHECK_TRAJECTORY_TOL, f"check_trajectory: card {d_ct:.2e} "
+          f"from the CPU")
+    print(f"[18] check_trajectory on the card, {e + 1} keyframes with "
+          f"odometry edges, three moved by 0.5 m: {int(card[1])} repaired "
+          f"(CPU {int(cpu[1])}), poses within {d_ct:.2e} of the CPU's "
+          f"(tolerance {CHECK_TRAJECTORY_TOL}); {ms_ct:.4f} ms a call (CUDA "
+          f"events)", flush=True)
+    compiled.clear_cache()
 
 
 def main() -> int:
@@ -2219,7 +2475,7 @@ def main() -> int:
 
     # ---- 7b. the compiled step: eager against CUDA graphs ------------------
     t7b = time.perf_counter()
-    n7b = phase_compiled({
+    n7b, finals7b = phase_compiled({
         "bench": (cfg, grays, depths, gt, None, ATE_GATE_M),
         "keyframe_dense": (kf_cfg, grays, depths, gt, COMPILED_POSE_TOL,
                            ATE_GATE_M),
@@ -2355,8 +2611,8 @@ def main() -> int:
               f"{t16 - t15:.1f} s", flush=True)
         # ---- 16. the distributed path -----------------------------------
         del h_grays, h_depths
-        n16v, n16m = phase_distributed(cfg, dev, state2, window_fixed, root,
-                                       h_gt, work)
+        n16v, n16m, (st_h, outs_h) = phase_distributed(
+            cfg, dev, state2, window_fixed, root, h_gt, work)
         print(f"[16] the whole script {time.perf_counter() - t_start:.1f} s",
               flush=True)
         # ---- 17. bench_torch, the VO profile, planes, acceptance, se2 ----
@@ -2374,7 +2630,19 @@ def main() -> int:
         print(f"[17] wall: bench {t17b - t17:.1f} s, VO profile "
               f"{t17c - t17b:.1f} s, planes {t17d - t17c:.1f} s, acceptance "
               f"{t17e - t17d:.1f} s, se2 and affine {t_end - t17e:.1f} s; "
-              f"phase 17 {t_end - t17:.1f} s; the whole script "
+              f"phase 17 {t_end - t17:.1f} s", flush=True)
+        # ---- 18. the compiled end of the run -----------------------------
+        t18 = time.perf_counter()
+        # 7b's keyframe-dense final states, gated by ATE alone (3ac: with
+        # 64 free keyframes eager and graph part by more than the atomics)
+        cells18 = {tag: finals7b[tag] + (None,)
+                   for tag in ("keyframe_dense", "revisit_lc")}
+        cells18["handheld"] = (cfg, st_h, outs_h, h_gt, ATE_GATE_M,
+                               FINALIZE_DIST_TOL)
+        del finals7b
+        phase_compiled_end(cells18, dev)
+        t_end = time.perf_counter()
+        print(f"[18] wall {t_end - t18:.1f} s; the whole script "
               f"{t_end - t_start:.1f} s", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)

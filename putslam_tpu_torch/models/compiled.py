@@ -25,7 +25,14 @@ of one runner share one memory pool, and their IF bodies a second one
 The VO paths are one graph a step as well: ``VoGraphs`` (matching VO:
 detection + ``vo_step`` with its retry node + the pose update) and
 ``TrackGraphs`` (tracking VO, ``vo_version=1``: KLT, patch refine, RANSAC,
-the masked refill with its level-0 FAST launch, the pose update).
+the masked refill with its level-0 FAST launch, the pose update). So is
+the end of the run, as the JAX package jits ``finalize`` and
+``gauss_newton_mm`` (``putslam_tpu/models/slam.py:789-896``,
+``putslam_tpu/slam_map/archive.py:372-383``): ``FinalizeGraphs`` replays
+``slam.finalize_map`` (both solves' Gauss-Newton iterations IF nodes, the
+chi² prune and ``check_trajectory`` inside) and ``WindowGraphs`` one window
+solve of the global BA, once per window. These end-of-run runners have a
+cache of their own, so that they never evict a frame runner.
 
 Before a capture the step runs once, masked (``control.branching
 ("masked")``: every branch, for the lazy initialisation of both sides) on a
@@ -41,12 +48,15 @@ kernel launch a capture records); the warm-up pass is not counted.
 
 from __future__ import annotations
 
+import gc
 import time
 from collections import OrderedDict
 from typing import Optional
 
 import torch
 
+from putslam_tpu_torch.backend import graph as graph_mod
+from putslam_tpu_torch.backend import optimize as opt_mod
 from putslam_tpu_torch.frontend import ransac as ransac_mod
 from putslam_tpu_torch.frontend.detector import detect_and_describe
 from putslam_tpu_torch.geometry import se3
@@ -59,8 +69,14 @@ from putslam_tpu_torch.utils.control import clone as _clone
 from putslam_tpu_torch.utils.control import leaves as _leaves
 from putslam_tpu_torch.utils.device import as_tensor
 
-MAX_CACHED = 4      # runners kept, each with its buffers and graph pool
+# runners kept, each with its buffers and graph pools: the frame runners
+# (SLAM, VO, tracking) and the end-of-run runners (finalize, the global
+# BA's window solve) in caches of their own, so that the end of a run never
+# evicts the frame runner that the next run of the same config replays
+MAX_CACHED = 4
+MAX_END_CACHED = 4
 _RUNNERS: "OrderedDict[tuple, object]" = OrderedDict()
+_END_RUNNERS: "OrderedDict[tuple, object]" = OrderedDict()
 
 
 def graph_pool_bytes(pool) -> Optional[int]:
@@ -80,6 +96,22 @@ def _draw_buffers(cfg, names, device) -> dict:
     """Static inputs for the RANSAC uniforms of the named calls."""
     shape = (cfg.ransac.used_pairs, cfg.ransac.n_hypotheses)
     return {n: torch.zeros(shape, device=device) for n in names}
+
+
+def _abandon_capture(runner, stream) -> None:
+    """Undo what a capture that raised leaves behind: where its end fails
+    (a host read or another operation the capture refused),
+    ``torch.cuda.graph`` leaves the capture stream current and the caching
+    allocator routing into the graph's pool, and the allocator then aborts
+    the process when a pool is freed. The error propagates."""
+    torch.cuda.set_stream(stream)
+    idx = runner.device.index
+    if idx is None:
+        idx = torch.cuda.current_device()
+    try:
+        torch._C._cuda_endAllocateToPool(idx, runner.pool)
+    except RuntimeError:
+        pass                 # the capture's own end released the routing
 
 
 class _Segment:
@@ -108,9 +140,19 @@ class _Segment:
         graph = torch.cuda.CUDAGraph()
         recorded = fast_cuda.fast_score_nms.recorded
         graph_cond.prepare(r.device, r.body_pool)
-        with torch.cuda.graph(graph, pool=r.pool), \
-                control.branching("capture"):
-            self.out = self.fn(commit=True)
+        stream = torch.cuda.current_stream(r.device)
+        # a runner dropped earlier is freed by the cycle collector, which
+        # may run at any allocation: its body pool destroyed during a
+        # capture aborts the process (the allocator asserts that no
+        # capture is under way), so collect before this one begins
+        gc.collect()
+        try:
+            with torch.cuda.graph(graph, pool=r.pool), \
+                    control.branching("capture"):
+                self.out = self.fn(commit=True)
+        except BaseException:
+            _abandon_capture(r, stream)
+            raise
         self.fast_launches = fast_cuda.fast_score_nms.recorded - recorded
         self.graph = graph
         r.captured = True
@@ -309,24 +351,114 @@ class TrackGraphs(_Runner):
         return _clone(self.segment.run())
 
 
+class FinalizeGraphs(_Runner):
+    """``slam.finalize_map`` (the end-of-run polish: release, BA, chi²
+    prune, BA, ``check_trajectory``) of one config and map / graph layout
+    as one graph on static buffers, each Gauss-Newton iteration of both
+    solves an IF node on ``~done``: ``run(state)`` loads the state's map
+    and graph, replays and returns the polished state; ``chi2`` holds the
+    two solves' chi² (2, final_gn_iterations) of the last run."""
+
+    def __init__(self, cfg, state: slam_mod.SlamState, capture: bool = True):
+        super().__init__(state.pose.device, capture)
+        self.cfg = cfg
+        self.map = _clone(state.map)
+        self.graph = _clone(state.graph)
+        self.chi2 = None
+        self.segment = _Segment(self, self._polish)
+
+    def _polish(self, commit):
+        return slam_mod.finalize_map(self.cfg, self.map, self.graph)
+
+    def run(self, state: slam_mod.SlamState) -> slam_mod.SlamState:
+        """The finalized state (fresh tensors for the map and graph)."""
+        _assign((self.map, self.graph), (state.map, state.graph))
+        m, g, self.chi2 = _clone(self.segment.run())
+        return state._replace(map=m, graph=g)
+
+
+class WindowGraphs(_Runner):
+    """One window solve of ``archive.global_bundle_adjust`` (``gauss_newton_mm``
+    on the window's padded arrays) for one backend config, camera and set
+    of caps as one graph on static buffers, each Gauss-Newton iteration an
+    IF node on ``~done``: ``solve`` loads a window and replays."""
+
+    def __init__(self, bcfg, cam, kf_cap: int, lm_cap: int, device,
+                 capture: bool = True):
+        super().__init__(device, capture)
+        self.bcfg, self.cam = bcfg, cam
+        dev = self.device
+        kf_sub = se3.identity((kf_cap,), device=dev)
+        lm_sub = torch.zeros((lm_cap, 3), device=dev)
+        g = graph_mod.init_graph(bcfg.max_observations,
+                                 bcfg.max_pose_pose_edges, dev)
+
+        def flags(n):
+            return torch.zeros((n,), dtype=torch.bool, device=dev)
+
+        # kf_sub, kf_valid, lm_sub, lm_valid, graph, frozen
+        self.args = (kf_sub, flags(kf_cap), lm_sub, flags(lm_cap), g,
+                     flags(kf_cap))
+        self.segment = _Segment(self, self._solve)
+
+    def _solve(self, commit):
+        res = opt_mod.gauss_newton_mm(self.bcfg, *self.args, cam=self.cam)
+        return res.kf_pose, res.lm_pos
+
+    def solve(self, kf_sub, kf_valid, lm_sub, lm_valid, g, frozen):
+        """The window's (kf_pose, lm_pos) after the solve (fresh tensors);
+        the arguments may lie on the host."""
+        _assign(self.args, (kf_sub, kf_valid, lm_sub, lm_valid, g, frozen))
+        return _clone(self.segment.run())
+
+
 def _signature(tree):
     return tuple((tuple(x.shape), x.dtype) for x in _leaves(tree))
 
 
-def _cached(key, make):
-    runner = _RUNNERS.get(key)
+def _cached(key, make, cache=None, limit=None):
+    """The runner of ``key`` in ``cache`` (the frame runners' by default),
+    made by ``make`` on first use; the least recently used beyond
+    ``limit`` are dropped."""
+    if cache is None:
+        cache, limit = _RUNNERS, MAX_CACHED
+    runner = cache.get(key)
     if runner is None:
-        runner = _RUNNERS[key] = make()
-        while len(_RUNNERS) > MAX_CACHED:
-            _RUNNERS.popitem(last=False)
+        runner = cache[key] = make()
+        while len(cache) > limit:
+            cache.popitem(last=False)
     else:
-        _RUNNERS.move_to_end(key)
+        cache.move_to_end(key)
     return runner
 
 
 def clear_cache() -> None:
-    """Drop the cached runners (their buffers, graphs and pools)."""
+    """Drop the cached runners and free their buffers, graphs and pools
+    now (a runner and its segments form a reference cycle)."""
     _RUNNERS.clear()
+    _END_RUNNERS.clear()
+    gc.collect()
+
+
+def finalize_runner(cfg, state, capture: bool = True) -> FinalizeGraphs:
+    """The cached finalize runner of this config, state layout and mode,
+    made on first use; its graph is captured on its first run."""
+    key = ("finalize", cfg, capture, state.pose.device,
+           _signature((state.map, state.graph)))
+    return _cached(key, lambda: FinalizeGraphs(cfg, state, capture),
+                   _END_RUNNERS, MAX_END_CACHED)
+
+
+def window_runner(bcfg, cam, kf_cap: int, lm_cap: int, device,
+                  capture: bool = True) -> WindowGraphs:
+    """The cached window-solve runner of this backend config (its
+    ``max_observations`` and ``max_pose_pose_edges`` are the window's
+    observation and edge caps), camera, caps and mode."""
+    dev = torch.device(device)
+    key = ("window", bcfg, cam, kf_cap, lm_cap, capture, dev)
+    return _cached(key, lambda: WindowGraphs(bcfg, cam, kf_cap, lm_cap, dev,
+                                             capture),
+                   _END_RUNNERS, MAX_END_CACHED)
 
 
 def slam_runner(cfg, state, frame_shape, playback: bool = False,

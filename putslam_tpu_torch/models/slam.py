@@ -35,7 +35,12 @@ host read of [is_keyframe, run_ba] (``read_flags``) picks its branch, and
 the other branches run masked (no host read). ``slam_frame`` is the frame
 as one program with every branch a ``cond``: ``models/compiled.py``
 replays it from one CUDA graph a frame with conditional nodes, and the
-sequence functions do so on a CUDA device (``graph=``). The JAX package
+sequence functions do so on a CUDA device (``graph=``). The end of the run
+is compiled too: ``finalize_map`` (release, BA, chi² prune, BA,
+``check_trajectory``) is one program of ``cond``s that ``finalize``
+replays from one CUDA graph (``compiled.FinalizeGraphs``), and
+``check_trajectory`` repairs the trajectory on the device with no host
+read (the JAX package's ``lax.scan`` as a prefix product). The JAX package
 computes the loop-closure signature and scores on every frame and keeps
 them on keyframes; the port computes them on keyframes only.
 
@@ -833,23 +838,10 @@ def _outputs_to_numpy(outs: SlamOutputs) -> SlamOutputs:
     return SlamOutputs(*(x.cpu().numpy() for x in outs))
 
 
-def run_slam(cfg: SlamConfig, grays, depths, init_pose=None, seed: int = 0,
-             chunk_size: int = 0, device="cuda", archive=None,
-             graph: Optional[bool] = None):
-    """Returns (poses (T, 7) numpy, outputs (numpy), final state). ``graph``
-    as in ``slam_sequence``: on a CUDA device each frame is replayed from
-    CUDA graphs unless it is False.
-
-    ``chunk_size`` > 0 moves the sequence to the device in blocks of that
-    many frames; the tail block is padded with copies of its last frame and
-    the padded steps are trimmed from the outputs, as the JAX package does
-    (static frames give identity VO and no keyframes).
-
-    ``archive``: a ``slam_map.archive.MapArchive`` that absorbs the state
-    after every block, the last included
-    (``putslam_tpu/models/slam.py:663-716``), so that history the rings
-    evict survives for the offline global bundle adjustment. A block must
-    append fewer keyframes and edges than the rings hold."""
+def _run_slam(cfg: SlamConfig, grays, depths, init_pose, seed: int,
+              chunk_size: int, device, archive, graph: Optional[bool]):
+    """``run_slam`` with its outputs left on the device: (initial pose (7,),
+    outputs (T - 1, ...), final state)."""
     check_config(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -870,23 +862,47 @@ def run_slam(cfg: SlamConfig, grays, depths, init_pose=None, seed: int = 0,
             dc = torch.cat([dc, dc[-1:].expand(pad, -1, -1)])
         state, outs = slam_sequence(cfg, state, gc, dc, generator=gen,
                                     graph=graph)
-        outs_chunks.append(_outputs_to_numpy(outs))
+        outs_chunks.append(outs)
         if archive is not None:
             archive.absorb(state)
-    outs_all = SlamOutputs(*(np.concatenate(xs)[:T - 1]
+    outs_all = SlamOutputs(*(torch.cat(xs)[:T - 1]
                              for xs in zip(*outs_chunks)))
-    poses = np.concatenate([ip.cpu().numpy()[None], outs_all.pose], axis=0)
-    return poses, outs_all, state
+    return ip, outs_all, state
 
 
-def _polish(cfg: SlamConfig, state: SlamState, solve):
+def run_slam(cfg: SlamConfig, grays, depths, init_pose=None, seed: int = 0,
+             chunk_size: int = 0, device="cuda", archive=None,
+             graph: Optional[bool] = None):
+    """Returns (poses (T, 7) numpy, outputs (numpy), final state). ``graph``
+    as in ``slam_sequence``: on a CUDA device each frame is replayed from
+    CUDA graphs unless it is False.
+
+    ``chunk_size`` > 0 moves the sequence to the device in blocks of that
+    many frames; the tail block is padded with copies of its last frame and
+    the padded steps are trimmed from the outputs, as the JAX package does
+    (static frames give identity VO and no keyframes).
+
+    ``archive``: a ``slam_map.archive.MapArchive`` that absorbs the state
+    after every block, the last included
+    (``putslam_tpu/models/slam.py:663-716``), so that history the rings
+    evict survives for the offline global bundle adjustment. A block must
+    append fewer keyframes and edges than the rings hold."""
+    ip, outs, state = _run_slam(cfg, grays, depths, init_pose, seed,
+                                chunk_size, device, archive, graph)
+    outs = _outputs_to_numpy(outs)
+    poses = np.concatenate([ip.cpu().numpy()[None], outs.pose], axis=0)
+    return poses, outs, state
+
+
+def _polish(cfg: SlamConfig, m: fm.MapState, g: graph_mod.GraphState,
+            solve):
     """The end-of-run polish of both finalizes: free every keyframe but the
     oldest (gauge), drop landmarks with fewer than ``final_min_obs``
     observations, solve, chi²-prune, solve again, then repair the
     trajectory. ``solve(bcfg, kf_pose, lm_pos, lm_valid, g, fixed)``
-    returns (kf_pose, lm_pos, obs_sq_err), or None where it refuses the
-    graph. Returns (the polished state or None, the graph reached)."""
-    m, g = state.map, state.graph
+    returns (kf_pose, lm_pos, obs_sq_err, chi2 (iterations,)), or None
+    where it refuses the graph. Returns (the polished map or None, the
+    graph reached, the chi² of both solves (2, iterations) or None)."""
     bcfg = dataclasses.replace(cfg.backend,
                                gn_iterations=cfg.backend.final_gn_iterations,
                                ba_window=0)
@@ -896,35 +912,56 @@ def _polish(cfg: SlamConfig, state: SlamState, solve):
     fixed = set_rows(torch.zeros_like(m.kf_valid),
                      torch.argmin(seqs).reshape(1), True)
     kf_pose, lm_pos = m.kf_pose, m.lm_pos
+    chi2 = []
     for prune in (True, False):
-        # an end-of-run solve: its chi² stop reads the host and skips the
-        # iterations it does not need
-        with control.branching("host"):
-            res = solve(bcfg, kf_pose, lm_pos, lm_valid, g, fixed)
+        res = solve(bcfg, kf_pose, lm_pos, lm_valid, g, fixed)
         if res is None:
-            return None, g
-        kf_pose, lm_pos, sq = res
+            return None, g, None
+        kf_pose, lm_pos, sq, c = res
+        chi2.append(c)
         if prune:
             g = graph_mod.prune_observations(
                 g, sq > cfg.backend.chi2_prune_threshold)
     m = m._replace(kf_pose=kf_pose, lm_pos=lm_pos, lm_valid=lm_valid)
     kf_repaired, _ = check_trajectory(cfg, m, g)
-    return state._replace(map=m._replace(kf_pose=kf_repaired), graph=g), g
+    return m._replace(kf_pose=kf_repaired), g, torch.stack(chi2)
 
 
-def finalize(cfg: SlamConfig, state: SlamState) -> SlamState:
-    """Full-graph polish: free every keyframe but the oldest (gauge), drop
-    landmarks with fewer than ``final_min_obs`` observations, run a long
-    robust BA, chi²-prune, run it again, then repair the trajectory."""
-    m = state.map
-
+def finalize_map(cfg: SlamConfig, m: fm.MapState, g: graph_mod.GraphState):
+    """``finalize`` on a map and graph, as one program
+    (``putslam_tpu/models/slam.py:789-831``): release → BA → chi²-prune →
+    BA → ``check_trajectory``, no host read but the Gauss-Newton
+    iterations' ``control.cond``s, which the caller's branching mode runs
+    (an IF node each in ``compiled.FinalizeGraphs``'s capture, a host read
+    in ``finalize(graph=False)``). Returns (map, graph, chi² (2,
+    final_gn_iterations): each solve's, a stopped iteration repeating the
+    last value as ``gauss_newton_mm`` reports it)."""
     def solve(bcfg, kf_pose, lm_pos, lm_valid, g, fixed):
         res = opt_mod.optimize_graph(bcfg, kf_pose, m.kf_valid, lm_pos,
                                      lm_valid, g, fixed, lm_gen=m.lm_gen,
                                      kf_gen=m.kf_gen, cam=cfg.camera)
-        return res.kf_pose, res.lm_pos, res.obs_sq_err
+        return res.kf_pose, res.lm_pos, res.obs_sq_err, res.chi2
 
-    return _polish(cfg, state, solve)[0]
+    return _polish(cfg, m, g, solve)
+
+
+def finalize(cfg: SlamConfig, state: SlamState,
+             graph: Optional[bool] = None) -> SlamState:
+    """Full-graph polish: free every keyframe but the oldest (gauge), drop
+    landmarks with fewer than ``final_min_obs`` observations, run a long
+    robust BA, chi²-prune, run it again, then repair the trajectory.
+
+    ``graph``: replay it from a CUDA graph (``compiled.FinalizeGraphs``,
+    one capture per config and state layout; a capture or replay that
+    fails raises); None is on for a CUDA state, off elsewhere. Off, it runs
+    eagerly with each Gauss-Newton iteration's stop read on the host."""
+    if use_graphs(graph, state.pose.device):
+        from putslam_tpu_torch.models import compiled
+
+        return compiled.finalize_runner(cfg, state).run(state)
+    with control.branching("host"):
+        m, g, _ = finalize_map(cfg, state.map, state.graph)
+    return state._replace(map=m, graph=g)
 
 
 def finalize_dist(cfg: SlamConfig, state: SlamState, mesh) -> SlamState:
@@ -933,31 +970,43 @@ def finalize_dist(cfg: SlamConfig, state: SlamState, mesh) -> SlamState:
     ``putslam_tpu/models/slam.py:726-786``): the same release → BA →
     chi²-prune → BA → ``check_trajectory`` contract, the prune signal from
     ``backend/optimize.py::_final_sq_errors``. Every rank calls it with the
-    same state. Where the owner partition drops observations (skewed
-    landmark ownership) it warns and runs the single-device ``finalize`` on
-    the graph reached, as the reference does. ``cfg.map.max_landmarks``
-    must divide the mesh size."""
+    same state. It runs eagerly: each iteration all-reduces over the
+    process group, which a CUDA graph does not hold. Where the owner
+    partition drops observations (skewed landmark ownership) it warns and
+    runs the single-device ``finalize`` on the graph reached, as the
+    reference does. ``cfg.map.max_landmarks`` must divide the mesh size."""
     m = state.map
     dropped = []
 
     def solve(bcfg, kf_pose, lm_pos, lm_valid, g, fixed):
-        kf, lm, _, overflow = dist_ba.dist_gauss_newton(
+        kf, lm, chi2, overflow = dist_ba.dist_gauss_newton(
             bcfg, mesh, kf_pose, m.kf_valid, lm_pos, lm_valid, g, fixed,
             m.lm_gen, m.kf_gen, cam=cfg.camera)
         if int(overflow) > 0:
             dropped.append(int(overflow))
             return None
         return kf, lm, opt_mod._final_sq_errors(
-            bcfg, kf, lm, lm_valid, g, m.lm_gen, m.kf_gen, cfg.camera)
+            bcfg, kf, lm, lm_valid, g, m.lm_gen, m.kf_gen, cfg.camera), chi2
 
-    out, g = _polish(cfg, state, solve)
-    if out is None:
+    with control.branching("host"):
+        m_out, g, _ = _polish(cfg, m, state.graph, solve)
+    if m_out is None:
         warnings.warn(
             f"dist finalize: owner partition dropped {dropped[0]} edges "
             f"(skewed landmark ownership); the single-device finalize runs "
             f"instead", stacklevel=2)
-        return finalize(cfg, state._replace(graph=g))
-    return out
+        return finalize(cfg, state._replace(graph=g), graph=False)
+    return state._replace(map=m_out, graph=g)
+
+
+def _prefix_compose(steps):
+    """P[i] = steps[0] ∘ steps[1] ∘ … ∘ steps[i] for (n, 7) poses: the
+    Hillis–Steele scan, ⌈log₂ n⌉ rounds of batched compositions."""
+    d = 1
+    while d < steps.shape[0]:
+        steps = torch.cat([steps[:d], se3.compose(steps[:-d], steps[d:])])
+        d *= 2
+    return steps
 
 
 def check_trajectory(cfg: SlamConfig, m: fm.MapState,
@@ -965,10 +1014,18 @@ def check_trajectory(cfg: SlamConfig, m: fm.MapState,
     """Trajectory repair: walk the keyframes in sequence order; where the
     optimised motion from the previous keyframe contradicts the newest
     odometry edge by more than ``trajectory_repair_threshold`` metres,
-    re-compose that keyframe from odometry. Returns (kf_pose', n_repaired).
+    re-compose that keyframe from odometry. Returns (kf_pose', n_repaired),
+    both on the device, with no host read.
 
-    The walk is a sequential recurrence over K keyframes of tiny pose ops;
-    it runs on the host CPU once per run."""
+    The JAX package walks the keyframes with a ``lax.scan``
+    (``putslam_tpu/models/slam.py:833-896``), but nothing in its carry
+    depends on a repair: the sort puts the valid keyframes first, so each
+    one's predecessor in the walk is the slot before it in ``order``, and
+    its repair test reads only the optimised poses and the odometry edge.
+    So every increment (odometry where repaired, else the optimised one)
+    is known at once, and the corrected poses are their prefix product,
+    taken in ⌈log₂ K⌉ rounds. The composition is the scan's in another
+    association: equal up to float32 rounding."""
     K = m.kf_pose.shape[0]
     thr = cfg.backend.trajectory_repair_threshold
     dev = m.kf_pose.device
@@ -992,30 +1049,19 @@ def check_trajectory(cfg: SlamConfig, m: fm.MapState,
 
     seqs = torch.where(m.kf_valid, m.kf_seq,
                        torch.full_like(m.kf_seq, np.iinfo(np.int32).max))
-    order = torch.sort(seqs, stable=True).indices
-    kf_pose = m.kf_pose.cpu()
-    kf_valid = m.kf_valid.cpu().tolist()
-    odo_rel_h = odo_rel.cpu()
-    has_odo_h = has_odo.cpu().tolist()
-    prev_corr = prev_opt = se3.identity()
-    started = False
-    corr, n_bad = [], 0
-    for idx in order.cpu().tolist():
-        T_opt = kf_pose[idx]
-        valid = kf_valid[idx]
-        rel_opt = se3.relative(prev_opt, T_opt)
-        bad = valid and started and has_odo_h[idx] and bool(torch.linalg.norm(
-            se3.translation(rel_opt) - se3.translation(odo_rel_h[idx])) > thr)
-        T_corr = se3.compose(prev_corr, odo_rel_h[idx] if bad else rel_opt)
-        if valid and not started:
-            T_corr = T_opt
-        if valid:
-            prev_corr, prev_opt, started = T_corr, T_opt, True
-        corr.append(T_corr if valid else T_opt)
-        n_bad += int(bad)
-    out = kf_pose.clone()
-    out[order.cpu()] = torch.stack(corr)
-    return out.to(dev), torch.tensor(n_bad, dtype=torch.int32, device=dev)
+    order = torch.sort(seqs, stable=True).indices      # the valid ones first
+    T_opt = m.kf_pose[order]
+    valid = m.kf_valid[order]
+    odo = odo_rel[order]
+    rel_opt = se3.relative(torch.cat([T_opt[:1], T_opt[:-1]]), T_opt)
+    started = torch.arange(K, device=dev) > 0
+    bad = valid & started & has_odo[order] & (torch.linalg.norm(
+        se3.translation(rel_opt) - se3.translation(odo), dim=-1) > thr)
+    rel_use = torch.where(bad[:, None], odo, rel_opt)
+    corr = _prefix_compose(torch.cat([T_opt[:1], rel_use[1:]]))
+    kf_pose = set_rows(m.kf_pose, order,
+                       torch.where(valid[:, None], corr, T_opt))
+    return kf_pose, bad.sum().to(torch.int32)
 
 
 def reanchor_trajectory(state: SlamState, outs: SlamOutputs):
@@ -1040,7 +1086,8 @@ def run_slam_global(cfg: SlamConfig, grays, depths, init_pose=None,
     adjustment over the full archived graph, history the device rings
     evicted included (``putslam_tpu/models/slam.py:913-942``). The per-frame
     trajectory is rebuilt on the polished keyframes:
-    pose = polished(anchor_seq) ∘ (anchor_pose⁻¹ ∘ pose).
+    pose = polished(anchor_seq) ∘ (anchor_pose⁻¹ ∘ pose). ``graph`` as in
+    ``run_slam``, for the frames and for the global BA's window solves.
 
     Returns (poses_before (T, 7), poses_after (T, 7), outputs, final state,
     archive)."""
@@ -1051,7 +1098,8 @@ def run_slam_global(cfg: SlamConfig, grays, depths, init_pose=None,
     poses_before, outs, state = run_slam(cfg, grays, depths, init_pose, seed,
                                          chunk_size=chunk_size, device=device,
                                          archive=archive, graph=graph)
-    kf_polished = global_bundle_adjust(cfg, archive, device=device, **gba_kw)
+    kf_polished = global_bundle_adjust(cfg, archive, device=device,
+                                       graph=graph, **gba_kw)
     seqs = outs.anchor_seq
     good = (seqs >= 0) & (seqs < len(kf_polished))
     kf_new = torch.as_tensor(
@@ -1068,12 +1116,14 @@ def run_slam_final(cfg: SlamConfig, grays, depths, init_pose=None,
                    seed: int = 0, chunk_size: int = 0, device="cuda",
                    graph: Optional[bool] = None):
     """run_slam + finalize + the re-anchored trajectory. Returns
-    (poses_before (T, 7), poses_after (T, 7), outputs, final state)."""
-    poses_before, outs, state = run_slam(cfg, grays, depths, init_pose, seed,
-                                         chunk_size=chunk_size, device=device,
-                                         graph=graph)
-    state = finalize(cfg, state)
-    poses_after = np.concatenate(
-        [poses_before[:1], reanchor_trajectory(state, outs).cpu().numpy()],
-        axis=0)
-    return poses_before, poses_after, outs, state
+    (poses_before (T, 7), poses_after (T, 7), outputs, final state).
+    ``graph`` as in ``run_slam``, for the frames and for ``finalize``. The
+    outputs stay on the device until both trajectories are made, and
+    cross to the host together at the end."""
+    ip, outs, state = _run_slam(cfg, grays, depths, init_pose, seed,
+                                chunk_size, device, None, graph)
+    state = finalize(cfg, state, graph=graph)
+    traj = torch.stack([torch.cat([ip[None], outs.pose]),
+                        torch.cat([ip[None], reanchor_trajectory(state, outs)])
+                        ]).cpu().numpy()
+    return traj[0], traj[1], _outputs_to_numpy(outs), state

@@ -15,7 +15,11 @@ gone from the device state.
   of ``parallel.dist_ba.dist_gauss_newton``): each window's
   subproblem (free keyframes plus the frozen keyframes and the landmarks
   that anchor it) is assembled on the host into fixed-shape padded arrays.
-  Back-to-front sweeps with 50 % overlap carry corrections along the
+  On a CUDA device each window's solve is a replay of one cached graph
+  (``models/compiled.py::WindowGraphs``: the window's arrays copied into
+  its static buffers, each Gauss-Newton iteration an IF node), as the JAX
+  package compiles ``gauss_newton_mm`` once per set of caps. Back-to-front
+  sweeps with 50 % overlap carry corrections along the
   trajectory without ever forming a (6·K_total)² system.
 
 The archive itself is numpy on the host, as in the JAX package; the two
@@ -25,7 +29,7 @@ archives hold equal arrays after absorbing equal states.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +38,7 @@ from putslam_tpu_torch.backend import optimize as opt_mod
 from putslam_tpu_torch.backend.graph import GraphState
 from putslam_tpu_torch.parallel import dist_ba
 from putslam_tpu_torch.utils import control
-from putslam_tpu_torch.utils.device import resolve_device
+from putslam_tpu_torch.utils.device import resolve_device, use_graphs
 
 _GEN_BASE = np.int64(1) << 24  # (slot, gen) -> slot * _GEN_BASE + gen codes
 
@@ -238,7 +242,8 @@ def global_bundle_adjust(cfg, archive: MapArchive,
                          window: int = 192, kf_cap: int = 384,
                          lm_cap: int = 4096, obs_cap: int = 32768,
                          pp_cap: int = 2048, sweeps: int = 2,
-                         gn_iterations: int = 8, mesh=None, device="cuda"):
+                         gn_iterations: int = 8, mesh=None, device="cuda",
+                         graph: Optional[bool] = None):
     """Offline full-graph polish by overlapping windowed sweeps
     (``putslam_tpu/slam_map/archive.py:243``).
 
@@ -261,7 +266,13 @@ def global_bundle_adjust(cfg, archive: MapArchive,
     362-377``); every rank calls this with the same archive, and
     ``lm_cap`` must divide the mesh size. A window whose owner partition
     would drop observations is solved again by ``gauss_newton_mm`` (on every
-    rank alike). A mesh of one rank takes the single-device path."""
+    rank alike). A mesh of one rank takes the single-device path.
+
+    ``graph``: solve each window by replaying one CUDA graph, captured once
+    per (backend config, caps); None is on for a CUDA device, off
+    elsewhere, where each solve runs eagerly with its chi² stop read on
+    the host. A capture or replay that fails raises. The mesh path, and its
+    re-solve of a window that overflows, run eagerly."""
     if mesh is not None and mesh.size > 1:
         if lm_cap % mesh.size:
             raise ValueError(f"lm_cap {lm_cap} must divide the mesh size "
@@ -269,6 +280,7 @@ def global_bundle_adjust(cfg, archive: MapArchive,
     else:
         mesh = None
     dev = resolve_device(device)
+    replay = use_graphs(graph, dev) and mesh is None
 
     kf, lm, (obs_kf, obs_lm, obs_xyz, obs_w, obs_info), \
         (pp_i, pp_j, pp_rel, pp_w) = archive.dense()
@@ -289,8 +301,15 @@ def global_bundle_adjust(cfg, archive: MapArchive,
             break
         a = max(0, a - window // 2)
 
+    if replay:
+        from putslam_tpu_torch.models import compiled
+
+        runner = compiled.window_runner(bcfg, cfg.camera, kf_cap, lm_cap,
+                                        dev)
+
     def up(x):
-        return torch.as_tensor(x, device=dev)
+        # the runner copies the host arrays into its buffers itself
+        return torch.as_tensor(x, device="cpu" if replay else dev)
 
     K = kf_cap
     zeros_obs = np.zeros((obs_cap,), np.int32)
@@ -366,8 +385,10 @@ def global_bundle_adjust(cfg, archive: MapArchive,
                 kf_o, lm_o, _, overflow = dist_ba.dist_gauss_newton(
                     bcfg, mesh, *args, up(np.zeros((lm_cap,), np.int32)),
                     cam=cfg.camera)
-            if mesh is None or int(overflow) > 0:
-                # an offline solve: its chi² stop reads the host and skips
+            if replay:
+                kf_o, lm_o = runner.solve(*args)
+            elif mesh is None or int(overflow) > 0:
+                # an eager solve: its chi² stop reads the host and skips
                 # the iterations it does not need
                 with control.branching("host"):
                     res = opt_mod.gauss_newton_mm(bcfg, *args, cam=cfg.camera)

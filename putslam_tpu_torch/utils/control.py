@@ -20,7 +20,8 @@ config knob, decides how it runs (``branching``):
   is what a warm-up needs (cuBLAS handles, workspaces, the FAST kernel's
   build).
 * ``"host"`` (a runner with ``capture=False``, on any device, and the
-  end-of-run solves that stop early): ``pred`` is read once and ``body``
+  eager end of the run: ``finalize(graph=False)``, ``finalize_dist``, the
+  global BA's eager window solves): ``pred`` is read once and ``body``
   runs only where it holds: the host's stand-in for the IF node, the same
   body and the same ``out``.
 

@@ -9,7 +9,10 @@ own config classes."""
 import numpy as np
 import torch
 
+from putslam_tpu_torch.backend import graph as tgraph
 from putslam_tpu_torch.convert import config_from_jax as port_cfg  # noqa: F401
+from putslam_tpu_torch.geometry import se3 as tse3
+from putslam_tpu_torch.slam_map import features_map as tfm
 
 torch.set_num_threads(1)   # tier-1 runs several xdist workers
 try:
@@ -33,6 +36,100 @@ def n(x):
     if torch.is_tensor(x):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _pose(rng, t_scale, r_scale):
+    t = rng.normal(size=3) * t_scale
+    return tse3.exp(torch.tensor(np.concatenate(
+        [t, rng.normal(size=3) * r_scale]), dtype=torch.float32))
+
+
+def trajectory_map(K, E, seed, n_kf, corrupt=(), invalid=(), shift=0,
+                   duplicates=False):
+    """A map of ``n_kf`` keyframes (sequence numbers 3.. on), the keyframe
+    of sequence s in ring slot (s + shift) % K, and its graph: one odometry
+    edge a consecutive pair (the true increment with millimetre noise),
+    appended to a pose-pose ring that wrapped, plus a loop-closure edge, a
+    stale-generation edge and an invalid edge that contradict everything.
+    ``corrupt``: walk positions moved by 0.5-0.9 m; ``invalid``: walk
+    positions whose slot is marked invalid (a random pose left in it);
+    ``duplicates``: each of two pairs gets a second odometry edge, older
+    and wrong for the first pair, newer and wrong for the second. Returns
+    numpy arrays: kf_pose, kf_valid, kf_seq, kf_gen, and pp_i, pp_j,
+    pp_rel, pp_w, pp_gen_i, pp_gen_j, pp_valid, n_pp."""
+    rng = np.random.default_rng(seed)
+    true = [tse3.identity()]
+    for _ in range(n_kf - 1):
+        true.append(tse3.compose(true[-1], _pose(rng, 0.08, 0.05)))
+    slot = [(s + shift) % K for s in range(n_kf)]
+    kf_pose = np.tile(np.array([0, 0, 0, 1, 0, 0, 0], np.float32), (K, 1))
+    kf_valid = np.zeros(K, bool)
+    kf_seq = np.full(K, -1, np.int32)
+    kf_gen = rng.integers(0, 3, K).astype(np.int32)
+    for s in range(n_kf):
+        p = true[s]
+        if s in corrupt:
+            p = tse3.compose(p, _pose(rng, 0.0, 0.0))
+            p = p.clone()
+            p[:3] += torch.tensor(rng.uniform(0.5, 0.9, 3) / np.sqrt(3),
+                                  dtype=torch.float32)
+        kf_pose[slot[s]] = p.numpy()
+        kf_valid[slot[s]] = s not in invalid
+        kf_seq[slot[s]] = s + 3
+    for s in invalid:
+        kf_pose[slot[s]] = _pose(rng, 1.0, 1.0).numpy()
+
+    edges = []          # (i, j, rel, gen_i, gen_j, valid), in append order
+
+    def odo(s, rel=None):
+        if rel is None:
+            rel = tse3.compose(tse3.relative(true[s - 1], true[s]),
+                               _pose(rng, 1e-3, 1e-3))
+        edges.append((slot[s - 1], slot[s], rel.numpy(), kf_gen[slot[s - 1]],
+                      kf_gen[slot[s]], True))
+
+    wrong = _pose(rng, 0.0, 0.0).clone()
+    wrong[:3] = torch.tensor([0.0, 0.6, 0.0])
+    for s in range(1, n_kf):
+        if duplicates and s == 2:
+            odo(s, wrong)                      # older and wrong: loses
+        odo(s)
+        if duplicates and s == 4:
+            odo(s, wrong)                      # newer and wrong: wins
+    big = _pose(rng, 3.0, 0.5)
+    edges.append((slot[0], slot[n_kf - 1], big.numpy(), kf_gen[slot[0]],
+                  kf_gen[slot[n_kf - 1]], True))           # loop closure
+    edges.append((slot[2], slot[3], big.numpy(), kf_gen[slot[2]] + 1,
+                  kf_gen[slot[3]], True))                  # stale generation
+    edges.append((slot[3], slot[4], big.numpy(), kf_gen[slot[3]],
+                  kf_gen[slot[4]], False))                 # invalid
+    # the ring's append cursor has wrapped: edge t sits in slot (start+t) % E
+    start = E - 5
+    pp = dict(pp_i=np.zeros(E, np.int32), pp_j=np.zeros(E, np.int32),
+              pp_rel=np.tile(np.array([0, 0, 0, 1, 0, 0, 0], np.float32),
+                             (E, 1)),
+              pp_w=np.ones(E, np.float32), pp_gen_i=np.zeros(E, np.int32),
+              pp_gen_j=np.zeros(E, np.int32), pp_valid=np.zeros(E, bool))
+    assert len(edges) <= E
+    for t_, (i, j, rel, gi, gj, v) in enumerate(edges):
+        k = (start + t_) % E
+        pp["pp_i"][k], pp["pp_j"][k], pp["pp_rel"][k] = i, j, rel
+        pp["pp_gen_i"][k], pp["pp_gen_j"][k], pp["pp_valid"][k] = gi, gj, v
+    pp["n_pp"] = np.int32(start + len(edges))
+    return dict(kf_pose=kf_pose, kf_valid=kf_valid, kf_seq=kf_seq,
+                kf_gen=kf_gen, **pp)
+
+
+def port_trajectory_map(cfg, arrays, device):
+    """The port's (map, graph) holding ``trajectory_map``'s arrays, for the
+    port's config ``cfg`` (its ``max_keyframes`` the arrays' K)."""
+    mk = ("kf_pose", "kf_valid", "kf_seq", "kf_gen")
+    m = tfm.init_map(cfg, device)._replace(
+        **{k: torch.as_tensor(arrays[k], device=device) for k in mk})
+    g = tgraph.init_graph(64, cfg.backend.max_pose_pose_edges, device)
+    g = g._replace(**{k: torch.as_tensor(np.asarray(v), device=device)
+                      for k, v in arrays.items() if k not in mk})
+    return m, g
 
 
 # A small reference-style resources/ tree: the element and attribute names

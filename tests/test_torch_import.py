@@ -39,6 +39,9 @@ def test_port_imports_with_jax_blocked():
             "import putslam_tpu_torch.geometry.se2\n"
             "import putslam_tpu_torch.io.synthetic2\n"
             "import putslam_tpu_torch.utils.viz\n"
+            "import putslam_tpu_torch.models.compiled\n"
+            "import putslam_tpu_torch.utils.control\n"
+            "import putslam_tpu_torch.utils.graph_cond\n"
             "import bench_torch\n"
             "sys.path.insert(0, 'tools')\n"
             "import make_disk_dataset_torch, profile_torch_slam\n"
@@ -92,7 +95,8 @@ def _port_sources():
                  "parallel/multihost.py", "parallel/mesh.py",
                  "parallel/dist_ba.py", "parallel/multi_session.py",
                  "geometry/se2.py", "io/synthetic2.py", "utils/viz.py",
-                 "ops/klt.py"):
+                 "ops/klt.py", "models/compiled.py", "utils/control.py",
+                 "utils/graph_cond.py", "models/slam.py"):
         assert f"putslam_tpu_torch/{name}" in rel, name
     assert all(f.exists() for f in files)
     return files
