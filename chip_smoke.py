@@ -22,10 +22,20 @@ Phases (any failed check raises and the script exits non-zero):
      bytes and the operations of this input.
   4. detect_and_describe at fr1 on the card against the CPU on one frame.
   5. the bench workload — fr1 config, 64-frame synthetic orbit rendered on
-     the card, run_slam_final — once to warm up, then timed with the kernel
-     launch counter reset: 1 launch per frame, final ATE under the gate.
+     the card, run_slam_final — once to warm up, then timed with the
+     kernels' launch counters reset: 1 FAST launch per frame, segment sums
+     launched (the bench makes no keyframe, so finalize's), final ATE under
+     the gate.
  5b. the same frames with every tracked frame a keyframe, so keyframe
      bookkeeping and the windowed, landmark-blocked BA run in the loop.
+ 5c. the segment-sum kernel (csrc/segment_sum.cu, the solvers' sums in a
+     fixed order), on the sums of one Gauss-Newton iteration of three real
+     solves (finalize of phase 5's state, the main path's; finalize of
+     5b's map; 5b's in-loop BA), recorded: each against its plain version
+     (index_add_ on a CPU copy) bit for bit and twice the same; timed over
+     all sums of a solve (kernel twice, the plain version, index_add_ with
+     atomics, the plans' stable sorts), the kernel's own duration, the
+     bound from the bytes and adds of these inputs.
   6. the CLI: putslam_tpu_torch.run --synthetic 30 writes its five files
      (statistics.txt included) and reports an ATE under 0.05 m; with
      --loop-closure the same; --only-vo --vo-version 1 (KLT tracking)
@@ -35,8 +45,9 @@ Phases (any failed check raises and the script exits non-zero):
      (the JAX LC test's settings: tail_skip 10, 64 keyframes; every
      tracked frame a keyframe, as in 5b): 1 launch per frame in each, no
      edge off, at least one accepted edge on, final ATE under 0.05 m with
-     it; host syncs per frame of each run (CUDA sync-debug warnings
-     counted over run_slam).
+     it; each run made twice, the two trajectories bit-identical; host
+     syncs per frame of each run (CUDA sync-debug warnings counted over
+     run_slam).
  7b. the compiled frame: on bench (phase 5's frames), keyframe_dense (5b's)
      and revisit_lc (7's, loop closure on), ``slam_sequence`` from one
      ``slam_init`` state replayed from CUDA graphs (models/compiled.py: one
@@ -46,12 +57,13 @@ Phases (any failed check raises and the script exits non-zero):
      count over the whole ``slam_sequence`` call), kernels a frame and
      device ms a frame (torch.profiler over frames 1-COMPILED_PROFILED),
      busy share (device ms over wall ms), capture seconds, graph pool MiB,
-     the frame graph's IF nodes, keyframes and BA calls. Checks: one FAST
-     launch a frame in both modes (a replay counts its launch); no host
-     sync on the graph path on any cell; bench poses bit-equal, ATE under
-     the gate; keyframe_dense and revisit_lc poses within
-     COMPILED_POSE_TOL of eager (the BA's atomics, ROADMAP 3p) and the
-     finalized ATE under each phase's gate. Then the bench without the
+     the frame graph's IF nodes, keyframes and BA calls, segment sums a
+     frame. Checks: one FAST launch a frame in both modes (a replay counts
+     its launch); no host sync on the graph path on any cell; every cell's
+     poses bit-equal eager against graph and each mode run twice (the
+     solvers' sums in a fixed order, ROADMAP 3p); segment sums launched
+     in both modes where a BA ran; bench ATE under the gate, the finalized
+     ATE under each phase's gate. Then the bench without the
      retry ladder (``matcher.retries 0``, the yardstick of the skipped
      passes) and the 15 kernels with the most device time in a replayed
      bench frame (torch.profiler, not checked). Every other phase runs the
@@ -158,7 +170,7 @@ Phases (any failed check raises and the script exits non-zero):
      observations, wall time (the reference's scoring needs its scripts);
      (e) ``se2.optimize_pose_graph`` on the card (the square loop within
      1e-3 of the truth, a 256-pose ring within 1e-4 of the port's CPU
-     result) and ``refine_patch_alignment_affine`` polishing the KLT
+     result and bit-equal to itself run again) and ``refine_patch_alignment_affine`` polishing the KLT
      tracks of 512 keypoints of phase 5's frames 0 -> 1 (98 % of the points
      within 1e-3 px of the CPU result), ms a call each.
  18. the compiled end of the run: ``finalize`` eager (``graph=False``, each
@@ -169,14 +181,15 @@ Phases (any failed check raises and the script exits non-zero):
      state: ms of the first call (the capture included) and of a warm one,
      host syncs of a warm call (0 on the graph path), kernels and device
      ms (torch.profiler), IF nodes, capture s, both pools' MiB, the
-     Gauss-Newton iterations the stop skipped; the handheld poses graph
-     against eager within FINALIZE_DIST_TOL; the finalized ATE of each
-     under its gate. Then ``check_trajectory`` on the card against the CPU
-     on keyframe_dense's polished map with odometry edges and three
+     Gauss-Newton iterations the stop skipped, segment sums a call; graph
+     against eager bit for bit (poses, landmarks, pruned observations) on
+     every state; the finalized ATE of each under its gate. Then
+     ``check_trajectory`` on the card against the CPU on keyframe_dense's
+     polished map with odometry edges and three
      keyframes moved by 0.5 m: the same repairs, poses within
      CHECK_TRAJECTORY_TOL; ms a call.
-Then one JSON line describing the kernel, the nvidia-smi line, and the
-final status line.
+Then one JSON line describing the two kernels, the nvidia-smi line, and
+the final status line.
 """
 
 import argparse
@@ -300,17 +313,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12     # the same sheet, float32 outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20  # five times the 50 MB L2
 RAGGED_SHAPES = ((33, 35), (65, 97))
-# phase 7b: frames under the profiler (of 63), and how far the graph path's
-# poses may lie from the eager path's on the cells whose BA runs. Before the
-# first BA they must be bit-equal; after it the atomics of index_add_ sum in
-# another order on every run (ROADMAP 3p), and from 34 free keyframes on the
-# bf16-rounded reduced system turns that into a different Gauss-Newton step
-# (3ac). Measured in three calls: eager against graph 1.59e-2-4.35e-2 m, and
-# the same mode run twice as far apart in two (eager 1.97e-2-4.60e-2, graph
-# 1.64e-2-3.61e-2); over the first 15 frames (3 BA calls) 9.5e-7. The gate
-# is about twice the largest run-to-run spread
+# phase 7b: frames under the profiler (of 63). Every cell's poses must be
+# bit-equal eager against graph and each mode against itself run twice:
+# every floating-point segment sum of the solvers runs in a fixed order
+# (ops/segment.py, csrc/segment_sum.cu). Before that, index_add_'s atomics
+# summed in another order on every run (ROADMAP 3p), and from 34 free
+# keyframes on the bf16-rounded reduced system turned that into another
+# Gauss-Newton step (3ac): eager against graph 1.59e-2-4.35e-2 m, and the
+# same mode run twice 1.97e-2-4.60e-2 (eager) and 1.64e-2-3.61e-2 (graph)
 COMPILED_PROFILED = 4
-COMPILED_POSE_TOL = 0.1
 # phase 18: check_trajectory on the card against the CPU, the CPU test's
 # tolerance against the JAX package (tests/test_torch_finalize.py)
 CHECK_TRAJECTORY_TOL = 1e-5
@@ -1772,6 +1783,10 @@ def phase_se2_affine(cfg, dev, grays, feats):
     r_gpu, c_gpu = ring_on(dev)
     d_ring = float((r_gpu.cpu() - r_cpu).abs().max())
     check(d_ring < SE2_CARD_TOL, f"se2 ring card vs CPU {d_ring:.2e}")
+    # its scatters are index_put_(accumulate=True), sort-based on the card
+    r_gpu2, c_gpu2 = ring_on(dev)
+    check(torch.equal(r_gpu, r_gpu2) and torch.equal(c_gpu, c_gpu2),
+          "se2 ring: two runs on the card differ")
     ms_ring = median_ms(lambda: ring_on(dev), runs=5)
 
     # the affine polish of frame 0's keypoints tracked into frame 1 (the
@@ -1804,7 +1819,8 @@ def phase_se2_affine(cfg, dev, grays, feats):
     print(f"[17e] se2 square loop on the card: chi2 {float(chi2[0]):.4g} -> "
           f"{float(chi2[-1]):.3g}, positions within {sq_err:.2e} of the "
           f"truth; {k}-pose ring with {len(ri) - k} closures, "
-          f"{SE2_ITERS} iterations: card vs CPU {d_ring:.2e}, chi2 "
+          f"{SE2_ITERS} iterations: card vs CPU {d_ring:.2e}, two runs "
+          f"on the card bit-equal, chi2 "
           f"{float(c_gpu[0]):.4g} -> {float(c_gpu[-1]):.3g}, "
           f"{ms_ring:.2f} ms a call; refine_patch_alignment_affine on "
           f"{len(pts)} keypoints of phase 5's frame 0 tracked into frame 1 "
@@ -1814,6 +1830,114 @@ def phase_se2_affine(cfg, dev, grays, feats):
           f"(max {d_pts:.2e} px, {int((dev_pts > AFFINE_CARD_TOL).sum())} "
           f"over), ok flags equal on {same_ok:.4f}, {ms_aff:.2f} ms a call",
           flush=True)
+
+
+def recorded_sums(fn):
+    """(plan, rows) of every segment sum that ``fn()`` makes
+    (``ops/segment.py::SegmentPlan.sum``), the rows cloned."""
+    from putslam_tpu_torch.ops import segment
+
+    rec = []
+    real = segment.SegmentPlan.sum
+
+    def sum_(plan, x):
+        rec.append((plan, x.detach().clone()))
+        return real(plan, x)
+
+    segment.SegmentPlan.sum = sum_
+    try:
+        fn()
+    finally:
+        segment.SegmentPlan.sum = real
+    return rec
+
+
+def phase_segment_sum(cases, dev):
+    """Phase 5c, the segment-sum kernel (``csrc/segment_sum.cu``): ``cases``
+    maps a name to a function whose segment sums are recorded (one
+    Gauss-Newton iteration of a real solve). Each recorded sum: the kernel
+    against the plain version on a CPU copy of the same inputs, bit for
+    bit, and run twice; then, over all sums of a case, the kernel's time
+    (CUDA events behind a spin kernel, and its own duration in
+    torch.profiler), the plain version's on the card, ``index_add_``'s
+    (one call a sum into a zeroed buffer: the library's atomics), the
+    plans' build time, and the bound from this input's bytes (each live
+    row and its index read once, the offsets read once, the sums written
+    once) and adds. Returns by case (launches, max_abs_err, ms, plain_ms,
+    library_ms, bound_ms, bound_by, plan_ms, own µs a launch)."""
+    from putslam_tpu_torch.ops import segment
+
+    out = {}
+    for tag, fn in cases.items():
+        rec = recorded_sums(fn)
+        check(len(rec) > 0, f"segment sums of {tag}: none recorded")
+        max_err, nbytes, adds = 0.0, 0, 0
+        for plan, x in rec:
+            got = plan.sum(x)
+            again = plan.sum(x)
+            ref = segment.plain_segment_sum(
+                x.cpu(), segment.SegmentPlan(plan.idx.cpu(), plan.n))
+            torch.cuda.synchronize()
+            check(torch.equal(got.cpu(), ref), f"{tag}: segment sum "
+                  f"({plan.rows} rows, n {plan.n}, {tuple(x.shape[1:])}) "
+                  f"differs from its plain version")
+            check(torch.equal(got, again), f"{tag}: segment sum differs "
+                  f"between two launches")
+            max_err = max(max_err, float((got.cpu() - ref).abs().max())
+                          if ref.numel() else 0.0)
+            live = int(plan.offsets[plan.n])
+            cols = x[0].numel() if x.shape[0] else 1
+            nbytes += (4 * cols + 8) * live + 8 * (plan.n + 1) \
+                + 4 * plan.n * cols
+            adds += live * cols
+        bufs = [torch.zeros((plan.n + 1,) + tuple(x.shape[1:]), device=dev)
+                for plan, x in rec]
+        plans = list({id(p): p for p, _ in rec}.values())
+
+        def kernel():
+            for plan, x in rec:
+                plan.sum(x)
+
+        def plain():
+            for plan, x in rec:
+                segment.plain_segment_sum(x, plan)
+
+        def library():
+            for buf, (plan, x) in zip(bufs, rec):
+                buf.index_add_(0, plan.idx, x)
+
+        def build_plans():
+            for plan in plans:
+                segment.SegmentPlan(plan.idx, plan.n)
+
+        ms_plain = median_ms(plain, runs=20)
+        ms = [median_ms(kernel, runs=20), median_ms(kernel, runs=20)]
+        ms_lib = median_ms(library, runs=20)
+        ms_plans = median_ms(build_plans, runs=20)
+        us_own = profiler_us(kernel, "segment_sum_kernel")
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * adds / FP32_OPS_PER_S
+        bound_ms = max(bytes_ms, ops_ms)
+        bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+        ms_k = 0.5 * (ms[0] + ms[1])
+        own = None if us_own is None else us_own / len(rec)
+        print(f"[5c] segment sums of {tag}: {len(rec)} launches over "
+              f"{len(plans)} plans, bit-equal to the plain version (CPU) "
+              f"and twice; {nbytes} bytes = {bytes_ms:.5f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s, {adds} adds = {ops_ms:.5f} "
+              f"ms: bound {bound_ms:.5f} ms by {bound_by}; kernel "
+              f"{ms[0]:.5f} / {ms[1]:.5f} ms ({100 * bound_ms / ms_k:.1f} % "
+              f"of the bound; own "
+              f"{'not measured' if own is None else f'{own:.2f} us'} a "
+              f"launch, torch.profiler); plain (zeros + index_add_) "
+              f"{ms_plain:.5f} ms; index_add_ alone {ms_lib:.5f} ms; the "
+              f"plans (stable sort + searchsorted) {ms_plans:.5f} ms",
+              flush=True)
+        out[tag] = dict(launches=len(rec), max_abs_err=max_err, ms=ms_k,
+                        plain_ms=ms_plain, library_ms=ms_lib,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        plan_ms=ms_plans, own_us=own)
+    return out
 
 
 def device_kernels(fn):
@@ -1863,24 +1987,25 @@ def top_kernels(fn, k=15):
 
 def phase_compiled(cells, dev):
     """Phase 7b, the compiled step: ``cells`` maps a name to (config,
-    grays, depths, truth (T, 7) numpy, pose tolerance or None for
-    bit-equality, ATE gate). Each cell runs ``slam_sequence`` from one
-    ``slam_init`` state from CUDA graphs and eagerly with the same
-    per-frame draws. Returns the FAST launches of the graph runs, by
-    cell, and each cell's (config, final state, outputs, truth, gate) of
-    its graph run."""
+    grays, depths, truth (T, 7) numpy, ATE gate of the unpolished
+    trajectory or None, ATE gate of the finalized one). Each cell runs
+    ``slam_sequence`` from one ``slam_init`` state from CUDA graphs and
+    eagerly with the same per-frame draws, each mode twice: the four runs
+    must end bit-equal. Returns the FAST launches of the graph runs, by
+    cell, each cell's (config, final state, outputs, truth, gate) of its
+    graph run, and its segment-sum launches a frame by mode."""
     import numpy as np
 
     from putslam_tpu_torch.eval import ate as ate_mod
     from putslam_tpu_torch.models import compiled, slam
-    from putslam_tpu_torch.ops import fast_cuda
+    from putslam_tpu_torch.ops import fast_cuda, segment
     from putslam_tpu_torch.utils import graph_cond
 
     def fmt(x, spec):
         return "not measured" if x is None else format(x, spec)
 
-    launches, finals = {}, {}
-    for tag, (c, g, d, truth, pose_tol, gate) in cells.items():
+    launches, finals, seg_rows = {}, {}, {}
+    for tag, (c, g, d, truth, gate_before, gate) in cells.items():
         n = g.shape[0] - 1
         state0 = slam.slam_init(c, g[0], d[0],
                                 torch.as_tensor(truth[0], device=dev))
@@ -1900,7 +2025,9 @@ def phase_compiled(cells, dev):
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
             nodes = graph_cond.launches - nodes
+            segment.reset_launch_count()
             (st, outs), dt, n_launch = timed(run, fast_cuda.fast_score_nms)
+            n_seg = segment.launch_count()
             (_, outs2), n_sync = count_syncs(run)
             kernels, dev_ms = device_kernels(lambda: run(COMPILED_PROFILED))
             poses = np.concatenate([truth[:1], outs.pose.cpu().numpy()])
@@ -1909,7 +2036,7 @@ def phase_compiled(cells, dev):
                 fin, slam._outputs_to_numpy(outs)).cpu().numpy()])
             rows[mode] = r = dict(
                 outs=outs, state=st, s=dt, launches=n_launch,
-                syncs=n_sync / n,
+                syncs=n_sync / n, seg=n_seg / n,
                 spread=float((outs.pose - outs2.pose).abs().max()),
                 ate_b=ate_mod.ate_rmse_aligned_frames(truth, poses),
                 ate_f=ate_mod.ate_rmse_aligned_frames(truth, after))
@@ -1934,7 +2061,8 @@ def phase_compiled(cells, dev):
                   f"{1e3 * dt / n:.2f} ms a frame; host syncs a frame {r['syncs']:.2f}; kernels a frame "
                   f"{fmt(per, '.1f')}, device {fmt(dev_f, '.3f')} ms a "
                   f"frame, busy share {fmt(busy, '.3f')} (profiler, frames "
-                  f"1-{COMPILED_PROFILED}); FAST launches {n_launch}; "
+                  f"1-{COMPILED_PROFILED}); FAST launches {n_launch}, "
+                  f"segment sums {n_seg} ({n_seg / n:.2f} a frame); "
                   f"keyframes {int(outs.is_keyframe.sum())}, BA calls "
                   f"{int(outs.ba_ran.sum())}; ATE {r['ate_b']:.5f} m, "
                   f"finalized {r['ate_f']:.5f} m{extra}", flush=True)
@@ -1958,17 +2086,22 @@ def phase_compiled(cells, dev):
               flush=True)
         check(same_before, f"{tag}: graph poses differ from eager before "
               f"the first BA (frame {first_ba + 1})")
-        if pose_tol is None:
-            check(torch.equal(eager["outs"].pose, graph["outs"].pose),
-                  f"{tag}: graph poses not bit-equal to eager ({dpose})")
-            check(graph["ate_b"] < gate,
-                  f"{tag}: graph ATE {graph['ate_b']:.5f} m over {gate}")
-        else:
-            check(dpose <= pose_tol, f"{tag}: graph poses {dpose} from eager "
-                  f"(tolerance {pose_tol})")
+        check(torch.equal(eager["outs"].pose, graph["outs"].pose),
+              f"{tag}: graph poses not bit-equal to eager ({dpose})")
+        for mode in ("eager", "graph"):
+            check(rows[mode]["spread"] == 0.0, f"{tag} {mode}: two runs "
+                  f"{rows[mode]['spread']} apart")
+        if gate_before is not None:
+            check(graph["ate_b"] < gate_before, f"{tag}: graph ATE "
+                  f"{graph['ate_b']:.5f} m over {gate_before}")
         check(graph["ate_f"] < gate,
               f"{tag}: graph finalized ATE {graph['ate_f']:.5f} m over {gate}")
+        if bool(ba.any()):
+            check(graph["seg"] > 0 and eager["seg"] > 0,
+                  f"{tag}: {graph['seg']} segment sums a frame replayed, "
+                  f"{eager['seg']} eager, with {int(ba.sum())} BA calls")
         launches[tag] = graph["launches"]
+        seg_rows[tag] = {m: rows[m]["seg"] for m in rows}
         finals[tag] = (c, graph["state"], graph["outs"], truth, gate)
         compiled.clear_cache()
     # what the retry ladder's two widened passes, run on every frame, cost:
@@ -1998,7 +2131,7 @@ def phase_compiled(cells, dev):
               f"{100 * ms / top_ms:5.1f} % {calls / COMPILED_PROFILED:6.1f} "
               f"calls a frame  {name[:110]}", flush=True)
     compiled.clear_cache()
-    return launches, finals
+    return launches, finals, seg_rows
 
 
 def skipped_iterations(chi2, ratio):
@@ -2024,20 +2157,23 @@ def skipped_iterations(chi2, ratio):
 def phase_compiled_end(cells, dev):
     """Phase 18, the compiled end of the run: ``cells`` maps a name to
     (config, final state, its run's outputs (frames 1 on), truth (T, 7),
-    ATE gate, pose tolerance against eager or None). On each state
+    ATE gate). On each state
     ``finalize`` runs eagerly (``graph=False``: each Gauss-Newton iteration's
     stop read on the host) and replayed from its CUDA graph
     (``compiled.FinalizeGraphs``, captured on the first call): ms of the
     first call and of a warm one, host syncs of a warm call (sync-debug
     count), kernels and device ms (torch.profiler), IF nodes, capture s,
-    pools MiB, Gauss-Newton iterations skipped; graph against eager poses
-    (within the cell's tolerance where it has one) and the finalized ATE
-    of both over frames 1 on (the graph's under the gate). Then ``check_trajectory`` on
+    pools MiB, Gauss-Newton iterations skipped, segment sums; graph
+    against eager: the same poses, landmarks kept and observations pruned,
+    bit for bit; the finalized ATE of both over frames 1 on (the graph's
+    under the gate). Returns the segment sums of a call by cell and mode.
+    Then ``check_trajectory`` on
     the card against the CPU on the first cell's polished map with
     odometry edges added and three keyframes moved by 0.5 m."""
     from putslam_tpu_torch.eval import ate as ate_mod
     from putslam_tpu_torch.geometry import se3
     from putslam_tpu_torch.models import compiled, slam
+    from putslam_tpu_torch.ops import segment
     from putslam_tpu_torch.utils import control, graph_cond
 
     def fmt(x, spec):
@@ -2051,7 +2187,8 @@ def phase_compiled_end(cells, dev):
         return out, 1e3 * (time.perf_counter() - t0)
 
     compiled.clear_cache()
-    for tag, (c, st, outs, truth, gate, pose_tol) in cells.items():
+    seg_rows = {}
+    for tag, (c, st, outs, truth, gate) in cells.items():
         kv = st.map.kf_valid
         n_free = int(kv.sum()) - 1
         fins, rows = {}, {}
@@ -2063,7 +2200,9 @@ def phase_compiled_end(cells, dev):
                 return slam.finalize(c, st, graph=graph)
             fin, first_ms = wall(call)
             nodes = graph_cond.launches - nodes
+            segment.reset_launch_count()
             _, warm_ms = wall(call)
+            n_seg = segment.launch_count()
             _, n_sync = count_syncs(call)
             kernels, dev_ms = device_kernels(call)
             if graph:
@@ -2086,7 +2225,9 @@ def phase_compiled_end(cells, dev):
             after = slam.reanchor_trajectory(fin, outs).cpu().numpy()
             ate_f = ate_mod.ate_rmse_aligned_frames(truth[1:],
                                                     after[:len(truth) - 1])
-            fins[mode], rows[mode] = fin, dict(warm_ms=warm_ms, ate=ate_f)
+            fins[mode], rows[mode] = fin, dict(warm_ms=warm_ms, ate=ate_f,
+                                               seg=n_seg)
+            check(n_seg > 0, f"{tag} finalize {mode}: no segment sum")
             busy = None if dev_ms is None else dev_ms / warm_ms
             print(f"[18] {tag} finalize {mode} ({n_free} free keyframes of "
                   f"K={st.map.kf_pose.shape[0]}, {c.backend.solver}): first "
@@ -2095,7 +2236,8 @@ def phase_compiled_end(cells, dev):
                   f"{fmt(dev_ms, '.2f')} ms, busy share {fmt(busy, '.3f')} "
                   f"(profiler); Gauss-Newton iterations skipped "
                   f"{skipped[0]} + {skipped[1]} of "
-                  f"2 x {c.backend.final_gn_iterations}; finalized ATE "
+                  f"2 x {c.backend.final_gn_iterations}; segment sums "
+                  f"{n_seg}; finalized ATE "
                   f"{ate_f:.5f} m{extra}", flush=True)
             if graph:
                 check(n_sync == 0, f"{tag}: {n_sync} host syncs in the "
@@ -2107,13 +2249,17 @@ def phase_compiled_end(cells, dev):
         same_masks = (torch.equal(g.map.lm_valid, e.map.lm_valid),
                       int((g.graph.obs_valid != e.graph.obs_valid).sum()))
         print(f"[18] {tag}: graph / eager {rows['eager']['warm_ms'] / rows['graph']['warm_ms']:.2f}x "
-              f"(warm); keyframe poses graph against eager {dpose:.3e}"
-              f"{'' if pose_tol is None else f' (tolerance {pose_tol})'}; "
+              f"(warm); keyframe poses graph against eager {dpose:.3e}; "
               f"lm_valid equal {same_masks[0]}, observations pruned "
               f"differently {same_masks[1]}", flush=True)
-        if pose_tol is not None:
-            check(dpose <= pose_tol, f"{tag}: replayed finalize {dpose:.2e} "
-                  f"from eager (tolerance {pose_tol})")
+        check(torch.equal(g.map.kf_pose[kv], e.map.kf_pose[kv])
+              and same_masks == (True, 0)
+              and torch.equal(g.map.lm_pos[g.map.lm_valid],
+                              e.map.lm_pos[e.map.lm_valid]),
+              f"{tag}: replayed finalize {dpose:.2e} from eager, lm_valid "
+              f"equal {same_masks[0]}, {same_masks[1]} observations pruned "
+              f"differently")
+        seg_rows[tag] = {m: rows[m]["seg"] for m in rows}
 
     # check_trajectory on the card against the CPU, on a map it must repair
     c, st = next(iter(cells.values()))[:2]
@@ -2158,6 +2304,7 @@ def phase_compiled_end(cells, dev):
           f"(tolerance {CHECK_TRAJECTORY_TOL}); {ms_ct:.4f} ms a call (CUDA "
           f"events)", flush=True)
     compiled.clear_cache()
+    return seg_rows
 
 
 def main() -> int:
@@ -2171,6 +2318,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA "
               "card", file=sys.stderr)
         return 1
+    import numpy as np
+
     from putslam_tpu_torch.config import tum_fr1_config
     from putslam_tpu_torch.eval import ate as ate_mod
     from putslam_tpu_torch.frontend import detector
@@ -2178,9 +2327,9 @@ def main() -> int:
     from putslam_tpu_torch.backend import optimize as opt_mod
     from putslam_tpu_torch.slam_map import features_map as fm
     from putslam_tpu_torch.models import slam, vo
-    from putslam_tpu_torch.ops import fast, fast_cuda
+    from putslam_tpu_torch.ops import fast, fast_cuda, segment
     from putslam_tpu_torch import run as run_mod
-    from putslam_tpu_torch.utils import graph_cond
+    from putslam_tpu_torch.utils import control, graph_cond
 
     dev = torch.device("cuda:0")
     name = torch.cuda.get_device_name(0)
@@ -2194,16 +2343,20 @@ def main() -> int:
         builds = [pool.submit(fast_cuda.build, d)
                   for d in [(), *VARIANTS.values()]]
         cond_build = pool.submit(graph_cond.build)
+        seg_build = pool.submit(segment.build)
         lib = builds[0].result()
         for b in builds[1:]:
             b.result()
         cond_lib = cond_build.result()
+        seg_lib = seg_build.result()
     print(f"[2] built {os.path.relpath(lib)} and {len(VARIANTS)} variants, "
-          f"and the conditional-node plumbing {os.path.relpath(cond_lib)}, "
-          f"in {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in fast_cuda.build_log().splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
-            print(f"[2] {line.strip()}", flush=True)
+          f"the segment-sum kernel {os.path.relpath(seg_lib)} and the "
+          f"conditional-node plumbing {os.path.relpath(cond_lib)}, in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for log in (fast_cuda.build_log(), segment.build_log()):
+        for line in log.splitlines():
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                print(f"[2] {line.strip()}", flush=True)
 
     # ---- 3. kernel vs plain at the fr1 shapes ------------------------------
     cfg = tum_fr1_config()
@@ -2357,14 +2510,18 @@ def main() -> int:
     slam.run_slam_final(cfg, grays, depths, init_pose=gt[0], device=dev)
     torch.cuda.synchronize()
     fast_cuda.fast_score_nms.launches = 0
+    segment.reset_launch_count()
     t0 = time.perf_counter()
     pb, pa, outs, state = slam.run_slam_final(cfg, grays, depths,
                                               init_pose=gt[0], device=dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = fast_cuda.fast_score_nms.launches
+    seg_launches = segment.launch_count()
     check(launches == N_FRAMES,
           f"kernel launches {launches} != {N_FRAMES} (one per frame)")
+    # the bench makes no keyframe (ROADMAP 3j): its BA is finalize's
+    check(seg_launches > 0, "the main path launched no segment sum")
     ate_before = ate_mod.ate_rmse_aligned_frames(gt, pb)
     ate_final = ate_mod.ate_rmse_aligned_frames(gt, pa)
     check(pa.shape == (N_FRAMES, 7) and bool(torch.isfinite(
@@ -2374,7 +2531,8 @@ def main() -> int:
           f"{ATE_GATE_M} m")
     print(f"[5] fr1 {N_FRAMES}-frame orbit, run_slam_final: {dt:.3f} s, "
           f"{N_FRAMES / dt:.2f} SLAM frames/s, {1e3 * dt / N_FRAMES:.2f} "
-          f"ms/frame (incl. finalize); kernel launches {launches}; "
+          f"ms/frame (incl. finalize); kernel launches {launches}, "
+          f"segment sums {seg_launches} (finalize's); "
           f"keyframes {int(outs.is_keyframe.sum())}, BA calls "
           f"{int(outs.ba_ran.sum())}, landmarks {int(outs.n_landmarks[-1])}; "
           f"ATE before final {ate_before:.5f} m, final {ate_final:.5f} m "
@@ -2388,12 +2546,13 @@ def main() -> int:
     kf_cfg = cfg.replace(map=dataclasses.replace(cfg.map,
                                                  min_keyframe_matches=10_000))
     fast_cuda.fast_score_nms.launches = 0
-    torch.cuda.synchronize()
+    segment.reset_launch_count()
     t0 = time.perf_counter()
     pb2, pa2, outs2, state2 = slam.run_slam_final(kf_cfg, grays, depths,
                                                   init_pose=gt[0], device=dev)
     torch.cuda.synchronize()
     dt2 = time.perf_counter() - t0
+    seg_launches2 = segment.launch_count()
     check(fast_cuda.fast_score_nms.launches == launches,
           "keyframe-dense run: wrong kernel launch count")
     n_ba = int(outs2.ba_ran.sum())
@@ -2402,10 +2561,35 @@ def main() -> int:
     ate2_f = ate_mod.ate_rmse_aligned_frames(gt, pa2)
     check(ate2_b < ATE_GATE_M and ate2_f < ATE_GATE_M,
           f"keyframe-dense ATE {ate2_b:.5f} / {ate2_f:.5f} m over the gate")
+    check(seg_launches2 > seg_launches, f"keyframe-dense run: "
+          f"{seg_launches2} segment sums, the bench's finalize alone "
+          f"{seg_launches}")
     print(f"[5b] keyframe-dense: {dt2:.3f} s, {N_FRAMES / dt2:.2f} SLAM "
           f"frames/s; keyframes {int(outs2.is_keyframe.sum())}, BA calls "
-          f"{n_ba}, landmarks {int(outs2.n_landmarks[-1])}; ATE before final "
-          f"{ate2_b:.5f} m, final {ate2_f:.5f} m", flush=True)
+          f"{n_ba}, landmarks {int(outs2.n_landmarks[-1])}; segment sums "
+          f"{seg_launches2}; ATE before final {ate2_b:.5f} m, final "
+          f"{ate2_f:.5f} m", flush=True)
+
+    # ---- 5c. the segment-sum kernel on the sums of real solves ------------
+    def one_iteration(c, fn):
+        c = c.replace(backend=dataclasses.replace(
+            c.backend, gn_iterations=1, final_gn_iterations=1))
+
+        def run():
+            with control.branching("host"):
+                fn(c)
+        return run
+
+    seg_rows = phase_segment_sum({
+        "finalize of phase 5's state (the main path)": one_iteration(
+            cfg, lambda c: slam.finalize_map(c, state.map, state.graph)),
+        "finalize of phase 5b's map": one_iteration(
+            kf_cfg, lambda c: slam.finalize_map(c, state2.map,
+                                                state2.graph)),
+        "the in-loop BA of phase 5b's map": one_iteration(
+            kf_cfg, lambda c: slam.bundle_adjust(c, state2.map,
+                                                 state2.graph))}, dev)
+    main_seg = next(iter(seg_rows.values()))
 
     # ---- 6. the CLI ---------------------------------------------------------
     five = FIVE_FILES
@@ -2443,12 +2627,19 @@ def main() -> int:
                 max_keyframes=64, min_keyframe_matches=10_000),
             loop_closure=dataclasses.replace(cfg.loop_closure,
                                              enabled=enabled, tail_skip=10))
-        (pb_r, pa_r, outs_r, st_r), dt_r, n_launch = timed(
-            lambda: slam.run_slam_final(lc_cfg, grays_r, depths_r,
-                                        init_pose=gt_r[0], device=dev),
-            counter)
+        def lc_run():
+            return slam.run_slam_final(lc_cfg, grays_r, depths_r,
+                                       init_pose=gt_r[0], device=dev)
+        (pb_r, pa_r, outs_r, st_r), dt_r, n_launch = timed(lc_run, counter)
+        segment.reset_launch_count()
+        # the same run again (its graphs are captured): the same bits
+        pb_r2, pa_r2 = lc_run()[:2]
+        n_seg = segment.launch_count()
         check(n_launch == LC_FRAMES,
               f"LC {enabled}: kernel launches {n_launch}")
+        check(np.array_equal(pa_r, pa_r2) and np.array_equal(pb_r, pb_r2),
+              f"LC {enabled}: a second run of the sequence ends elsewhere "
+              f"({float(np.abs(pa_r - pa_r2).max()):.3e} m)")
         check(bool(torch.isfinite(torch.as_tensor(pa_r)).all()),
               "LC run: trajectory not finite")
         _, n_sync = count_syncs(lambda: slam.run_slam(
@@ -2458,7 +2649,11 @@ def main() -> int:
             ba=int(outs_r.ba_ran.sum()),
             ate_b=ate_mod.ate_rmse_aligned_frames(gt_r, pb_r),
             ate_f=ate_mod.ate_rmse_aligned_frames(gt_r, pa_r),
+            ate_f2=ate_mod.ate_rmse_aligned_frames(gt_r, pa_r2),
             syncs=n_sync / (LC_FRAMES - 1))
+        check(lc[enabled]["ate_f"] == lc[enabled]["ate_f2"],
+              f"LC {enabled}: final ATE {lc[enabled]['ate_f']!r} then "
+              f"{lc[enabled]['ate_f2']!r}")
         print(f"[7] revisit {LC_FRAMES} frames, loop closure "
               f"{'on' if enabled else 'off'}: {dt_r:.3f} s, "
               f"{LC_FRAMES / dt_r:.2f} SLAM frames/s, "
@@ -2466,8 +2661,9 @@ def main() -> int:
               f"keyframes {lc[enabled]['kf']}, BA calls {lc[enabled]['ba']}, "
               f"LC edges {lc[enabled]['edges']}; ATE before final "
               f"{lc[enabled]['ate_b']:.5f} m, final {lc[enabled]['ate_f']:.5f}"
-              f" m; host syncs per frame in run_slam "
-              f"{lc[enabled]['syncs']:.2f}", flush=True)
+              f" m (run again: {lc[enabled]['ate_f2']!r} m, bit-identical "
+              f"trajectory; {n_seg} segment sums); host syncs per frame in "
+              f"run_slam {lc[enabled]['syncs']:.2f}", flush=True)
     check(lc[False]["edges"] == 0, "loop closure off made LC edges")
     check(lc[True]["edges"] >= 1, "loop closure on made no accepted edge")
     check(lc[True]["ate_f"] < LC_ATE_GATE_M,
@@ -2475,11 +2671,10 @@ def main() -> int:
 
     # ---- 7b. the compiled step: eager against CUDA graphs ------------------
     t7b = time.perf_counter()
-    n7b, finals7b = phase_compiled({
-        "bench": (cfg, grays, depths, gt, None, ATE_GATE_M),
-        "keyframe_dense": (kf_cfg, grays, depths, gt, COMPILED_POSE_TOL,
-                           ATE_GATE_M),
-        "revisit_lc": (lc_cfg, grays_r, depths_r, gt_r, COMPILED_POSE_TOL,
+    n7b, finals7b, seg7b = phase_compiled({
+        "bench": (cfg, grays, depths, gt, ATE_GATE_M, ATE_GATE_M),
+        "keyframe_dense": (kf_cfg, grays, depths, gt, None, ATE_GATE_M),
+        "revisit_lc": (lc_cfg, grays_r, depths_r, gt_r, None,
                        LC_ATE_GATE_M)}, dev)
     print(f"[7b] wall {time.perf_counter() - t7b:.1f} s", flush=True)
 
@@ -2633,14 +2828,12 @@ def main() -> int:
               f"phase 17 {t_end - t17:.1f} s", flush=True)
         # ---- 18. the compiled end of the run -----------------------------
         t18 = time.perf_counter()
-        # 7b's keyframe-dense final states, gated by ATE alone (3ac: with
-        # 64 free keyframes eager and graph part by more than the atomics)
-        cells18 = {tag: finals7b[tag] + (None,)
+        # 7b's keyframe-dense final states and 16c's handheld one
+        cells18 = {tag: finals7b[tag]
                    for tag in ("keyframe_dense", "revisit_lc")}
-        cells18["handheld"] = (cfg, st_h, outs_h, h_gt, ATE_GATE_M,
-                               FINALIZE_DIST_TOL)
+        cells18["handheld"] = (cfg, st_h, outs_h, h_gt, ATE_GATE_M)
         del finals7b
-        phase_compiled_end(cells18, dev)
+        seg18 = phase_compiled_end(cells18, dev)
         t_end = time.perf_counter()
         print(f"[18] wall {t_end - t18:.1f} s; the whole script "
               f"{t_end - t_start:.1f} s", flush=True)
@@ -2676,6 +2869,26 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "device_us_profiler": us_new,
+    }, {
+        "name": "segment_sum",
+        "route": "cuda",
+        "source": "putslam_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "none: not a TPU kernel (the one-hot products of "
+                    "putslam_tpu/backend/optimize.py:397-408, :476-503, "
+                    "which XLA ran)",
+        "launches": seg_launches,
+        "launches_keyframe_dense": seg_launches2,
+        "launches_per_frame_compiled_step": seg7b,
+        "launches_per_finalize": seg18,
+        "launches_per_iteration": main_seg["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in seg_rows.values()),
+        "ms": main_seg["ms"],
+        "plain_ms": main_seg["plain_ms"],
+        "bound_ms": main_seg["bound_ms"],
+        "bound_by": main_seg["bound_by"],
+        "library_ms": main_seg["library_ms"],
+        "plan_ms": main_seg["plan_ms"],
+        "device_us_profiler": main_seg["own_us"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,16 @@ gradients on the reduced camera system, matrix-free). ``dense_schur`` and
 ``pcg`` run every iteration (no chi² termination), as the JAX package's do.
 The behaviour is the JAX package's; the formulation is the GPU's: the
 one-hot matmuls that fed the TPU's MXU are gathers (``index_select``) and
-segment sums (``index_add_``) here, and ``dense_schur``'s 2-D scatters
-(``.at[kf, lm].add``) are ``index_add_`` on a flattened K·L axis.
+segment sums here, and ``dense_schur``'s 2-D scatters (``.at[kf, lm].add``)
+are segment sums on a flattened K·L axis. Every floating-point segment sum
+goes through an ``ops/segment.py::SegmentPlan``, built once per call
+before the Gauss-Newton loop (the index sets do not change inside it), as
+the JAX package builds its one-hot matrices once: the rows of a segment are
+added in ascending order (the CPU's ``index_add_``; on the card the
+hand-written ``csrc/segment_sum.cu``), so a solve gives the same bits on
+every run, eager or replayed from a CUDA graph. Where several scatters
+feed one buffer (the pose-pose edges after the observations), their rows
+are concatenated in the order the scatters ran and summed by one plan.
 
 ``gauss_newton_mm``:
 
@@ -21,8 +29,7 @@ the landmark block (the first ≤ ``ba_lm_block`` valid landmarks). Index
 
 Precision contract (``gauss_newton_mm``'s docstring): the whitened coupling
 G (6·KC × 3·LC) is built in float32, rounded to bfloat16, upcast and
-squared with a float32 matmul; the gradient stays exact float32. On CUDA
-``index_add_`` sums with atomics, in an order that changes between runs.
+squared with a float32 matmul; the gradient stays exact float32.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from putslam_tpu_torch.backend.graph import GraphState
 from putslam_tpu_torch.config import BackendConfig, CameraConfig
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.geometry.uncertainty import chol3x3, inv3x3
+from putslam_tpu_torch.ops.segment import SegmentPlan
 from putslam_tpu_torch.utils import control
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows
 
@@ -139,11 +147,59 @@ def _final_sq_errors(bcfg: BackendConfig, kf_pose, lm_pos, lm_valid,
     return w_info * torch.sum(r * r, dim=-1)
 
 
-def _segment_sum(x, idx, n: int):
-    """(M, ...) rows summed into n groups by idx ∈ [0, n] (n = dropped)."""
-    out = torch.zeros((n + 1,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    out.index_add_(0, idx, x)
-    return out[:n]
+def _live(idx, gate, n: int):
+    """``idx`` where ``gate`` holds, else the sentinel n. A plan's rows
+    whose gate is off carry zero weight, so every term they would add is
+    ±0, which leaves a sum that starts at +0 unchanged: they go to the
+    dropped segment rather than lengthen a real one (the empty slots of
+    the stores point at slot 0)."""
+    return torch.where(gate, idx, torch.full_like(idx, n))
+
+
+def _pair_key(a, b, n: int):
+    """a·n + b for a pair of slots in [0, n]; n·n (dropped) where either is
+    the sentinel n."""
+    return torch.where((a < n) & (b < n), a * n + b, torch.full_like(a, n * n))
+
+
+def _pp_pairs(pi, pj):
+    """The (row, column) slot lists of a pose-pose edge's four Hessian
+    blocks, in the order their rows are summed: ii, jj, ij, ji."""
+    return ((pi, pi), (pj, pj), (pi, pj), (pj, pi))
+
+
+def _pp_blocks(wpp, Ji, Jj):
+    """The four weighted Hessian blocks of each pose-pose edge, stacked in
+    the order of ``_pp_pairs``: (4E, 6, 6)."""
+    return torch.cat([torch.einsum("e,eri,erj->eij", wpp, Ja, Jb)
+                      for Ja, Jb in ((Ji, Ji), (Jj, Jj), (Ji, Jj), (Jj, Ji))])
+
+
+def _pp_gradients(wpp, Ji, Jj, r6):
+    """The gradient rows of each pose-pose edge at its two ends: (2E, 6),
+    the i ends first."""
+    return torch.cat([-torch.einsum("e,eri,er->ei", wpp, Ji, r6),
+                      -torch.einsum("e,eri,er->ei", wpp, Jj, r6)])
+
+
+def hessian_plan(diag, n: int, pi=None, pj=None) -> SegmentPlan:
+    """The plan of a pose Hessian (n·n blocks of 6×6): one row per slot of
+    ``diag`` on the diagonal, then, given edge ends ``pi`` / ``pj``, the four
+    blocks of each pose-pose edge (``_pp_blocks``); a slot at the sentinel n
+    is dropped."""
+    keys = [_pair_key(diag, diag, n)]
+    if pi is not None:
+        keys += [_pair_key(a, b, n) for a, b in _pp_pairs(pi, pj)]
+    return SegmentPlan(torch.cat(keys), n * n)
+
+
+def coupling_plan(obs_kf, obs_lm, K: int, L: int) -> SegmentPlan:
+    """The plan of the coupling G (K·L blocks of 6×3) over (kf, lm) of each
+    observation; kf = K or lm = L is dropped."""
+    obs_kf, obs_lm = obs_kf.long(), obs_lm.long()
+    key = torch.where((obs_kf < K) & (obs_lm < L), obs_kf * L + obs_lm,
+                      torch.full_like(obs_kf, K * L))
+    return SegmentPlan(key, K * L)
 
 
 def _gather_pad(x, idx):
@@ -163,6 +219,25 @@ def _assemble_obs(bcfg: BackendConfig, kf_pose, lm_pos, lm_valid,
                       _whitening_chol(g) if _whitens(bcfg) else None, cam)
 
 
+def _pp_gate(g: GraphState, kf_gen):
+    """Live pose-pose edges: valid, both generations current."""
+    gate = g.pp_valid
+    if kf_gen is not None:
+        gate = gate & (g.pp_gen_i == kf_gen[g.pp_i]) \
+            & (g.pp_gen_j == kf_gen[g.pp_j])
+    return gate
+
+
+def _live_slots(g: GraphState, K: int, L: int, lm_valid, lm_gen, kf_gen):
+    """The plans' indices of an unwindowed solve: (keyframe, landmark) of
+    each live observation and (i, j) of each live pose-pose edge, the
+    sentinel K or L elsewhere (``_live``)."""
+    live = _obs_gate(g, lm_valid, lm_gen, kf_gen)
+    pp_live = _pp_gate(g, kf_gen)
+    return (_live(g.obs_kf.long(), live, K), _live(g.obs_lm.long(), live, L),
+            _live(g.pp_i.long(), pp_live, K), _live(g.pp_j.long(), pp_live, K))
+
+
 def _pp_terms(bcfg: BackendConfig, g: GraphState, kf_pose, kf_gen):
     """Pose-pose edges with stale-generation masking: (r6, Ji, Jj, wpp,
     sq_pp)."""
@@ -170,11 +245,7 @@ def _pp_terms(bcfg: BackendConfig, g: GraphState, kf_pose, kf_gen):
     pj = kf_pose[g.pp_j]
     r6 = factors.pp_residual(pi, pj, g.pp_rel)
     Ji, Jj = factors.pp_jacobians(pi, pj, g.pp_rel)
-    gate = g.pp_valid
-    if kf_gen is not None:
-        gate = gate & (g.pp_gen_i == kf_gen[g.pp_i]) \
-            & (g.pp_gen_j == kf_gen[g.pp_j])
-    wpp_info = g.pp_w * gate
+    wpp_info = g.pp_w * _pp_gate(g, kf_gen)
     sq_pp = wpp_info * torch.sum(r6 * r6, dim=-1)
     wpp = wpp_info * factors.robust_weight(sq_pp, bcfg.robust_kernel,
                                            bcfg.robust_delta)
@@ -237,41 +308,32 @@ def gauss_newton(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
     """``dense_schur``: ``bcfg.gn_iterations`` Gauss-Newton steps over the
     full K keyframes and L landmarks with a dense (K, L, 6, 3) coupling
     buffer — 1.2 MB at the tiny config, 151 MB at fr1 (K = 256, L = 8192).
-    The 2-D scatters are ``index_add_`` on a flattened K·L (K·K) axis."""
+    The 2-D scatters are segment sums on a flattened K·L (K·K) axis."""
     check_backend_config(bcfg)
-    dev = kf_pose.device
     K = kf_pose.shape[0]
     L = lm_pos.shape[0]
     lam = bcfg.damping
-    f32 = torch.float32
-    kf = g.obs_kf.long()
     lm = g.obs_lm.long()
-    pi = g.pp_i.long()
-    pj = g.pp_j.long()
     frozen = fixed_kf | ~kf_valid
+    kf_l, lm_l, pi_l, pj_l = _live_slots(g, K, L, lm_valid, lm_gen, kf_gen)
+    cc_plan = hessian_plan(kf_l, K, pi_l, pj_l)
+    cl_plan = coupling_plan(kf_l, lm, K, L)
+    lm_plan = SegmentPlan(lm_l, L)
+    c_plan = SegmentPlan(torch.cat([kf_l, pi_l, pj_l]), K)
     chi2s = []
     for _ in range(bcfg.gn_iterations):
         r, Jp, Jl, w, sq = _assemble_obs(bcfg, kf_pose, lm_pos, lm_valid, g,
                                          lm_gen, kf_gen, cam)
-        chi2 = torch.sum(sq)
-        H_cc = torch.zeros((K * K, 6, 6), dtype=f32, device=dev)
-        H_cc.index_add_(0, kf * K + kf,
-                        torch.einsum("m,mri,mrj->mij", w, Jp, Jp))
-        H_ll = _segment_sum(torch.einsum("m,mri,mrj->mij", w, Jl, Jl), lm, L)
-        H_cl = torch.zeros((K * L, 6, 3), dtype=f32, device=dev)
-        H_cl.index_add_(0, kf * L + lm,
-                        torch.einsum("m,mri,mrj->mij", w, Jp, Jl))
-        b_c = _segment_sum(-torch.einsum("m,mri,mr->mi", w, Jp, r), kf, K)
-        b_l = _segment_sum(-torch.einsum("m,mri,mr->mi", w, Jl, r), lm, L)
-
         r6, Ji, Jj, wpp, sq_pp = _pp_terms(bcfg, g, kf_pose, kf_gen)
-        chi2 = chi2 + torch.sum(sq_pp)
-        for a, b, Ja, Jb in ((pi, pi, Ji, Ji), (pj, pj, Jj, Jj),
-                             (pi, pj, Ji, Jj), (pj, pi, Jj, Ji)):
-            H_cc.index_add_(0, a * K + b,
-                            torch.einsum("e,eri,erj->eij", wpp, Ja, Jb))
-        b_c.index_add_(0, pi, -torch.einsum("e,eri,er->ei", wpp, Ji, r6))
-        b_c.index_add_(0, pj, -torch.einsum("e,eri,er->ei", wpp, Jj, r6))
+        chi2 = torch.sum(sq) + torch.sum(sq_pp)
+        H_cc = cc_plan.sum(torch.cat([
+            torch.einsum("m,mri,mrj->mij", w, Jp, Jp),
+            _pp_blocks(wpp, Ji, Jj)]))
+        H_ll = lm_plan.sum(torch.einsum("m,mri,mrj->mij", w, Jl, Jl))
+        H_cl = cl_plan.sum(torch.einsum("m,mri,mrj->mij", w, Jp, Jl))
+        b_c = c_plan.sum(torch.cat([-torch.einsum("m,mri,mr->mi", w, Jp, r),
+                                    _pp_gradients(wpp, Ji, Jj, r6)]))
+        b_l = lm_plan.sum(-torch.einsum("m,mri,mr->mi", w, Jl, r))
 
         # --- Schur complement over landmarks ----------------------------
         H_ll_inv = _damped_ll_inverse(H_ll, lam)
@@ -315,27 +377,30 @@ def gauss_newton_pcg(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos,
     pj = g.pp_j.long()
     frozen = fixed_kf | ~kf_valid
     eye6 = torch.eye(6, dtype=f32, device=dev)
+    kf_l, lm_l, pi_l, pj_l = _live_slots(g, K, L, lm_valid, lm_gen, kf_gen)
+    kf_plan = SegmentPlan(kf_l, K)
+    lm_plan = SegmentPlan(lm_l, L)
+    c_plan = SegmentPlan(torch.cat([kf_l, pi_l, pj_l]), K)
+    # S·v's pose-pose part: H_cc_diag·v, then the off-diagonal blocks of
+    # the edges at their i ends and at their j ends
+    u_plan = SegmentPlan(torch.cat([torch.arange(K, device=dev), pi_l,
+                                    pj_l]), K)
     chi2s = []
     for _ in range(bcfg.gn_iterations):
         r, Jp, Jl, w, sq = _assemble_obs(bcfg, kf_pose, lm_pos, lm_valid, g,
                                          lm_gen, kf_gen, cam)
-        chi2 = torch.sum(sq)
-        B = torch.einsum("m,mri,mrj->mij", w, Jp, Jl)            # (M, 6, 3)
-        H_cc_diag = _segment_sum(torch.einsum("m,mri,mrj->mij", w, Jp, Jp),
-                                 kf, K)
-        H_ll = _segment_sum(torch.einsum("m,mri,mrj->mij", w, Jl, Jl), lm, L)
-        b_c = _segment_sum(-torch.einsum("m,mri,mr->mi", w, Jp, r), kf, K)
-        b_l = _segment_sum(-torch.einsum("m,mri,mr->mi", w, Jl, r), lm, L)
-
         r6, Ji, Jj, wpp, sq_pp = _pp_terms(bcfg, g, kf_pose, kf_gen)
-        chi2 = chi2 + torch.sum(sq_pp)
+        chi2 = torch.sum(sq) + torch.sum(sq_pp)
+        B = torch.einsum("m,mri,mrj->mij", w, Jp, Jl)            # (M, 6, 3)
+        H_cc_diag = c_plan.sum(torch.cat([
+            torch.einsum("m,mri,mrj->mij", w, Jp, Jp),
+            torch.einsum("e,eri,erj->eij", wpp, Ji, Ji),
+            torch.einsum("e,eri,erj->eij", wpp, Jj, Jj)]))
+        H_ll = lm_plan.sum(torch.einsum("m,mri,mrj->mij", w, Jl, Jl))
+        b_c = c_plan.sum(torch.cat([-torch.einsum("m,mri,mr->mi", w, Jp, r),
+                                    _pp_gradients(wpp, Ji, Jj, r6)]))
+        b_l = lm_plan.sum(-torch.einsum("m,mri,mr->mi", w, Jl, r))
         Hij = torch.einsum("e,eri,erj->eij", wpp, Ji, Jj)
-        H_cc_diag.index_add_(0, pi, torch.einsum("e,eri,erj->eij", wpp, Ji,
-                                                 Ji))
-        H_cc_diag.index_add_(0, pj, torch.einsum("e,eri,erj->eij", wpp, Jj,
-                                                 Jj))
-        b_c.index_add_(0, pi, -torch.einsum("e,eri,er->ei", wpp, Ji, r6))
-        b_c.index_add_(0, pj, -torch.einsum("e,eri,er->ei", wpp, Jj, r6))
 
         H_ll_inv = _damped_ll_inverse(H_ll, lam)
         diag_scale = torch.clamp(torch.max(torch.abs(
@@ -343,13 +408,14 @@ def gauss_newton_pcg(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos,
 
         def S_matvec(v):
             v = torch.where(frozen[:, None], torch.zeros_like(v), v)
-            u = torch.einsum("kij,kj->ki", H_cc_diag, v)
-            u = u.index_add(0, pi, torch.einsum("eij,ej->ei", Hij, v[pj]))
-            u = u.index_add(0, pj, torch.einsum("eji,ej->ei", Hij, v[pi]))
-            t1 = _segment_sum(torch.einsum("mij,mi->mj", B, v[kf]), lm, L)
+            u = u_plan.sum(torch.cat([
+                torch.einsum("kij,kj->ki", H_cc_diag, v),
+                torch.einsum("eij,ej->ei", Hij, v[pj]),
+                torch.einsum("eji,ej->ei", Hij, v[pi])]))
+            t1 = lm_plan.sum(torch.einsum("mij,mi->mj", B, v[kf]))
             t2 = torch.einsum("lab,lb->la", H_ll_inv, t1)
             c = torch.einsum("mij,mj->mi", B, t2[lm])
-            u = u - _segment_sum(c, kf, K) + (lam * diag_scale) * v
+            u = u - kf_plan.sum(c) + (lam * diag_scale) * v
             return torch.where(frozen[:, None], v, u)
 
         M_inv = torch.linalg.inv_ex(
@@ -382,8 +448,7 @@ def gauss_newton_pcg(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos,
                          torch.zeros_like(dc))
         dc_mat = dc.reshape(K, 6)
 
-        Hlc_dc = _segment_sum(torch.einsum("mij,mi->mj", B, dc_mat[kf]), lm,
-                              L)
+        Hlc_dc = lm_plan.sum(torch.einsum("mij,mi->mj", B, dc_mat[kf]))
         dl = torch.einsum("lab,lb->la", H_ll_inv, b_l - Hlc_dc)
         kf_pose, lm_pos = _apply_step(kf_pose, lm_pos, dc_mat, dl, frozen,
                                       lm_valid)
@@ -393,17 +458,18 @@ def gauss_newton_pcg(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos,
     return BAResult(kf_pose, lm_pos, torch.stack(chi2s), sq_final)
 
 
-def schur_subtrahend_mm(obs_kf, obs_lm, F, K: int, L: int):
+def schur_subtrahend_mm(obs_kf, obs_lm, F, K: int, L: int,
+                        plan: SegmentPlan = None):
     """S_sub = G·Gᵀ (6K × 6K) with G[6k+i, 3l+a] = Σ_{m: kf=k, lm=l}
     F[m, i, a], the whitened coupling. Observations with kf = K or lm = L
     are dropped. F and G are rounded to bfloat16 as the reference rounds
     its one-hot products; G·Gᵀ is a float32 matmul of the upcast values
-    (exact products, float32 sums)."""
+    (exact products, float32 sums). ``plan``: ``coupling_plan(obs_kf,
+    obs_lm, K, L)``, built here when not given."""
+    if plan is None:
+        plan = coupling_plan(obs_kf, obs_lm, K, L)
     Fb = F.to(torch.bfloat16).float()                         # (M, 6, 3)
-    G = torch.zeros(((K + 1) * (L + 1), 6, 3), dtype=torch.float32,
-                    device=F.device)
-    G.index_add_(0, obs_kf * (L + 1) + obs_lm, Fb)
-    G = G.view(K + 1, L + 1, 6, 3)[:K, :L].permute(0, 2, 1, 3)
+    G = plan.sum(Fb).view(K, L, 6, 3).permute(0, 2, 1, 3)
     G = G.reshape(K * 6, L * 3).to(torch.bfloat16).float()
     return G @ G.T
 
@@ -463,6 +529,14 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
     gate = _obs_gate(g, lm_valid, lm_gen, kf_gen) & (cl_obs < LC)
     ck_obs = torch.where(cl_obs < LC, ck_obs, torch.full_like(ck_obs, KC))
     Lw = _whitening_chol(g) if _whitens(bcfg) else None
+    ck_l = _live(ck_obs, gate, KC)
+    pp_live = _pp_gate(g, kf_gen)
+    cpp_il, cpp_jl = _live(cpp_i, pp_live, KC), _live(cpp_j, pp_live, KC)
+    kf_plan = SegmentPlan(ck_l, KC)
+    lm_plan = SegmentPlan(_live(cl_obs, gate, LC), LC)
+    cc_plan = hessian_plan(torch.arange(KC, device=dev), KC, cpp_il, cpp_jl)
+    pp_plan = SegmentPlan(torch.cat([cpp_il, cpp_jl]), KC)
+    g_plan = coupling_plan(ck_l, cl_obs, KC, LC)
 
     def do_iteration(kf_pose, lm_pos_c):
         kf_p = kf_pose[g.obs_kf]
@@ -476,40 +550,30 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
         bp = -torch.einsum("m,mri,mr->mi", w, Jp, r)            # (M, 6)
         bl = -torch.einsum("m,mri,mr->mi", w, Jl, r)            # (M, 3)
 
-        H_cc_diag = _segment_sum(JpT_Jp, ck_obs, KC)
-        b_c = _segment_sum(bp, ck_obs, KC)
-        H_ll = _segment_sum(JlT_Jl, cl_obs, LC)
-        b_l = _segment_sum(bl, cl_obs, LC)
+        H_cc_diag = kf_plan.sum(JpT_Jp)
+        b_c = kf_plan.sum(bp)
+        H_ll = lm_plan.sum(JlT_Jl)
+        b_l = lm_plan.sum(bl)
 
         # pose-pose edges: a frozen endpoint lands in the sentinel block,
         # so the edge acts as a prior on the free endpoint
         r6, Ji, Jj, wpp, sq_pp = _pp_terms(bcfg, g, kf_pose, kf_gen)
         chi2 = chi2 + torch.sum(sq_pp)
-        n1 = KC + 1
-        H_cc = torch.zeros((n1 * n1, 6, 6), dtype=f32, device=dev)
-        ar = torch.arange(KC, device=dev)
-        H_cc.index_add_(0, ar * n1 + ar, H_cc_diag)
-        for a, b, Ja, Jb in ((cpp_i, cpp_i, Ji, Ji), (cpp_j, cpp_j, Jj, Jj),
-                             (cpp_i, cpp_j, Ji, Jj), (cpp_j, cpp_i, Jj, Ji)):
-            H_cc.index_add_(0, a * n1 + b,
-                            torch.einsum("e,eri,erj->eij", wpp, Ja, Jb))
-        H_cc = H_cc.view(n1, n1, 6, 6)[:KC, :KC]
-        b_cp = torch.zeros((KC + 1, 6), dtype=f32, device=dev)
-        b_cp.index_add_(0, cpp_i, -torch.einsum("e,eri,er->ei", wpp, Ji, r6))
-        b_cp.index_add_(0, cpp_j, -torch.einsum("e,eri,er->ei", wpp, Jj, r6))
-        b_c = b_c + b_cp[:KC]
+        H_cc = cc_plan.sum(torch.cat([H_cc_diag, _pp_blocks(wpp, Ji, Jj)]))
+        H_cc = H_cc.view(KC, KC, 6, 6)
+        b_c = b_c + pp_plan.sum(_pp_gradients(wpp, Ji, Jj, r6))
 
         # --- landmark elimination ---------------------------------------
         H_ll_inv = _damped_ll_inverse(H_ll, lam)
         Linv = chol3x3(H_ll_inv)
         F = torch.einsum("mia,mab->mib", C, _gather_pad(Linv, cl_obs))
         S = H_cc.permute(0, 2, 1, 3).reshape(KC * 6, KC * 6) \
-            - schur_subtrahend_mm(ck_obs, cl_obs, F, KC, LC)
+            - schur_subtrahend_mm(ck_obs, cl_obs, F, KC, LC, g_plan)
 
         # exact f32 gradient of the reduced system
         t = torch.einsum("lab,lb->la", H_ll_inv, b_l)
         c_m = torch.einsum("mia,ma->mi", C, _gather_pad(t, cl_obs))
-        b_red = (b_c - _segment_sum(c_m, ck_obs, KC)).reshape(KC * 6)
+        b_red = (b_c - kf_plan.sum(c_m)).reshape(KC * 6)
 
         # --- gauge fixing + solve ----------------------------------------
         dc_mat = _solve_reduced(S, b_red, dead_c, lam).reshape(KC, 6)
@@ -519,7 +583,7 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
         # --- landmark back-substitution: δl = H_ll⁻¹ (b_l − H_lc δc) ------
         u_m = torch.einsum("mia,mi->ma", C, _gather_pad(dc_mat, ck_obs))
         dl = torch.einsum("lab,lb->la", H_ll_inv,
-                          b_l - _segment_sum(u_m, cl_obs, LC))
+                          b_l - lm_plan.sum(u_m))
         new_pose, new_lm_c = _apply_step(kf_pose, lm_pos_c, dc_full, dl,
                                          frozen_full, ~lm_dead_c)
         return new_pose, new_lm_c, chi2
@@ -580,25 +644,19 @@ def pose_covariances(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
     K = kf_pose.shape[0]
     L = lm_pos.shape[0]
     lam = bcfg.damping
-    kf = g.obs_kf.long()
     lm = g.obs_lm.long()
     r, Jp, Jl, w, _ = _assemble_obs(bcfg, kf_pose, lm_pos, lm_valid, g,
                                     lm_gen, kf_gen, cam)
     C = torch.einsum("m,mri,mra->mia", w, Jp, Jl)
-    H_cc = torch.zeros((K * K, 6, 6), dtype=kf_pose.dtype, device=dev)
-    H_cc.index_add_(0, kf * K + kf, torch.einsum("m,mri,mrj->mij", w, Jp, Jp))
-    H_ll = _segment_sum(torch.einsum("m,mri,mrj->mij", w, Jl, Jl), lm, L)
     r6, Ji, Jj, wpp, _ = _pp_terms(bcfg, g, kf_pose, kf_gen)
-    pi = g.pp_i.long()
-    pj = g.pp_j.long()
-    for a, b, Ja, Jb in ((pi, pi, Ji, Ji), (pj, pj, Jj, Jj),
-                         (pi, pj, Ji, Jj), (pj, pi, Jj, Ji)):
-        H_cc.index_add_(0, a * K + b,
-                        torch.einsum("e,eri,erj->eij", wpp, Ja, Jb))
+    kf_l, lm_l, pi_l, pj_l = _live_slots(g, K, L, lm_valid, lm_gen, kf_gen)
+    H_cc = hessian_plan(kf_l, K, pi_l, pj_l).sum(torch.cat([
+        torch.einsum("m,mri,mrj->mij", w, Jp, Jp), _pp_blocks(wpp, Ji, Jj)]))
+    H_ll = SegmentPlan(lm_l, L).sum(torch.einsum("m,mri,mrj->mij", w, Jl, Jl))
     Linv = chol3x3(_damped_ll_inverse(H_ll, lam))
     F = torch.einsum("mia,mab->mib", C, Linv[lm])
     S = (H_cc.view(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
-         - schur_subtrahend_mm(kf, lm, F, K, L))
+         - schur_subtrahend_mm(kf_l, lm, F, K, L))
     frozen = fixed_kf | ~kf_valid
     S = _gauge_fixed(S, frozen, lam)
     Lc, info = torch.linalg.cholesky_ex(S)

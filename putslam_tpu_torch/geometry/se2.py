@@ -92,7 +92,8 @@ def optimize_pose_graph(poses: torch.Tensor, edges: Tuple[torch.Tensor, ...],
                           for a in range(3)], dim=-1)
         Jj = torch.stack([(_edge_residual(pi, pj + axes[a], ez) - r0) / eps
                           for a in range(3)], dim=-1)
-        # the scatters of .at[].add: duplicates summed (atomics on CUDA)
+        # the scatters of .at[].add: duplicates summed (on CUDA sorted by
+        # index first, so the same order on every run)
         H = torch.zeros((K, K, 3, 3), dtype=dt, device=dev)
         for r, c, Ja, Jb in ((ei, ei, Ji, Ji), (ej, ej, Jj, Jj),
                              (ei, ej, Ji, Jj), (ej, ei, Jj, Ji)):

@@ -9,6 +9,10 @@ Ties follow the JAX package: ``argmax`` takes the first maximum (as
 among equal values — the ``-inf`` of masked and empty slots included — is a
 stable descending sort cut to k, so the queue's empty slots hold the same
 ``kf_a`` / ``kf_b`` as the JAX package's.
+
+The word histogram is a float ``index_add_`` of 1.0s (and 0.0s), exact in
+any order below 2**24 per word, so it repeats itself on the card without a
+fixed order.
 """
 
 from __future__ import annotations

@@ -43,7 +43,10 @@ step on the same static buffers without graphs (on any device), each
 ``cond`` a host read of its predicate (``control.branching("host")``): the
 CPU tests hold that against the eager step. ``fast_score_nms.launches``
 counts one launch per replay of a graph that holds the FAST kernel (the
-kernel launch a capture records); the warm-up pass is not counted.
+kernel launch a capture records); the warm-up pass is not counted. The
+segment-sum kernel of the solvers counts its own launches on the card
+(``ops/segment.py::launch_count``: those in an IF body run only where the
+card takes the branch); the warm-up's are not counted either.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ from putslam_tpu_torch.frontend.detector import detect_and_describe
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.models import slam as slam_mod
 from putslam_tpu_torch.models import vo as vo_mod
-from putslam_tpu_torch.ops import fast_cuda
+from putslam_tpu_torch.ops import fast_cuda, segment
 from putslam_tpu_torch.utils import control, graph_cond
 from putslam_tpu_torch.utils.control import assign as _assign
 from putslam_tpu_torch.utils.control import clone as _clone
@@ -133,7 +136,7 @@ class _Segment:
         side.wait_stream(torch.cuda.current_stream(r.device))
         counted = fast_cuda.fast_score_nms.launches
         with torch.cuda.stream(side), control.branching("masked"), \
-                control.checking():
+                control.checking(), segment.uncounted():
             self.fn(commit=False)          # lazy initialisation, not a step
         fast_cuda.fast_score_nms.launches = counted
         torch.cuda.current_stream(r.device).wait_stream(side)

@@ -54,6 +54,13 @@ with loop closure, ``lc``. Every one is drawn on every frame
 
 ``LCQueue`` (``loopclosure/bow.py``) and ``EKFState`` (``motion/ekf.py``)
 are re-exported here.
+
+Its scatters stay PyTorch's own, because each is exact in any order, so a
+run repeats itself bit for bit without a fixed order: the matched-feature
+count is an integer ``index_add_``, and the per-landmark inlier flag,
+distance, feature index and validity and the best keyframe age are
+``amin`` / ``amax`` ``scatter_reduce``s. The solvers' float sums are the
+ones that need a fixed order (``ops/segment.py``).
 """
 
 from __future__ import annotations

@@ -31,9 +31,13 @@ functions of the rank and its shard; ``dist_gauss_newton`` runs them for the
 ranks of this process and reduces over the mesh. The Schur subtrahend is
 ``backend/optimize.py::schur_subtrahend_mm``: G rounded to bfloat16 and
 squared in float32, as the reference rounds it (ROADMAP 3d, 3ac); the
-reduced gradient is exact float32. Summation order differs from the JAX
-package's psum (and, on CUDA, from run to run: ``index_add_`` atomics,
-3p), so results agree to a tolerance, not bit for bit.
+reduced gradient is exact float32. Every floating-point segment sum of a
+rank goes through an ``ops/segment.py::SegmentPlan`` (``shard_plans``,
+built once per call, before the Gauss-Newton loop): the same bits on every
+run, on the card as on the CPU. The summation order still differs from
+the JAX package's psum, so results agree with it to a tolerance, not bit
+for bit. ``owner_partition``'s per-rank counts are integer sums, exact in
+any order, and stay an ``index_add_``.
 """
 
 from __future__ import annotations
@@ -47,12 +51,16 @@ from putslam_tpu_torch.backend import optimize as opt_mod
 from putslam_tpu_torch.backend.graph import GraphState
 from putslam_tpu_torch.backend.optimize import (_damped_ll_inverse,
                                                 _gather_pad, _obs_terms,
-                                                _pp_terms, _segment_sum,
-                                                _whitening_chol, _whitens,
+                                                _live, _pp_blocks,
+                                                _pp_gate, _pp_gradients,
+                                                _pp_terms, _whitening_chol,
+                                                _whitens, coupling_plan,
+                                                hessian_plan,
                                                 schur_subtrahend_mm)
 from putslam_tpu_torch.config import BackendConfig, CameraConfig
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.geometry.uncertainty import chol3x3
+from putslam_tpu_torch.ops.segment import SegmentPlan
 from putslam_tpu_torch.utils.device import as_numpy
 
 
@@ -117,9 +125,50 @@ def make_shard(g: GraphState, idx, inb, rank: int, K: int, Ls: int) -> Shard:
     return Shard(gs, kf, lm)
 
 
+class ShardPlans(NamedTuple):
+    """The segment plans of one rank's sums (``ops/segment.py``)."""
+    kf: SegmentPlan        # the shard's keyframes (K)
+    lm: SegmentPlan        # its landmarks within the block (Ls)
+    c: SegmentPlan         # the pose gradient: keyframes, then (rank 0)
+    #                        the pose-pose edges' i and j ends (K)
+    hessian: SegmentPlan   # H_cc: the diagonal, then (rank 0) the edges
+    coupling: SegmentPlan  # G over (kf, lm)
+
+
+def _shard_gate(shard: Shard, kf_gen, lm_valid_l, lm_gen_l):
+    """Live observations of a shard: valid, landmark valid, generations
+    current (lanes past the rank's count point at the sentinels)."""
+    gs, kf, lm = shard
+    return (gs.obs_valid & _gather_pad(lm_valid_l, lm)
+            & (gs.obs_gen == _gather_pad(lm_gen_l, lm))
+            & (gs.obs_kfgen == _gather_pad(kf_gen, kf)))
+
+
+def shard_plans(shard: Shard, g: GraphState, rank: int, K: int, Ls: int,
+                live, kf_gen) -> ShardPlans:
+    """The plans of rank ``rank``'s sums over ``shard``, its observations
+    gated by ``live`` (``_shard_gate``); the pose-pose edges of ``g`` are
+    summed on rank 0 alone, gated by ``kf_gen``. A row whose gate is off
+    adds zero and goes to the dropped segment
+    (``backend/optimize.py::_live``)."""
+    ar = torch.arange(K, device=shard.kf.device)
+    kf, lm = _live(shard.kf, live, K), _live(shard.lm, live, Ls)
+    if rank == 0:
+        pp_live = _pp_gate(g, kf_gen)
+        pi, pj = _live(g.pp_i.long(), pp_live, K), _live(g.pp_j.long(),
+                                                        pp_live, K)
+        c = SegmentPlan(torch.cat([kf, pi, pj]), K)
+        hessian = hessian_plan(ar, K, pi, pj)
+    else:
+        c = SegmentPlan(kf, K)
+        hessian = hessian_plan(ar, K)
+    return ShardPlans(SegmentPlan(kf, K), SegmentPlan(lm, Ls), c, hessian,
+                      coupling_plan(kf, shard.lm, K, Ls))
+
+
 def rank_partial(bcfg: BackendConfig, cam: CameraConfig, rank: int,
                  kf_pose, kf_gen, lm_pos_l, lm_valid_l, lm_gen_l,
-                 shard: Shard, g: GraphState):
+                 shard: Shard, g: GraphState, plans: ShardPlans = None):
     """The body of one rank for one Gauss-Newton iteration
     (``putslam_tpu/parallel/dist_ba.py:129-214``): this rank's observation
     factors (whitened with ``use_obs_info``, the reprojection factor with
@@ -127,61 +176,56 @@ def rank_partial(bcfg: BackendConfig, cam: CameraConfig, rank: int,
     its landmark block (``lm_*_l``, Ls rows) and its share of the reduced
     system. Returns (packed (36K² + 6K + 1,): S, b_red, chi² — the buffer
     that is summed over the ranks —, the cache ``rank_landmark_step``
-    reads). The shard carries the cut of the edge store."""
+    reads). The shard carries the cut of the edge store; ``plans``:
+    ``shard_plans`` of it, built here when not given."""
     K = kf_pose.shape[0]
     Ls = lm_pos_l.shape[0]
     lam = bcfg.damping
-    dev = kf_pose.device
     gs, kf, lm = shard
-    gate = (gs.obs_valid & _gather_pad(lm_valid_l, lm)
-            & (gs.obs_gen == _gather_pad(lm_gen_l, lm))
-            & (gs.obs_kfgen == _gather_pad(kf_gen, kf)))
+    gate = _shard_gate(shard, kf_gen, lm_valid_l, lm_gen_l)
     Lw = _whitening_chol(gs) if _whitens(bcfg) else None
     r, Jp, Jl, w, sq = _obs_terms(bcfg, gs, _gather_pad(kf_pose, kf),
                                   _gather_pad(lm_pos_l, lm), gate, Lw, cam)
     chi2 = torch.sum(sq)
     C = torch.einsum("m,mri,mra->mia", w, Jp, Jl)               # (Ms, 6, 3)
-    H_ll = _segment_sum(torch.einsum("m,mri,mrj->mij", w, Jl, Jl), lm, Ls)
-    b_l = _segment_sum(-torch.einsum("m,mri,mr->mi", w, Jl, r), lm, Ls)
-    b_c = _segment_sum(-torch.einsum("m,mri,mr->mi", w, Jp, r), kf, K)
-    H_cc = torch.zeros((K * K, 6, 6), dtype=torch.float32, device=dev)
-    ar = torch.arange(K, device=dev)
-    H_cc.index_add_(0, ar * K + ar, _segment_sum(
-        torch.einsum("m,mri,mrj->mij", w, Jp, Jp), kf, K))
-
+    if plans is None:
+        plans = shard_plans(shard, g, rank, K, Ls, gate, kf_gen)
+    H_ll = plans.lm.sum(torch.einsum("m,mri,mrj->mij", w, Jl, Jl))
+    b_l = plans.lm.sum(-torch.einsum("m,mri,mr->mi", w, Jl, r))
+    H_cc_diag = plans.kf.sum(torch.einsum("m,mri,mrj->mij", w, Jp, Jp))
+    bp = -torch.einsum("m,mri,mr->mi", w, Jp, r)
     if rank == 0:                 # pose-pose edges, then summed to all
         r6, Ji, Jj, wpp, sq_pp = _pp_terms(bcfg, g, kf_pose, kf_gen)
         chi2 = chi2 + torch.sum(sq_pp)
-        pi, pj = g.pp_i.long(), g.pp_j.long()
-        for a, b, Ja, Jb in ((pi, pi, Ji, Ji), (pj, pj, Jj, Jj),
-                             (pi, pj, Ji, Jj), (pj, pi, Jj, Ji)):
-            H_cc.index_add_(0, a * K + b,
-                            torch.einsum("e,eri,erj->eij", wpp, Ja, Jb))
-        b_c.index_add_(0, pi, -torch.einsum("e,eri,er->ei", wpp, Ji, r6))
-        b_c.index_add_(0, pj, -torch.einsum("e,eri,er->ei", wpp, Jj, r6))
+        H_cc = plans.hessian.sum(torch.cat([H_cc_diag,
+                                            _pp_blocks(wpp, Ji, Jj)]))
+        b_c = plans.c.sum(torch.cat([bp, _pp_gradients(wpp, Ji, Jj, r6)]))
+    else:
+        H_cc = plans.hessian.sum(H_cc_diag)
+        b_c = plans.c.sum(bp)
 
     # local elimination: the whitened coupling F through the bf16 G·Gᵀ
     H_ll_inv = _damped_ll_inverse(H_ll, lam)
     F = torch.einsum("mia,mab->mib", C, _gather_pad(chol3x3(H_ll_inv), lm))
     S = (H_cc.view(K, K, 6, 6).permute(0, 2, 1, 3).reshape(K * 6, K * 6)
-         - schur_subtrahend_mm(kf, lm, F, K, Ls))
+         - schur_subtrahend_mm(kf, lm, F, K, Ls, plans.coupling))
     # exact f32 gradient of the reduced system
     t = torch.einsum("lab,lb->la", H_ll_inv, b_l)
     c_m = torch.einsum("mia,ma->mi", C, _gather_pad(t, lm))
-    b_red = (b_c - _segment_sum(c_m, kf, K)).reshape(K * 6)
+    b_red = (b_c - plans.kf.sum(c_m)).reshape(K * 6)
     packed = torch.cat([S.reshape(-1), b_red, chi2.reshape(1)])
     return packed, (C, H_ll_inv, b_l)
 
 
-def rank_landmark_step(cache, shard: Shard, dc_mat, lm_pos_l, lm_valid_l):
+def rank_landmark_step(cache, shard: Shard, dc_mat, lm_pos_l, lm_valid_l,
+                       lm_plan: SegmentPlan):
     """Back-substitution of one rank's landmark block
     (``putslam_tpu/parallel/dist_ba.py:233-242``): δl = H_ll⁻¹ (b_l − H_lc
-    δc); a live landmark moves when its step is finite and < 1e3."""
+    δc); a live landmark moves when its step is finite and < 1e3.
+    ``lm_plan``: the shard's landmark plan (``ShardPlans.lm``)."""
     C, H_ll_inv, b_l = cache
-    Ls = lm_pos_l.shape[0]
     u_m = torch.einsum("mia,mi->ma", C, _gather_pad(dc_mat, shard.kf))
-    dl = torch.einsum("lab,lb->la", H_ll_inv,
-                      b_l - _segment_sum(u_m, shard.lm, Ls))
+    dl = torch.einsum("lab,lb->la", H_ll_inv, b_l - lm_plan.sum(u_m))
     dl = torch.where(torch.isfinite(dl), dl, torch.zeros_like(dl))
     moved = lm_valid_l & (torch.amax(torch.abs(dl), dim=-1) < 1e3)
     return torch.where(moved[:, None], lm_pos_l + dl, lm_pos_l)
@@ -220,6 +264,9 @@ def dist_gauss_newton(bcfg: BackendConfig, mesh, kf_pose, kf_valid, lm_pos,
     idx, inb, overflow = owner_partition(g, size, Ls)
     blocks = {r: slice(r * Ls, (r + 1) * Ls) for r in mesh.ranks}
     shards = {r: make_shard(g, idx, inb, r, K, Ls) for r in mesh.ranks}
+    plans = {r: shard_plans(shards[r], g, r, K, Ls, _shard_gate(
+        shards[r], kf_gen, lm_valid[s], lm_gen[s]), kf_gen)
+        for r, s in blocks.items()}
     lm_l = {r: lm_pos[s] for r, s in blocks.items()}
     chi2s = []
     for _ in range(bcfg.gn_iterations):
@@ -227,7 +274,7 @@ def dist_gauss_newton(bcfg: BackendConfig, mesh, kf_pose, kf_valid, lm_pos,
         for r, s in blocks.items():
             packed, caches[r] = rank_partial(
                 bcfg, cam, r, kf_pose, kf_gen, lm_l[r], lm_valid[s],
-                lm_gen[s], shards[r], g)
+                lm_gen[s], shards[r], g, plans[r])
             total = packed if total is None else total + packed
         S, b_red, chi2 = unpack(mesh.all_reduce_(total), K)
         # the replicated solve (:219-231): frozen rows, symmetrise,
@@ -236,7 +283,7 @@ def dist_gauss_newton(bcfg: BackendConfig, mesh, kf_pose, kf_valid, lm_pos,
         dc_mat = dc.reshape(K, 6)
         for r, s in blocks.items():
             lm_l[r] = rank_landmark_step(caches[r], shards[r], dc_mat,
-                                         lm_l[r], lm_valid[s])
+                                         lm_l[r], lm_valid[s], plans[r].lm)
         kf_pose = torch.where(frozen[:, None], kf_pose,
                               se3.retract(kf_pose, dc_mat))
         chi2s.append(chi2)

@@ -16,6 +16,10 @@ side); their final states are then stacked into one problem:
 Gauge: the first keyframe of every session stays fixed until
 cross-session edges exist; with edges only session 0's anchor stays fixed,
 so the closures can pull the sessions into one frame.
+
+The observation count per keyframe is an integer ``index_add_``, exact in
+any order (the float sums of the joint BA go through
+``ops/segment.py``).
 """
 
 from __future__ import annotations

@@ -7,14 +7,11 @@ the global BA with its window solves replayed from one graph follows the
 eager sweep; ``check_trajectory`` on the card equals the CPU's; a capture
 that fails raises, and nothing falls back to the eager polish. The map is
 the port's own run at ``tiny_test_config`` on the card, keyframe-dense,
-its keyframes moved by a few millimetres. Poses within ``CARD_TOL`` of
-eager: the BA's ``index_add_`` atomics order its sums differently from run
-to run (ROADMAP 3p), which 15 free keyframes keep far below it (measured:
-``dense_schur`` and ``dense_schur_mm`` 2.4e-7, eager twice as far apart).
-``pcg`` diverges on this map in the JAX package as in the port, on the
-CPU as on the card (chi² from 245 to ~1e9 over the 12 iterations), and
-two eager runs part completely (2.0 in a pose component): its replay is held against eager after one
-iteration of each solve (measured 3.5e-5, eager twice 2.0e-5).
+its keyframes moved by a few millimetres. The replays equal eager bit for
+bit: the solvers sum in a fixed order (``ops/segment.py``). ``pcg``
+diverges on this map in the JAX package as in the port, on the CPU as on
+the card (chi² from 245 to ~1e9 over the 12 iterations): its replay is
+held against eager after one iteration of each solve.
 
 Needs a CUDA card and skips without one. Imports no JAX, so on the machine
 with the card it runs as:
@@ -29,7 +26,6 @@ from _torch_port import port_trajectory_map, trajectory_map
 
 pytestmark = pytest.mark.cuda
 
-CARD_TOL = 1e-4
 CT_TOL = 1e-5       # tests/test_torch_finalize.py: the CPU against JAX
 GBA = dict(window=8, kf_cap=32, lm_cap=512, obs_cap=1024, pp_cap=64,
            sweeps=2, gn_iterations=4)
@@ -94,8 +90,7 @@ def test_replayed_finalize_follows_eager(cuda, solver):
     for got in (first, again):
         assert torch.equal(got.map.lm_valid, eager.map.lm_valid)
         assert torch.equal(got.graph.obs_valid, eager.graph.obs_valid)
-        assert torch.allclose(got.map.kf_pose[kv], eager.map.kf_pose[kv],
-                              atol=CARD_TOL, rtol=0)
+        assert torch.equal(got.map.kf_pose[kv], eager.map.kf_pose[kv])
     moved = (first.map.kf_pose[kv] - state.map.kf_pose[kv]).abs().max()
     assert float(moved) > 1e-6
     compiled.clear_cache()
@@ -113,7 +108,7 @@ def test_replayed_window_solves_follow_eager(cuda):
     graph = tarchive.global_bundle_adjust(cfg, archive, device=cuda, **GBA)
     assert len(compiled._END_RUNNERS) == 1          # one capture, replayed
     assert np.isfinite(graph).all()
-    np.testing.assert_allclose(graph, eager, atol=CARD_TOL, rtol=0)
+    np.testing.assert_array_equal(graph, eager)
     assert np.abs(graph - archive.dense()[0]).max() > 1e-5
     compiled.clear_cache()
 
@@ -163,7 +158,6 @@ def test_failed_capture_raises(cuda, monkeypatch):
     eager = tslam.finalize(cfg, state, graph=False)
     graph = tslam.finalize(cfg, state)
     kv = state.map.kf_valid
-    assert torch.allclose(graph.map.kf_pose[kv], eager.map.kf_pose[kv],
-                          atol=CARD_TOL, rtol=0)
+    assert torch.equal(graph.map.kf_pose[kv], eager.map.kf_pose[kv])
     compiled.clear_cache()
     torch.cuda.synchronize()

@@ -42,13 +42,14 @@ def test_port_imports_with_jax_blocked():
             "import putslam_tpu_torch.models.compiled\n"
             "import putslam_tpu_torch.utils.control\n"
             "import putslam_tpu_torch.utils.graph_cond\n"
+            "import putslam_tpu_torch.ops.segment\n"
             "import bench_torch\n"
             "sys.path.insert(0, 'tools')\n"
             "import make_disk_dataset_torch, profile_torch_slam\n"
             "import lc_spread_torch, multihost_dryrun_torch\n"
             "import measure_scaling_torch, profile_vo_torch\n"
             "import run_experiments_torch, export_reference_dataset_torch\n"
-            "import run_acceptance_torch\n"
+            "import run_acceptance_torch, repro_cells_torch\n"
             "assert not [m for m in sys.modules if m.split('.')[0] in\n"
             "            ('jax', 'putslam_tpu') and sys.modules[m] is not None]\n"
             "print('ok')")
@@ -86,6 +87,7 @@ def _port_sources():
               ROOT / "tools" / "run_experiments_torch.py",
               ROOT / "tools" / "export_reference_dataset_torch.py",
               ROOT / "tools" / "run_acceptance_torch.py",
+              ROOT / "tools" / "repro_cells_torch.py",
               ROOT / "bench_torch.py"]
     rel = {str(f.relative_to(ROOT)) for f in files}
     for name in ("io/png.py", "io/tum.py", "io/native_loader.py",
@@ -96,7 +98,7 @@ def _port_sources():
                  "parallel/dist_ba.py", "parallel/multi_session.py",
                  "geometry/se2.py", "io/synthetic2.py", "utils/viz.py",
                  "ops/klt.py", "models/compiled.py", "utils/control.py",
-                 "utils/graph_cond.py", "models/slam.py"):
+                 "utils/graph_cond.py", "models/slam.py", "ops/segment.py"):
         assert f"putslam_tpu_torch/{name}" in rel, name
     assert all(f.exists() for f in files)
     return files

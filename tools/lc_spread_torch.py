@@ -21,9 +21,10 @@ subtrahend rounded to bfloat16, and with an unrounded float32 subtrahend,
 and the largest component of the step applied (0 where it was thrown away)
 and of the float64 solution of either system; how far the keyframes moved,
 how many keyframes ``check_trajectory`` re-composed from odometry, and the
-ATE with and without that repair. The in-loop bundle adjustment sums with atomics, so
-the map that ``finalize`` receives differs from run to run on the same
-code and inputs; this script shows what ``finalize`` does with each.
+ATE with and without that repair. The solvers sum in a fixed order
+(``ops/segment.py``), so every repetition on the same code and inputs
+should receive the same map and end on the same bits: the summary counts
+the distinct final ATEs (1 where the runs repeat themselves).
 
 A repetition whose final ATE is over ``--keep-over`` metres, or whose
 keyframes did not move, has its state (``utils/checkpoint.save_state``) and
@@ -65,12 +66,11 @@ def traced_solves(opt_mod, sink):
         call[0] += 1
         return real_gn(*a, **kw)
 
-    def sub(obs_kf, obs_lm, F, K, L):
-        out = real_sub(obs_kf, obs_lm, F, K, L)
-        G = torch.zeros(((K + 1) * (L + 1), 6, 3), dtype=torch.float32,
-                        device=F.device)
-        G.index_add_(0, obs_kf * (L + 1) + obs_lm, F)
-        G = G.view(K + 1, L + 1, 6, 3)[:K, :L].permute(0, 2, 1, 3)
+    def sub(obs_kf, obs_lm, F, K, L, plan=None):
+        if plan is None:
+            plan = opt_mod.coupling_plan(obs_kf, obs_lm, K, L)
+        out = real_sub(obs_kf, obs_lm, F, K, L, plan)
+        G = plan.sum(F).view(K, L, 6, 3).permute(0, 2, 1, 3)
         G = G.reshape(K * 6, L * 3)
         rounding[0] = out - G @ G.T
         return out
@@ -257,6 +257,8 @@ def main():
         graph=args.graph,
         ate_final_min=float(ates.min()), ate_final_median=float(np.median(ates)),
         ate_final_max=float(ates.max()),
+        ate_final_distinct=len({float(a) for a in ates}),
+        ate_before_distinct=len({r["ate_before"] for r in rows}),
         over_0p05=int((ates >= 0.05).sum()),
         stalled=sum(r["kf_moved_m"] == 0.0 for r in rows),
         chol_failures=sum(s["chol_info"] != 0 for r in rows
