@@ -24,8 +24,9 @@ Phases (any failed check raises and the script exits non-zero):
   5. the bench workload — fr1 config, 64-frame synthetic orbit rendered on
      the card, run_slam_final — once to warm up, then timed with the
      kernels' launch counters reset: 1 FAST launch per frame, segment sums
-     launched (the bench makes no keyframe, so finalize's), final ATE under
-     the gate.
+     launched (the bench makes no keyframe, so finalize's), RANSAC's fit
+     launched at least 6 times a frame (the VO and the map's pass, a
+     sampled fit and two refits each), final ATE under the gate.
  5b. the same frames with every tracked frame a keyframe, so keyframe
      bookkeeping and the windowed, landmark-blocked BA run in the loop.
  5c. the segment-sum kernel (csrc/segment_sum.cu, the solvers' sums in a
@@ -36,6 +37,16 @@ Phases (any failed check raises and the script exits non-zero):
      all sums of a solve (kernel twice, the plain version, index_add_ with
      atomics, the plans' stable sorts), the kernel's own duration, the
      bound from the bytes and adds of these inputs.
+ 5d. RANSAC's fit (csrc/kabsch_fit.cu, one launch a fit): the RANSAC calls
+     of bench frames 1-2 through the frame runner without graphs are
+     recorded; on the VO's and the map pass's real matches and inlier
+     masks (the sampled fit of 1024 hypotheses, the refits), and on
+     degenerate sets made from them (all-zero weights, three equal points,
+     collinear points, fewer than 3 valid matches), the kernel against its
+     plain version on the card bit for bit, and twice the same; timed at
+     the main path's three shapes (CUDA events behind a spin kernel, its
+     own duration in torch.profiler), beside the plain version and the
+     bound from these inputs' bytes and the plain version's operations.
   6. the CLI: putslam_tpu_torch.run --synthetic 30 writes its five files
      (statistics.txt included) and reports an ATE under 0.05 m; with
      --loop-closure the same; --only-vo --vo-version 1 (KLT tracking)
@@ -57,9 +68,10 @@ Phases (any failed check raises and the script exits non-zero):
      count over the whole ``slam_sequence`` call), kernels a frame and
      device ms a frame (torch.profiler over frames 1-COMPILED_PROFILED),
      busy share (device ms over wall ms), capture seconds, graph pool MiB,
-     the frame graph's IF nodes, keyframes and BA calls, segment sums a
-     frame. Checks: one FAST launch a frame in both modes (a replay counts
-     its launch); no host sync on the graph path on any cell; every cell's
+     the frame graph's IF nodes, keyframes and BA calls, segment sums and
+     RANSAC fits a frame. Checks: one FAST launch a frame in both modes (a
+     replay counts its launch); at least 6 fits a frame; no host sync on
+     the graph path on any cell; every cell's
      poses bit-equal eager against graph and each mode run twice (the
      solvers' sums in a fixed order, ROADMAP 3p); segment sums launched
      in both modes where a BA ran; bench ATE under the gate, the finalized
@@ -81,7 +93,7 @@ Phases (any failed check raises and the script exits non-zero):
      its level-0 FAST launch): one launch per frame, RANSAC accepted on
      more than half the steps, ATE under 0.15 m. 10b: the same eagerly
      (graph=False): bit-equal poses and per-step results, frames/s of
-     both.
+     both, RANSAC's fit launched at least 3 times a step in both.
  11. the uncertainty path, keyframe-dense as 5b: map.use_uncertainty with
      the normal-shaped sensor model, backend.use_obs_info (the BA whitens
      with the stored 3x3 information matrices), the Mahalanobis RANSAC
@@ -188,8 +200,8 @@ Phases (any failed check raises and the script exits non-zero):
      polished map with odometry edges and three
      keyframes moved by 0.5 m: the same repairs, poses within
      CHECK_TRAJECTORY_TOL; ms a call.
-Then one JSON line describing the two kernels, the nvidia-smi line, and
-the final status line.
+Then one JSON line describing the three kernels (fast_score_nms,
+segment_sum, kabsch_fit), the nvidia-smi line, and the final status line.
 """
 
 import argparse
@@ -1940,6 +1952,173 @@ def phase_segment_sum(cases, dev):
     return out
 
 
+def recorded_ransac(fn):
+    """The ``ransac.estimate`` calls that ``fn()`` makes: per call its
+    caller's function (``match_and_estimate``: the VO; ``run_guided``: the
+    map's pass), config, matches p, q (N, 3), valid mask, uniforms and the
+    inlier mask it returned, cloned."""
+    from putslam_tpu_torch.frontend import ransac
+
+    rec = []
+    real = ransac.estimate
+
+    def estimate(cfg, cam, p, q, valid, **kw):
+        res = real(cfg, cam, p, q, valid, **kw)
+        if kw.get("u") is not None:
+            rec.append(dict(caller=sys._getframe(1).f_code.co_name, cfg=cfg,
+                            p=p.clone(), q=q.clone(), valid=valid.clone(),
+                            u=kw["u"].clone(), inliers=res.inliers.clone()))
+        return res
+
+    ransac.estimate = estimate
+    try:
+        fn()
+    finally:
+        ransac.estimate = real
+    return rec
+
+
+def plain_ops(fn):
+    """Float operations of one call of ``fn``: the elements written by its
+    arithmetic operators (add, sub, mul, div, neg, abs, sqrt, reciprocal,
+    clamp, maximum, where, compare), counted by a TorchDispatchMode."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    arith = {"add", "sub", "mul", "div", "neg", "abs", "sqrt", "reciprocal",
+             "clamp", "clamp_min", "maximum", "where", "lt"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func._schema.name.split("::")[-1].rstrip("_") in arith:
+                self.n += out.numel()
+            return out
+
+    with Count() as count:
+        fn()
+    return count.n
+
+
+def phase_kabsch_fit(cfg, grays, depths, gt, dev):
+    """Phase 5d, RANSAC's fit (``csrc/kabsch_fit.cu``): the RANSAC calls of
+    frames 1-2 of the bench orbit through the frame runner without graphs
+    (the branches the replay runs) are recorded. On the VO's and the map
+    pass's real matches, and on degenerate sets made from them, the kernel
+    against its plain version on the card, bit for bit, and twice the
+    same. Then at the main path's shapes (the sampled fit of 1024
+    hypotheses, the refit at the VO's and at the map's N) the kernel's time
+    (CUDA events behind a spin kernel, twice; its own duration in
+    torch.profiler), the plain version's, and the bound from these inputs'
+    bytes (each input read once, the poses written once) and the plain
+    version's float operations. Returns (max_abs_err, rows by shape)."""
+    from putslam_tpu_torch.frontend import ransac
+    from putslam_tpu_torch.models import compiled, slam
+    from putslam_tpu_torch.ops import kabsch
+
+    state0 = slam.slam_init(cfg, grays[0], depths[0],
+                            torch.as_tensor(gt[0], device=dev))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    draws = [slam.frame_draws(cfg, gen, dev) for _ in range(2)]
+    rec = recorded_ransac(lambda: compiled.run_sequence(
+        cfg, state0, grays[1:3], depths[1:3], draws=draws, capture=False))
+    vo = next(r for r in rec if r["caller"] == "match_and_estimate")
+    mp = next(r for r in rec if r["caller"] == "run_guided")
+
+    def comps(r, valid=None, p=None, q=None):
+        idx = ransac.sample_indices(r["cfg"], r["valid"] if valid is None
+                                    else valid, r["u"])
+        p, q = (r["p"] if p is None else p), (r["q"] if q is None else q)
+        return ("sampled", [x[:, c][idx].contiguous() for x in (p, q)
+                            for c in range(3)])
+
+    def refit(r, w=None, p=None, q=None):
+        w = r["inliers"].float() if w is None else w
+        return ("refit", ((r["p"] if p is None else p).contiguous(),
+                          (r["q"] if q is None else q).contiguous(), w))
+
+    # degenerate sets made from the VO's matches
+    on = torch.nonzero(vo["valid"]).flatten()
+    nv = vo["p"].shape[0]
+    two = torch.zeros(nv, device=dev)
+    two[on[:2]] = 1.0
+    eq_p, eq_q = vo["p"].clone(), vo["q"].clone()
+    eq_p[on[:3]], eq_q[on[:3]] = vo["p"][on[0]], vo["q"][on[0]]
+    three = torch.zeros(nv, device=dev)
+    three[on[:3]] = 1.0
+    s = torch.linspace(-1.0, 1.0, nv, device=dev)[:, None]
+    line_p = vo["p"][on[0]] + s * torch.tensor([0.6, -0.3, 0.2], device=dev)
+    line_q = line_p + torch.tensor([0.05, 0.0, -0.02], device=dev)
+    two_valid = torch.zeros_like(vo["valid"])
+    two_valid[on[:2]] = True
+    main = {
+        f"sampled fit, VO (H {cfg.ransac.n_hypotheses})": comps(vo),
+        f"refit, VO (N {nv})": refit(vo),
+        f"refit, map pass (N {mp['p'].shape[0]})": refit(mp)}
+    cases = dict(main, **{
+        "sampled fit, map pass": comps(mp),
+        "sampled fit, three equal points": ("sampled", [
+            c[:1].expand_as(c).contiguous() for c in comps(vo)[1]]),
+        "sampled fit, fewer than 3 valid matches": comps(vo, two_valid),
+        "sampled fit, collinear points": comps(vo, p=line_p, q=line_q),
+        "refit, all-zero weights": refit(vo, torch.zeros(nv, device=dev)),
+        "refit, fewer than 3 valid matches": refit(vo, two),
+        "refit, three equal points": refit(vo, three, eq_p, eq_q),
+        "refit, collinear points": refit(vo, p=line_p, q=line_q)})
+
+    def kernel_of(kind, args):
+        if kind == "sampled":
+            return lambda: kabsch.kabsch_soa(*args)
+        return lambda: kabsch.weighted_kabsch(*args)
+
+    def plain_of(kind, args):
+        if kind == "sampled":
+            return lambda: kabsch.plain_kabsch_soa(*args)
+        return lambda: kabsch.plain_weighted_kabsch(*args)
+
+    max_err = 0.0
+    for tag, (kind, args) in cases.items():
+        got, again = kernel_of(kind, args)(), kernel_of(kind, args)()
+        ref = plain_of(kind, args)()
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref), f"[5d] {tag}: the kernel differs from "
+              f"its plain version by {float((got - ref).abs().max()):.3e}")
+        check(torch.equal(got, again), f"[5d] {tag}: two launches differ")
+        check(bool(torch.isfinite(got).all()), f"[5d] {tag}: not finite")
+        max_err = max(max_err, float((got - ref).abs().max()))
+    print(f"[5d] RANSAC's fit, kernel against its plain version on the card: "
+          f"bit-equal and twice the same on {len(cases)} inputs ("
+          f"{'; '.join(cases)})", flush=True)
+
+    rows = {}
+    for tag, (kind, args) in main.items():
+        kern, plain = kernel_of(kind, args), plain_of(kind, args)
+        out = kern()
+        nbytes = 4 * (sum(a.numel() for a in args) + out.numel())
+        ops = plain_ops(plain)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops / FP32_OPS_PER_S
+        bound_ms = max(bytes_ms, ops_ms)
+        ms_plain = median_ms(plain, runs=20)
+        ms = [median_ms(kern, runs=30), median_ms(kern, runs=30)]
+        ms_k = 0.5 * (ms[0] + ms[1])
+        own = profiler_us(kern, "kabsch_")
+        rows[tag] = dict(ms=ms_k, plain_ms=ms_plain, bound_ms=bound_ms,
+                         bytes_ms=bytes_ms, ops_ms=ops_ms, own_us=own)
+        print(f"[5d] {tag}: {nbytes} bytes = {bytes_ms:.6f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s, {ops} float operations (the "
+              f"plain version's) = {ops_ms:.6f} ms at "
+              f"{FP32_OPS_PER_S / 1e12} TFLOP/s: bound {bound_ms:.6f} ms by "
+              f"{'bytes' if bytes_ms >= ops_ms else 'operations'}; kernel "
+              f"{ms[0]:.5f} / {ms[1]:.5f} ms ({100 * bound_ms / ms_k:.2f} % "
+              f"of the bound; own "
+              f"{'not measured' if own is None else f'{own:.2f} us'}, "
+              f"torch.profiler); plain {ms_plain:.5f} ms "
+              f"({ms_plain / ms_k:.1f}x)", flush=True)
+    return max_err, rows
+
+
 def device_kernels(fn):
     """(kernels, their summed device ms) of one call of ``fn`` as
     torch.profiler (CUPTI) records them, CUDA-graph replays included;
@@ -1993,18 +2172,19 @@ def phase_compiled(cells, dev):
     eagerly with the same per-frame draws, each mode twice: the four runs
     must end bit-equal. Returns the FAST launches of the graph runs, by
     cell, each cell's (config, final state, outputs, truth, gate) of its
-    graph run, and its segment-sum launches a frame by mode."""
+    graph run, and its segment-sum and RANSAC-fit launches a frame by
+    mode."""
     import numpy as np
 
     from putslam_tpu_torch.eval import ate as ate_mod
     from putslam_tpu_torch.models import compiled, slam
-    from putslam_tpu_torch.ops import fast_cuda, segment
+    from putslam_tpu_torch.ops import fast_cuda, kabsch, segment
     from putslam_tpu_torch.utils import graph_cond
 
     def fmt(x, spec):
         return "not measured" if x is None else format(x, spec)
 
-    launches, finals, seg_rows = {}, {}, {}
+    launches, finals, seg_rows, fit_rows = {}, {}, {}, {}
     for tag, (c, g, d, truth, gate_before, gate) in cells.items():
         n = g.shape[0] - 1
         state0 = slam.slam_init(c, g[0], d[0],
@@ -2026,8 +2206,10 @@ def phase_compiled(cells, dev):
             first_s = time.perf_counter() - t0
             nodes = graph_cond.launches - nodes
             segment.reset_launch_count()
+            kabsch.reset_launch_count()
             (st, outs), dt, n_launch = timed(run, fast_cuda.fast_score_nms)
             n_seg = segment.launch_count()
+            n_fit = kabsch.launch_count()
             (_, outs2), n_sync = count_syncs(run)
             kernels, dev_ms = device_kernels(lambda: run(COMPILED_PROFILED))
             poses = np.concatenate([truth[:1], outs.pose.cpu().numpy()])
@@ -2036,7 +2218,7 @@ def phase_compiled(cells, dev):
                 fin, slam._outputs_to_numpy(outs)).cpu().numpy()])
             rows[mode] = r = dict(
                 outs=outs, state=st, s=dt, launches=n_launch,
-                syncs=n_sync / n, seg=n_seg / n,
+                syncs=n_sync / n, seg=n_seg / n, fit=n_fit / n,
                 spread=float((outs.pose - outs2.pose).abs().max()),
                 ate_b=ate_mod.ate_rmse_aligned_frames(truth, poses),
                 ate_f=ate_mod.ate_rmse_aligned_frames(truth, after))
@@ -2063,11 +2245,15 @@ def phase_compiled(cells, dev):
                   f"frame, busy share {fmt(busy, '.3f')} (profiler, frames "
                   f"1-{COMPILED_PROFILED}); FAST launches {n_launch}, "
                   f"segment sums {n_seg} ({n_seg / n:.2f} a frame); "
+                  f"RANSAC fits {n_fit} ({n_fit / n:.2f} a frame); "
                   f"keyframes {int(outs.is_keyframe.sum())}, BA calls "
                   f"{int(outs.ba_ran.sum())}; ATE {r['ate_b']:.5f} m, "
                   f"finalized {r['ate_f']:.5f} m{extra}", flush=True)
             check(n_launch == n,
                   f"{tag} {mode}: FAST launches {n_launch} for {n} frames")
+            # the VO and the map's pass, three fits each, every frame
+            check(n_fit >= 6 * n, f"{tag} {mode}: RANSAC fits {n_fit} for "
+                  f"{n} frames")
             if mode == "graph":
                 check(n_sync == 0, f"{tag}: {n_sync} host syncs in the "
                       f"graph path's slam_sequence")
@@ -2102,6 +2288,7 @@ def phase_compiled(cells, dev):
                   f"{eager['seg']} eager, with {int(ba.sum())} BA calls")
         launches[tag] = graph["launches"]
         seg_rows[tag] = {m: rows[m]["seg"] for m in rows}
+        fit_rows[tag] = {m: rows[m]["fit"] for m in rows}
         finals[tag] = (c, graph["state"], graph["outs"], truth, gate)
         compiled.clear_cache()
     # what the retry ladder's two widened passes, run on every frame, cost:
@@ -2131,7 +2318,7 @@ def phase_compiled(cells, dev):
               f"{100 * ms / top_ms:5.1f} % {calls / COMPILED_PROFILED:6.1f} "
               f"calls a frame  {name[:110]}", flush=True)
     compiled.clear_cache()
-    return launches, finals, seg_rows
+    return launches, finals, seg_rows, fit_rows
 
 
 def skipped_iterations(chi2, ratio):
@@ -2327,7 +2514,7 @@ def main() -> int:
     from putslam_tpu_torch.backend import optimize as opt_mod
     from putslam_tpu_torch.slam_map import features_map as fm
     from putslam_tpu_torch.models import slam, vo
-    from putslam_tpu_torch.ops import fast, fast_cuda, segment
+    from putslam_tpu_torch.ops import fast, fast_cuda, kabsch, segment
     from putslam_tpu_torch import run as run_mod
     from putslam_tpu_torch.utils import control, graph_cond
 
@@ -2344,16 +2531,20 @@ def main() -> int:
                   for d in [(), *VARIANTS.values()]]
         cond_build = pool.submit(graph_cond.build)
         seg_build = pool.submit(segment.build)
+        fit_build = pool.submit(kabsch.build)
         lib = builds[0].result()
         for b in builds[1:]:
             b.result()
         cond_lib = cond_build.result()
         seg_lib = seg_build.result()
+        fit_lib = fit_build.result()
     print(f"[2] built {os.path.relpath(lib)} and {len(VARIANTS)} variants, "
-          f"the segment-sum kernel {os.path.relpath(seg_lib)} and the "
-          f"conditional-node plumbing {os.path.relpath(cond_lib)}, in "
+          f"the segment-sum kernel {os.path.relpath(seg_lib)}, RANSAC's fit "
+          f"{os.path.relpath(fit_lib)} and the conditional-node plumbing "
+          f"{os.path.relpath(cond_lib)}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for log in (fast_cuda.build_log(), segment.build_log()):
+    for log in (fast_cuda.build_log(), segment.build_log(),
+                kabsch.build_log()):
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[2] {line.strip()}", flush=True)
@@ -2511,6 +2702,7 @@ def main() -> int:
     torch.cuda.synchronize()
     fast_cuda.fast_score_nms.launches = 0
     segment.reset_launch_count()
+    kabsch.reset_launch_count()
     t0 = time.perf_counter()
     pb, pa, outs, state = slam.run_slam_final(cfg, grays, depths,
                                               init_pose=gt[0], device=dev)
@@ -2518,10 +2710,14 @@ def main() -> int:
     dt = time.perf_counter() - t0
     launches = fast_cuda.fast_score_nms.launches
     seg_launches = segment.launch_count()
+    fit_launches = kabsch.launch_count()
     check(launches == N_FRAMES,
           f"kernel launches {launches} != {N_FRAMES} (one per frame)")
     # the bench makes no keyframe (ROADMAP 3j): its BA is finalize's
     check(seg_launches > 0, "the main path launched no segment sum")
+    # two RANSAC calls a frame (the VO and the map's pass), three fits each
+    check(fit_launches >= 6 * (N_FRAMES - 1), f"the main path launched "
+          f"RANSAC's fit {fit_launches} times in {N_FRAMES - 1} frames")
     ate_before = ate_mod.ate_rmse_aligned_frames(gt, pb)
     ate_final = ate_mod.ate_rmse_aligned_frames(gt, pa)
     check(pa.shape == (N_FRAMES, 7) and bool(torch.isfinite(
@@ -2532,7 +2728,8 @@ def main() -> int:
     print(f"[5] fr1 {N_FRAMES}-frame orbit, run_slam_final: {dt:.3f} s, "
           f"{N_FRAMES / dt:.2f} SLAM frames/s, {1e3 * dt / N_FRAMES:.2f} "
           f"ms/frame (incl. finalize); kernel launches {launches}, "
-          f"segment sums {seg_launches} (finalize's); "
+          f"segment sums {seg_launches} (finalize's), RANSAC fits "
+          f"{fit_launches} ({fit_launches / (N_FRAMES - 1):.2f} a frame); "
           f"keyframes {int(outs.is_keyframe.sum())}, BA calls "
           f"{int(outs.ba_ran.sum())}, landmarks {int(outs.n_landmarks[-1])}; "
           f"ATE before final {ate_before:.5f} m, final {ate_final:.5f} m "
@@ -2590,6 +2787,18 @@ def main() -> int:
             kf_cfg, lambda c: slam.bundle_adjust(c, state2.map,
                                                  state2.graph))}, dev)
     main_seg = next(iter(seg_rows.values()))
+
+    # ---- 5d. RANSAC's fit on the real matches of two bench frames ---------
+    fit_err, fit_rows = phase_kabsch_fit(cfg, grays, depths, gt, dev)
+    # the six fits of a good bench frame: each of phase_kabsch_fit's rows
+    # twice (the sampled fit for the VO and for the map's pass, at one
+    # shape; the VO's refit and the map's, two iterations each)
+    fit_frame = {k: 2 * sum(r[k] for r in fit_rows.values())
+                 for k in ("ms", "plain_ms", "bound_ms", "bytes_ms",
+                           "ops_ms")}
+    print(f"[5d] the six fits of a good bench frame: kernel "
+          f"{fit_frame['ms']:.5f} ms, plain {fit_frame['plain_ms']:.5f} ms, "
+          f"bound {fit_frame['bound_ms']:.6f} ms", flush=True)
 
     # ---- 6. the CLI ---------------------------------------------------------
     five = FIVE_FILES
@@ -2671,7 +2880,7 @@ def main() -> int:
 
     # ---- 7b. the compiled step: eager against CUDA graphs ------------------
     t7b = time.perf_counter()
-    n7b, finals7b, seg7b = phase_compiled({
+    n7b, finals7b, seg7b, fit7b = phase_compiled({
         "bench": (cfg, grays, depths, gt, ATE_GATE_M, ATE_GATE_M),
         "keyframe_dense": (kf_cfg, grays, depths, gt, None, ATE_GATE_M),
         "revisit_lc": (lc_cfg, grays_r, depths_r, gt_r, None,
@@ -2761,14 +2970,21 @@ def main() -> int:
           f" ATE {ate4:.5f} m", flush=True)
     # ---- 10b. the tracking VO from its graph against the eager chain -------
     # phase 10's run captured the graph; this one replays it
+    kabsch.reset_launch_count()
     _, dt4g, n4g = timed(
         lambda: vo.run_vo(klt_cfg, grays, depths, init_pose=gt[0],
                           device=dev), counter)
+    fit4g = kabsch.launch_count()
+    kabsch.reset_launch_count()
     (est4e, stats4e), dt4e, n4e = timed(
         lambda: vo.run_vo(klt_cfg, grays, depths, init_pose=gt[0],
                           device=dev, graph=False), counter)
+    fit4e = kabsch.launch_count()
     check(n4g == N_FRAMES and n4e == N_FRAMES,
           f"tracking VO launches {n4g} (graph), {n4e} (eager)")
+    # one RANSAC call a step, three fits
+    check(fit4g >= 3 * (N_FRAMES - 1) and fit4e >= 3 * (N_FRAMES - 1),
+          f"tracking VO: RANSAC fits {fit4g} (graph), {fit4e} (eager)")
     same4 = (est4 == est4e).all() and all(
         (a == b).all() for a, b in zip(stats4, stats4e))
     check(same4, "tracking VO from its graph differs from the eager chain")
@@ -2777,7 +2993,8 @@ def main() -> int:
           f"ms/frame (phase 10's run, with the capture: {N_FRAMES / dt4:.2f})"
           f"; eager: {dt4e:.3f} s, {N_FRAMES / dt4e:.2f} frames/s; "
           f"{dt4e / dt4g:.2f}x; poses and per-step results bit-equal; "
-          f"launches {n4g} (graph) and {n4e} (eager), one a frame",
+          f"launches {n4g} (graph) and {n4e} (eager), one a frame; "
+          f"RANSAC fits {fit4g} (graph) and {fit4e} (eager)",
           flush=True)
 
     # ---- 11. the uncertainty path, 12. the front-end options ---------------
@@ -2889,6 +3106,26 @@ def main() -> int:
         "library_ms": main_seg["library_ms"],
         "plan_ms": main_seg["plan_ms"],
         "device_us_profiler": main_seg["own_us"],
+    }, {
+        "name": "kabsch_fit",
+        "route": "cuda",
+        "source": "putslam_tpu_torch/csrc/kabsch_fit.cu",
+        "replaces": "none: not a TPU kernel (the fusion XLA made of "
+                    "putslam_tpu/ops/kabsch.py)",
+        "launches": fit_launches,
+        "launches_per_frame_compiled_step": fit7b,
+        "launches_tracking_vo": fit4g,
+        "launches_tracking_vo_eager": fit4e,
+        "max_abs_err": fit_err,
+        # the six fits of a good bench frame: a sampled fit and two refits
+        # for the VO and for the map's pass
+        "ms": fit_frame["ms"],
+        "plain_ms": fit_frame["plain_ms"],
+        "bound_ms": fit_frame["bound_ms"],
+        "bound_by": ("bytes" if fit_frame["bytes_ms"] >= fit_frame["ops_ms"]
+                     else "operations"),
+        "library_ms": None,
+        "by_input": fit_rows,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -139,8 +139,9 @@ def estimate(cfg: RansacConfig, cam: Optional[CameraConfig], p, q, valid,
     T_best = take_row(T, best)
     inl_best = take_row(inl, best)
 
+    pk, qk = p.contiguous(), q.contiguous()     # as the fit's kernel takes them
     for _ in range(cfg.refit_iterations):
-        T_n = kabsch.weighted_kabsch(p, q, inl_best.to(p.dtype))
+        T_n = kabsch.weighted_kabsch(pk, qk, inl_best.to(p.dtype))
         err_n, thr_n = _pair_errors(cfg, cam, T_n, p, q, info)
         inl_n = (err_n < thr_n) & valid
         better = torch.sum(inl_n) >= torch.sum(inl_best)

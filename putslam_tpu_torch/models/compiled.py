@@ -44,9 +44,11 @@ step on the same static buffers without graphs (on any device), each
 CPU tests hold that against the eager step. ``fast_score_nms.launches``
 counts one launch per replay of a graph that holds the FAST kernel (the
 kernel launch a capture records); the warm-up pass is not counted. The
-segment-sum kernel of the solvers counts its own launches on the card
-(``ops/segment.py::launch_count``: those in an IF body run only where the
-card takes the branch); the warm-up's are not counted either.
+segment-sum kernel of the solvers and RANSAC's fit count their own
+launches on the card (``ops/segment.py::launch_count``,
+``ops/kabsch.py::launch_count``: those in an IF body run only where the
+card takes the branch); the warm-up's are not counted either
+(``ops/cuda_lib.py::uncounted``).
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ from putslam_tpu_torch.frontend.detector import detect_and_describe
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.models import slam as slam_mod
 from putslam_tpu_torch.models import vo as vo_mod
-from putslam_tpu_torch.ops import fast_cuda, segment
+from putslam_tpu_torch.ops import cuda_lib, fast_cuda
 from putslam_tpu_torch.utils import control, graph_cond
 from putslam_tpu_torch.utils.control import assign as _assign
 from putslam_tpu_torch.utils.control import clone as _clone
@@ -136,7 +138,7 @@ class _Segment:
         side.wait_stream(torch.cuda.current_stream(r.device))
         counted = fast_cuda.fast_score_nms.launches
         with torch.cuda.stream(side), control.branching("masked"), \
-                control.checking(), segment.uncounted():
+                control.checking(), cuda_lib.uncounted():
             self.fn(commit=False)          # lazy initialisation, not a step
         fast_cuda.fast_score_nms.launches = counted
         torch.cuda.current_stream(r.device).wait_stream(side)

@@ -27,14 +27,12 @@ through a ``SegmentPlan``:
   index, which the stable sort gives, so the kernel equals the plain
   version bit for bit, and a run, its replay and a second run agree.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``putslam_tpu_torch/build/`` (named by a hash of the source and the flags,
-as ``ops/fast_cuda.py`` builds the FAST kernel) and bound with ``ctypes``.
-Its launches are counted on the card (``launch_count``,
-``reset_launch_count``): a launch recorded into a CUDA graph, inside a
-conditional node's body, runs at a replay only where the card takes the
-branch, which the host does not see. Launches made under ``uncounted()``
-(the warm-up before a capture) are not counted.
+The kernel is built and bound by ``ops/cuda_lib.py`` (nvcc for
+``sm_90a`` at first use, ctypes). Its launches are counted on the card
+(``launch_count``, ``reset_launch_count``): a launch recorded into a CUDA
+graph, inside a conditional node's body, runs at a replay only where the
+card takes the branch, which the host does not see. Launches made under
+``uncounted()`` (the warm-up before a capture) are not counted.
 
 Sums that stay as they are, being exact in any order: the integer counts
 (``models/slam.py`` ``feat_matched``, ``parallel/multi_session.py``
@@ -45,95 +43,27 @@ of ``loopclosure/bow.py``, which adds 1.0s (exact below 2**24).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
-from pathlib import Path
 
 import torch
 
-from putslam_tpu_torch.ops import fast_cuda
-
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "segment_sum.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
-              "-fPIC")
-
-_lib = None
-_counted = True
+from putslam_tpu_torch.ops import cuda_lib
 
 
-def build() -> Path:
-    """Compile the kernel library unless it is built already; returns its
-    path. Raises with the compiler's output on failure."""
-    return fast_cuda.compile_library(SOURCE, NVCC_FLAGS)
+def _bind(lib) -> None:
+    ptr = ctypes.c_void_p
+    lib.segment_sum_launch.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong,
+                                       ctypes.c_int, ctypes.c_int, ptr]
+    lib.segment_sum_launch.restype = ctypes.c_int
 
 
-def build_log() -> str:
-    """What nvcc and ``ptxas -v`` printed when the library was built."""
-    return build().with_suffix(".log").read_text()
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        ptr = ctypes.c_void_p
-        lib.segment_sum_launch.argtypes = [ptr, ptr, ptr, ptr,
-                                           ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ptr]
-        lib.segment_sum_read_launches.argtypes = [
-            ctypes.POINTER(ctypes.c_ulonglong)]
-        for fn in (lib.segment_sum_launch, lib.segment_sum_load,
-                   lib.segment_sum_read_launches,
-                   lib.segment_sum_reset_launches):
-            fn.restype = ctypes.c_int
-        lib.segment_sum_load.argtypes = []
-        lib.segment_sum_reset_launches.argtypes = []
-        lib.segment_sum_error.argtypes = [ctypes.c_int]
-        lib.segment_sum_error.restype = ctypes.c_char_p
-        _check(lib, lib.segment_sum_load(), "loading the segment-sum kernel")
-        _lib = lib
-    return _lib
-
-
-def _check(lib, rc: int, what: str) -> None:
-    if rc:
-        msg = lib.segment_sum_error(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
-
-
-def launch_count(device="cuda") -> int:
-    """Counted kernel launches on ``device`` since the last reset, graph
-    replays included (synchronises the device)."""
-    with torch.cuda.device(torch.device(device)):
-        lib = _library()
-        torch.cuda.synchronize()
-        value = ctypes.c_ulonglong(0)
-        _check(lib, lib.segment_sum_read_launches(ctypes.byref(value)),
-               "reading the launch count")
-    return int(value.value)
-
-
-def reset_launch_count(device="cuda") -> None:
-    """Set the launch count on ``device`` to 0 (synchronises the device)."""
-    with torch.cuda.device(torch.device(device)):
-        lib = _library()
-        torch.cuda.synchronize()
-        _check(lib, lib.segment_sum_reset_launches(),
-               "resetting the launch count")
-
-
-@contextlib.contextmanager
-def uncounted():
-    """Launches made inside the block are not counted (the warm-up pass
-    before a capture, which is not a step)."""
-    global _counted
-    old, _counted = _counted, False
-    try:
-        yield
-    finally:
-        _counted = old
+_LIB = cuda_lib.CountedLibrary("segment_sum", _bind)
+build = _LIB.build
+build_log = _LIB.build_log
+launch_count = _LIB.launch_count
+reset_launch_count = _LIB.reset_launch_count
+uncounted = cuda_lib.uncounted
 
 
 class SegmentPlan:
@@ -193,10 +123,10 @@ def launch(x: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     out = torch.empty((plan.n,) + tuple(x.shape[1:]), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
-        lib = _library()
+        lib = _LIB.library()
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        _check(lib, lib.segment_sum_launch(
+        _LIB.check(lib.segment_sum_launch(
             x.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
-            out.data_ptr(), plan.n * cols, cols, int(_counted), stream),
+            out.data_ptr(), plan.n * cols, cols, cuda_lib.counted(), stream),
             f"{what} kernel launch")
     return out
