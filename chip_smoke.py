@@ -33,7 +33,9 @@ Phases (any failed check raises and the script exits non-zero):
      fixed order), on the sums of one Gauss-Newton iteration of three real
      solves (finalize of phase 5's state, the main path's; finalize of
      5b's map; 5b's in-loop BA), recorded: each against its plain version
-     (index_add_ on a CPU copy) bit for bit and twice the same; timed over
+     (index_add_ on a CPU copy) bit for bit and twice the same; each sum
+     alone (rows, n, columns, live rows, empty and long segments, the
+     longest; the kernel's own duration and index_add_'s); timed over
      all sums of a solve (kernel twice, the plain version, index_add_ with
      atomics, the plans' stable sorts), the kernel's own duration, the
      bound from the bytes and adds of these inputs.
@@ -1875,16 +1877,21 @@ def phase_segment_sum(cases, dev):
     (one call a sum into a zeroed buffer: the library's atomics), the
     plans' build time, and the bound from this input's bytes (each live
     row and its index read once, the offsets read once, the sums written
-    once) and adds. Returns by case (launches, max_abs_err, ms, plain_ms,
-    library_ms, bound_ms, bound_by, plan_ms, own µs a launch)."""
+    once) and adds. Each sum alone is printed too: its shape, its
+    segments' lengths, the kernel's own duration and ``index_add_``'s.
+    Returns by case (launches, max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by, plan_ms, own µs a launch)."""
     from putslam_tpu_torch.ops import segment
+
+    def us(v):
+        return "not measured" if v is None else f"{v:.2f} us"
 
     out = {}
     for tag, fn in cases.items():
         rec = recorded_sums(fn)
         check(len(rec) > 0, f"segment sums of {tag}: none recorded")
         max_err, nbytes, adds = 0.0, 0, 0
-        for plan, x in rec:
+        for k, (plan, x) in enumerate(rec):
             got = plan.sum(x)
             again = plan.sum(x)
             ref = segment.plain_segment_sum(
@@ -1899,9 +1906,24 @@ def phase_segment_sum(cases, dev):
                           if ref.numel() else 0.0)
             live = int(plan.offsets[plan.n])
             cols = x[0].numel() if x.shape[0] else 1
-            nbytes += (4 * cols + 8) * live + 8 * (plan.n + 1) \
+            nbytes += (4 * cols + plan.perm.element_size()) * live \
+                + plan.offsets.element_size() * (plan.n + 1) \
                 + 4 * plan.n * cols
             adds += live * cols
+            # the sum alone: its segments' lengths, the kernel's own
+            # duration and index_add_'s (torch.profiler)
+            lengths = plan.offsets[1:plan.n + 1] - plan.offsets[:plan.n]
+            buf = torch.zeros((plan.n + 1,) + tuple(x.shape[1:]), device=dev)
+            own_1 = profiler_us(lambda: plan.sum(x), "segment_sum_kernel",
+                                calls=10)
+            lib_1 = profiler_us(lambda: buf.index_add_(0, plan.idx, x),
+                                "index", calls=10)
+            print(f"[5c]   {tag}, sum {k}: {plan.rows} rows of "
+                  f"{tuple(x.shape[1:])} (cols {cols}) into n {plan.n}; live "
+                  f"{live}, empty segments {int((lengths == 0).sum())}, "
+                  f"over 32 rows {int((lengths > 32).sum())}, longest "
+                  f"{int(lengths.max()) if plan.n else 0}; kernel "
+                  f"own {us(own_1)}, index_add_ own {us(lib_1)}", flush=True)
         bufs = [torch.zeros((plan.n + 1,) + tuple(x.shape[1:]), device=dev)
                 for plan, x in rec]
         plans = list({id(p): p for p, _ in rec}.values())
@@ -3106,6 +3128,10 @@ def main() -> int:
         "library_ms": main_seg["library_ms"],
         "plan_ms": main_seg["plan_ms"],
         "device_us_profiler": main_seg["own_us"],
+        "by_case": [{"case": tag, "ms": r["ms"],
+                     "library_ms": r["library_ms"], "bound_ms": r["bound_ms"],
+                     "device_us_profiler": r["own_us"]}
+                    for tag, r in seg_rows.items()],
     }, {
         "name": "kabsch_fit",
         "route": "cuda",

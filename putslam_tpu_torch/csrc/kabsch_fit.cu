@@ -16,10 +16,12 @@
 //   n points of H hypotheses; one thread a hypothesis, the means, the nine
 //   cross-covariance sums, Horn's squarings and the tail in registers.
 // * the weighted refit (weighted_kabsch): p, q (B, N, 3), w (B, N); one
-//   block a batch row (staged in shared memory up to kStaged points), in
-//   three passes: sum(w) (thread 0); the six weighted means (threads 0-5);
-//   the nine sums of S = sum wn (p - p_bar)(q - q_bar)^T (threads 0-8), a
-//   thread a sum. Then thread 0 runs Horn and the tail.
+//   block of nine warps a batch row (staged in shared memory up to kStaged
+//   points), a warp a sum, in three passes: sum(w) (warp 0); the six
+//   weighted means (warps 0-5); the nine sums of S = sum wn (p - p_bar)
+//   (q - q_bar)^T (warps 0-8). A warp runs its sum's independent chains
+//   of ATen's order on its lanes (warp_row_sum, warp_inner_sum). Then
+//   thread 0 runs Horn and the tail.
 //
 // Bit for bit equal to the plain version (ops/kabsch.py: plain_kabsch_soa,
 // plain_weighted_kabsch), which writes out the arithmetic the port did on
@@ -39,11 +41,13 @@
 //
 // What bounds it: not bytes (~100 KB a sampled fit at H = 1024, ~14 KB a
 // refit at N = 512: tens of nanoseconds at 3.35 TB/s) and not operations
-// (~700 a hypothesis, ~10 ns of the card's float32 rate), but the serial
-// chain of ~600 dependent operations a thread (twenty of them divisions
-// and square roots) and the launch itself. The design keeps the chain in
-// registers and spends one launch a call in place of ~500; more
-// hypotheses in flight a thread is later work.
+// (~700 a hypothesis, ~10 ns of the card's float32 rate), but chains of
+// dependent operations and the launch itself. The sampled fit's is one
+// thread's ~600 (twenty of them divisions and square roots), kept in
+// registers. In the refit a warp a sum cuts a sum's chain of dependent
+// adds from N terms to N / 32 and the merges (at N = 512: 16 adds, then
+// 4 + 3 + 8), so what is left is the staging load, three block barriers
+// and Horn's chain on one thread, as in the sampled fit.
 //
 // Thread 0 of each launch adds one to a device counter: a launch recorded
 // into a CUDA graph, inside a conditional node's body, runs only where the
@@ -58,7 +62,7 @@
 namespace {
 
 constexpr int kLanes = 8;            // lanes of ATen's CPU float sums
-constexpr int kThreads = 128;        // threads of a refit block
+constexpr int kThreads = 9 * 32;     // a refit block: a warp a sum
 constexpr int kStaged = 1024;        // a refit row of up to this many
                                      // points is staged in shared memory
 constexpr int kSampledThreads = 64;  // threads of a sampled-fit block
@@ -106,47 +110,93 @@ __device__ __forceinline__ float seq_sum(int n, F f) {
 __device__ __forceinline__ int ceil_log2(int x) {
   return x <= 2 ? 1 : 32 - __clz(x - 1);
 }
-// sum of e(i), i < n, in the order of ATen's CPU row_sum
-// (ops/kabsch.py::row_sum)
-template <class E>
-__device__ float row_sum(int n, E e) {
+// The refit's sums run a warp each, in the order of ATen's CPU float sums
+// (ops/kabsch.py::row_sum, inner_sum), which is a forest of independent
+// chains: accumulator k (< 4) of a column takes the rows 4i + k, and within
+// a chain the cascade's first level restarts from 0 every `step` rows, so
+// those blocks are independent too; only short merges in a fixed order
+// join them. tests/test_torch_kabsch.py::test_refit_split_is_the_sum_order
+// writes this split out in Python and holds it against the CPU's sums.
+//
+// Column totals of row_sum over n rows of kCols columns, e(row, col): a
+// chain (column, accumulator) has kGroup lanes; lane g of a chain sums the
+// blocks g, g + kGroup, ... from 0.0f, and the chain's first lane merges
+// them through the cascade in block order (shuffles), adds the rows after
+// the last full block, then levels 1-3. A column's total (accumulator 0,
+// the rows after the last full row of four, accumulators 1-3 in turn) is
+// valid in the column's first lane, col * 4 * kGroup. Every lane of the
+// warp calls it.
+template <int kCols, class E>
+__device__ float warp_row_sum(int n, E e) {
+  constexpr int kGroup = 32 / (4 * kCols);     // lanes a chain
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int g = lane % kGroup, chain = lane / kGroup;
+  const int col = chain / 4, k = chain % 4;
   const int size = n / 4;
-  float acc[4][4];                       // [level][accumulator]
-  for (int j = 0; j < 4; ++j)
-    for (int k = 0; k < 4; ++k) acc[j][k] = 0.0f;
   const int power = ceil_log2(size) / 4 > 4 ? ceil_log2(size) / 4 : 4;
-  const int step = 1 << power, mask = step - 1;
-  int i = 0;
-  while (i + step <= size) {
-    for (int r = 0; r < step; ++r, ++i)
-      for (int k = 0; k < 4; ++k) acc[0][k] = add(acc[0][k], e(4 * i + k));
-    for (int j = 1; j < 4; ++j) {
-      for (int k = 0; k < 4; ++k) {
-        acc[j][k] = add(acc[j][k], acc[j - 1][k]);
-        acc[j - 1][k] = 0.0f;
+  const int step = 1 << power, mask = step - 1, nb = size >> power;
+  float acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f;
+  for (int b0 = 0; b0 < nb; b0 += kGroup) {
+    float part = 0.0f;
+    if (b0 + g < nb) {
+      const int r0 = (b0 + g) << power;
+#pragma unroll 16
+      for (int r = 0; r < step; ++r)
+        part = add(part, e(4 * (r0 + r) + k, col));
+    }
+#pragma unroll
+    for (int h = 0; h < kGroup; ++h) {
+      const float v =
+          kGroup == 1 ? part : __shfl_sync(all, part, lane - g + h);
+      if (g == 0 && b0 + h < nb) {
+        acc1 = add(acc1, v);
+        const int i = (b0 + h + 1) << power;          // rows done
+        if ((i & (mask << power)) == 0) {
+          acc2 = add(acc2, acc1);
+          acc1 = 0.0f;
+          if ((i & (mask << (2 * power))) == 0) {
+            acc3 = add(acc3, acc2);
+            acc2 = 0.0f;
+          }
+        }
       }
-      if ((i & (mask << (j * power))) != 0) break;
     }
   }
-  for (; i < size; ++i)
-    for (int k = 0; k < 4; ++k) acc[0][k] = add(acc[0][k], e(4 * i + k));
-  for (int j = 1; j < 4; ++j)
-    for (int k = 0; k < 4; ++k) acc[0][k] = add(acc[0][k], acc[j][k]);
-  float total = acc[0][0];
-  for (int m = 4 * size; m < n; ++m) total = add(total, e(m));
-  for (int k = 1; k < 4; ++k) total = add(total, acc[0][k]);
+  float acc0 = 0.0f;
+  if (g == 0)
+    for (int i = nb << power; i < size; ++i)
+      acc0 = add(acc0, e(4 * i + k, col));
+  acc0 = add(add(add(acc0, acc1), acc2), acc3);
+  float total = acc0;
+  const bool first = g == 0 && k == 0;
+  if (first)
+    for (int m = 4 * size; m < n; ++m) total = add(total, e(m, col));
+#pragma unroll
+  for (int j = 1; j < 4; ++j) {
+    const float v = __shfl_sync(all, acc0, lane + j * kGroup);
+    if (first) total = add(total, v);
+  }
   return total;
 }
 // sum of f(m), m < n, in the order of ATen's CPU sum of a contiguous row
-// (ops/kabsch.py::inner_sum)
+// (ops/kabsch.py::inner_sum): the 8 lanes x 4 accumulators are the warp's
+// 32 chains; valid in lane 0. Every lane of the warp calls it.
 template <class F>
-__device__ float inner_sum(int n, F f) {
-  if (n < kLanes) return row_sum(n, f);
+__device__ float warp_inner_sum(int n, F f) {
+  if (n < kLanes) return warp_row_sum<1>(n, [&](int i, int) { return f(i); });
   const int nv = n / kLanes;
+  const float lane_total = warp_row_sum<kLanes>(
+      nv, [&](int i, int c) { return f(i * kLanes + c); });
   float total = 0.0f;
-  for (int m = nv * kLanes; m < n; ++m) total = add(total, f(m));
-  for (int lane = 0; lane < kLanes; ++lane)
-    total = add(total, row_sum(nv, [&](int i) { return f(i * kLanes + lane); }));
+  const bool first = (threadIdx.x & 31) == 0;
+  if (first)
+    for (int m = nv * kLanes; m < n; ++m) total = add(total, f(m));
+#pragma unroll
+  for (int c = 0; c < kLanes; ++c) {
+    const float v = __shfl_sync(0xffffffffu, lane_total, 4 * c);
+    if (first) total = add(total, v);
+  }
   return total;
 }
 // sqrt of the sum of squares, clamped below: the explicit norms of the
@@ -277,11 +327,11 @@ kabsch_weighted_kernel(const float* __restrict__ p, const float* __restrict__ q,
                        const float* __restrict__ w, int n, int n_sq,
                        float* __restrict__ out, unsigned long long* counter) {
   // a row that fits is copied to shared memory first, and the weights
-  // w / sum(w) taken once a point: the serial sums then read no global
-  // memory (the same values, so the same bits)
+  // w / sum(w) taken once a point: the sums then read no global memory
+  // (the same values, so the same bits)
   __shared__ float sp[3 * kStaged], sq[3 * kStaged], swn[kStaged];
   __shared__ float wsum, bar[6], S[9];
-  const int t = threadIdx.x;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   if (blockIdx.x == 0 && t == 0) atomicAdd(counter, 1ULL);
   const long long row = blockIdx.x;
   p += row * n * 3;
@@ -299,10 +349,13 @@ kabsch_weighted_kernel(const float* __restrict__ p, const float* __restrict__ q,
   const float* P = staged ? sp : p;
   const float* Q = staged ? sq : q;
 
-  // sum(w), clamped
-  if (t == 0)
-    wsum = clamp_min(inner_sum(n, [&](int i) { return staged ? swn[i] : w[i]; }),
-                     (float)1e-9);
+  // sum(w), clamped: warp 0
+  if (warp == 0) {
+    const float v = warp_inner_sum(n, [&](int i) {
+      return staged ? swn[i] : w[i];
+    });
+    if (lane == 0) wsum = clamp_min(v, (float)1e-9);
+  }
   __syncthreads();
   const float ws = wsum;
   if (staged) {
@@ -311,21 +364,26 @@ kabsch_weighted_kernel(const float* __restrict__ p, const float* __restrict__ q,
   }
   auto wn = [&](int i) { return staged ? swn[i] : dv(w[i], ws); };
 
-  // the weighted means: sum over rows of (w / wsum) p, (w / wsum) q
-  if (t < 6) {
-    const float* x = t < 3 ? P : Q;
-    const int c = t % 3;
-    bar[t] = row_sum(n, [&](int i) { return mul(wn(i), x[3 * i + c]); });
+  // the weighted means: sum over rows of (w / wsum) p, (w / wsum) q; warps
+  // 0-5, a column each
+  if (warp < 6) {
+    const float* x = warp < 3 ? P : Q;
+    const int c = warp % 3;
+    const float v = warp_row_sum<1>(n, [&](int i, int) {
+      return mul(wn(i), x[3 * i + c]);
+    });
+    if (lane == 0) bar[warp] = v;
   }
   __syncthreads();
 
-  // S_ab = sum (wn (p_a - p_bar_a)) (q_b - q_bar_b)
-  if (t < 9) {
-    const int a = t / 3, b = t % 3;
+  // S_ab = sum (wn (p_a - p_bar_a)) (q_b - q_bar_b); warps 0-8, a sum each
+  {
+    const int a = warp / 3, b = warp % 3;
     const float pa = bar[a], qb = bar[3 + b];
-    S[t] = inner_sum(n, [&](int i) {
+    const float v = warp_inner_sum(n, [&](int i) {
       return mul(mul(wn(i), sub(P[3 * i + a], pa)), sub(Q[3 * i + b], qb));
     });
+    if (lane == 0) S[warp] = v;
   }
   __syncthreads();
   if (t == 0) fit_pose(S, bar, bar + 3, n_sq, out + 7 * row);

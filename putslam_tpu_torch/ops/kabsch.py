@@ -13,7 +13,8 @@ hand-written kernel ``csrc/kabsch_fit.cu`` (built and bound by
 * ``kabsch_soa(px, …, qz)``: the sampled fit, components (n, ...), one
   thread a hypothesis;
 * ``weighted_kabsch(p, q, w)``: the weighted refit, p, q (..., N, 3), w
-  (..., N), one block a batch row.
+  (..., N), one block a batch row, a warp a sum (the independent chains
+  of ``row_sum`` / ``inner_sum``'s order on its lanes).
 
 A CPU tensor takes the plain version (``plain_kabsch_soa``,
 ``plain_weighted_kabsch``); a CUDA tensor launches the kernel or raises

@@ -23,8 +23,9 @@ through a ``SegmentPlan``:
   segment dropped. A CPU tensor takes the plain version, ``index_add_``
   into a zeroed (n + 1, ...) buffer (the CPU's ``index_add_`` adds the rows
   in ascending order). A CUDA tensor launches ``csrc/segment_sum.cu`` or
-  raises: one thread a (segment, column) adds its rows in ascending row
-  index, which the stable sort gives, so the kernel equals the plain
+  raises: a block a run of consecutive segments stages their rows in
+  shared memory, and a thread a (segment, column) adds them in ascending
+  row index, which the stable sort gives, so the kernel equals the plain
   version bit for bit, and a run, its replay and a second run agree.
 
 The kernel is built and bound by ``ops/cuda_lib.py`` (nvcc for
@@ -53,9 +54,11 @@ from putslam_tpu_torch.ops import cuda_lib
 
 def _bind(lib) -> None:
     ptr = ctypes.c_void_p
-    lib.segment_sum_launch.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_longlong,
+    lib.segment_sum_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int,
                                        ctypes.c_int, ctypes.c_int, ptr]
     lib.segment_sum_launch.restype = ctypes.c_int
+    lib.segment_sum_max_cols.argtypes = []
+    lib.segment_sum_max_cols.restype = ctypes.c_int
 
 
 _LIB = cuda_lib.CountedLibrary("segment_sum", _bind)
@@ -69,18 +72,23 @@ uncounted = cuda_lib.uncounted
 class SegmentPlan:
     """The fixed summation order of one index set: ``idx`` (M,) integers in
     [0, n], ``n`` the sentinel of a dropped row. Holds the stable sort
-    permutation ``perm`` (M,) and the segment offsets ``offsets`` (n + 2,):
-    segment s is the sorted positions [offsets[s], offsets[s + 1]), s = n
-    the dropped rows. Built on the device of ``idx`` with no host read."""
+    permutation ``perm`` (M,), the sorted keys ``keys`` (M,) and the
+    segment offsets ``offsets`` (n + 2,): segment s is the sorted positions
+    [offsets[s], offsets[s + 1]), s = n the dropped rows. Keys and offsets
+    are int32 below 2**31 - 2 segments. Built on the device of ``idx`` with
+    no host read."""
 
     def __init__(self, idx: torch.Tensor, n: int):
         self.idx = idx.reshape(-1).long()
         self.n = int(n)
-        # 32-bit keys where they fit: the radix sort makes half the passes
-        kt = torch.int32 if self.n < 2 ** 31 - 2 else torch.int64
-        keys, self.perm = torch.sort(self.idx.to(kt), stable=True)
+        # 32-bit keys where they fit: the radix sort makes half the passes,
+        # and the kernel reads the sorted keys and the offsets as int32
+        small = self.n < 2 ** 31 - 2
+        kt = torch.int32 if small else torch.int64
+        self.keys, self.perm = torch.sort(self.idx.to(kt), stable=True)
         self.offsets = torch.searchsorted(
-            keys, torch.arange(self.n + 2, dtype=kt, device=keys.device))
+            self.keys, torch.arange(self.n + 2, dtype=kt, device=idx.device),
+            out_int32=small)
 
     @property
     def rows(self) -> int:
@@ -118,15 +126,21 @@ def launch(x: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
     if x.dim() < 1 or x.shape[0] != plan.rows:
         raise ValueError(f"{what}: {tuple(x.shape)} rows for a plan of "
                          f"{plan.rows}")
+    if plan.keys.dtype != torch.int32 or plan.rows >= 2 ** 31:
+        raise ValueError(f"{what}: {plan.rows} rows into n {plan.n} need "
+                         f"64-bit keys, which the kernel does not take")
     x = x.contiguous()
     cols = math.prod(x.shape[1:])
     out = torch.empty((plan.n,) + tuple(x.shape[1:]), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
         lib = _LIB.library()
+        if cols > lib.segment_sum_max_cols():
+            raise ValueError(f"{what}: {cols} columns, the kernel takes at "
+                             f"most {lib.segment_sum_max_cols()}")
         stream = torch.cuda.current_stream(x.device).cuda_stream
         _LIB.check(lib.segment_sum_launch(
-            x.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
-            out.data_ptr(), plan.n * cols, cols, cuda_lib.counted(), stream),
-            f"{what} kernel launch")
+            x.data_ptr(), plan.perm.data_ptr(), plan.keys.data_ptr(),
+            plan.offsets.data_ptr(), out.data_ptr(), plan.n, cols,
+            cuda_lib.counted(), stream), f"{what} kernel launch")
     return out

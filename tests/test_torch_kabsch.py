@@ -248,6 +248,89 @@ def test_sum_orders_are_the_cpus(N):
     assert torch.equal(tkabsch.row_sum(y), torch.sum(y, dim=-2))
 
 
+def _split_row_sum(x):
+    """Column totals of x (n, cols) float32 as the refit kernel's
+    ``warp_row_sum`` computes them: accumulator k of a column is a chain of
+    the rows 4i + k; its first-level blocks of ``step`` rows, each summed
+    from +0.0 apart (a lane each), are merged in block order through the
+    cascade, after the rows past the last full block; then the column's
+    total is accumulator 0, the rows past the last full row of four, and
+    accumulators 1-3 in turn."""
+    f32 = np.float32
+    n_rows, cols = x.shape
+    size = n_rows // 4
+    power = max(4, tkabsch._ceil_log2(size) // 4)
+    step, mask, nb = 1 << power, (1 << power) - 1, size >> power
+    totals = []
+    for col in range(cols):
+        chain = []
+        for k in range(4):
+            rows = x[4 * np.arange(size) + k, col]
+            parts = np.zeros(nb, f32)       # the blocks, independent
+            for r in range(step):
+                parts = parts + rows[r:nb * step:step]
+            acc1 = acc2 = acc3 = f32(0.0)
+            for b in range(nb):             # one lane merges them in order
+                acc1 = acc1 + parts[b]
+                i = (b + 1) << power
+                if not i & (mask << power):
+                    acc2, acc1 = acc2 + acc1, f32(0.0)
+                    if not i & (mask << (2 * power)):
+                        acc3, acc2 = acc3 + acc2, f32(0.0)
+            acc0 = f32(0.0)
+            for v in rows[nb * step:]:
+                acc0 = acc0 + v
+            chain.append(((acc0 + acc1) + acc2) + acc3)
+        total = chain[0]
+        for m in range(4 * size, n_rows):
+            total = total + x[m, col]
+        for k in range(1, 4):
+            total = total + chain[k]
+        totals.append(total)
+    return np.array(totals, f32)
+
+
+def _split_inner_sum(x):
+    """Σ of a float32 row x (n,) as the refit kernel's ``warp_inner_sum``
+    computes it: the 8 lanes × 4 accumulators = 32 chains of
+    ``_split_row_sum`` over the row's vectors of 8, then from +0.0 the
+    elements past the last full vector and the 8 lane totals in turn; a
+    row shorter than 8 through ``_split_row_sum`` of one column."""
+    lanes = tkabsch.LANES
+    if x.shape[0] < lanes:
+        return _split_row_sum(x[:, None])[0]
+    nv = x.shape[0] // lanes
+    total = np.float32(0.0)
+    for v in x[nv * lanes:]:
+        total = total + v
+    for v in _split_row_sum(x[:nv * lanes].reshape(nv, lanes)):
+        total = total + v
+    return total
+
+
+@pytest.mark.parametrize("N", [1, 7, 8, 15, 16, 17, 31, 32, 33, 63, 64, 65,
+                               127, 128, 129, 255, 256, 257, 511, 512, 513,
+                               1023, 1024, 1025, 2051, 4100, 16389])
+def test_refit_split_is_the_sum_order(N):
+    """The refit kernel's parallel split of the sums (independent chains
+    and first-level blocks, merged in a fixed order) gives the bits of
+    ``inner_sum``, ``row_sum`` and ``torch.sum`` on the CPU, at sizes across
+    the cascade's levels."""
+    rng = np.random.default_rng(1000 + N)
+    with np.errstate(over="ignore"):
+        x = (rng.standard_normal((2, N)) * 10.0 ** rng.integers(-3, 4, (2, N))
+             ).astype(np.float32)
+        y = rng.standard_normal((N, 3)).astype(np.float32)
+        split = [_split_inner_sum(r) for r in x]
+        split_rows = _split_row_sum(y)
+    np.testing.assert_array_equal(np.array(split, np.float32),
+                                  n(tkabsch.inner_sum(t(x))))
+    np.testing.assert_array_equal(np.array(split, np.float32),
+                                  n(torch.sum(t(x), dim=-1)))
+    np.testing.assert_array_equal(split_rows, n(tkabsch.row_sum(t(y))))
+    np.testing.assert_array_equal(split_rows, n(torch.sum(t(y), dim=0)))
+
+
 def test_norm_and_cross_are_the_cpus():
     """``_norm`` is ``torch.linalg.norm`` and ``_cross`` is
     ``torch.linalg.cross`` on the CPU, bit for bit."""

@@ -4,9 +4,11 @@ on the card.
 The kernel against its plain version on the card, bit for bit: the
 sampled fit at the main path's 1024 hypotheses of 3 points, the refit at
 the VO's and the map's 512 matches, at loop closure's 128, at 1500 (read
-from global memory, not staged) and in a batch of 700-match rows, and the
+from global memory, not staged) and in a batch of 700-match rows, the
 degenerate inputs (all-zero weights, three
-equal points, collinear points, fewer than 3 valid matches); one launch a
+equal points, collinear points, fewer than 3 valid matches), and at the
+edges of the warps' split of the sums (N 1 to 2051, one and three rows,
+0/1 and all-zero weights); one launch a
 call. Replayed from a CUDA graph it gives the eager bits, and a launch
 inside a conditional node's body counts only where the card runs the body
 (the warm-up under ``uncounted`` not at all). Float64 and non-contiguous
@@ -60,6 +62,14 @@ def _weighted(kind, seed):
         ps, qs = zip(*(_scene(rng, 700) for _ in range(3)))
         return (np.stack(ps), np.stack(qs),
                 (rng.uniform(size=(3, 700)) < 0.7).astype(np.float32))
+    if kind.startswith("N"):                  # "N<points>_B<rows>"
+        N, B = (int(v) for v in kind[1:].split("_B"))
+        ps, qs = zip(*(_scene(rng, N) for _ in range(B)))
+        w = (rng.uniform(size=(B, N)) < 0.6).astype(np.float32)
+        if B > 1:                             # an all-zero row, a dense one
+            w[1] = 0.0
+            w[2] = (rng.uniform(size=N) < 0.95).astype(np.float32)
+        return np.stack(ps), np.stack(qs), w
     N = {"loop_closure_128": 128, "unstaged_1500": 1500}.get(kind, 512)
     p, q = _collinear(rng, N) if kind == "collinear" else _scene(rng, N)
     w = (rng.uniform(size=N) < 0.6).astype(np.float32)
@@ -74,9 +84,15 @@ def _weighted(kind, seed):
     return p, q, w
 
 
-# unstaged_1500: more points than the kernel stages in shared memory
+# unstaged_1500: more points than the kernel stages in shared memory;
+# N<n>_B<b>: the edges of the warps' split of the sums (the lanes and the
+# cascade's blocks: 8, 32, 64, 512 points and one on either side; 1024 =
+# kStaged), each with 0/1 weights in one row, and in three rows the second
+# all-zero
 WEIGHTED = ["matches_512", "loop_closure_128", "unstaged_1500", "batch",
-            "zero_weights", "three_equal_points", "collinear", "two_valid"]
+            "zero_weights", "three_equal_points", "collinear", "two_valid"] \
+    + [f"N{N}_B{B}" for N in (1, 7, 8, 31, 32, 33, 64, 65, 511, 512, 513,
+                              1024, 1025, 2051) for B in (1, 3)]
 
 
 def _sampled(kind, seed, dev):

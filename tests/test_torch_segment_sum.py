@@ -4,8 +4,9 @@ the CPU.
 The plan's plain version (``index_add_`` into a zeroed buffer with a
 sentinel row) is what the CPU runs; the CUDA kernel
 (``csrc/segment_sum.cu``) adds each segment's rows in the order the plan's
-stable sort gives, which ``_ordered_sum`` below repeats in Python: both
-must equal ``index_add_`` bit for bit (the CPU's ``index_add_`` adds the
+stable sort gives, which ``_ordered_sum`` below repeats in Python, and
+``_block_walk`` with the kernel's blocks, chunks and batches: all must
+equal ``index_add_`` bit for bit (the CPU's ``index_add_`` adds the
 rows in ascending order). Then the solvers' concatenated plans against the
 scatters they replaced (the observation rows, then the pose-pose edges'
 four blocks, in the order the scatters ran), and the plan's construction
@@ -92,12 +93,80 @@ def test_random_sizes_in_the_kernels_order(seed):
     assert torch.equal(_ordered_sum(x, plan), _index_add(x, idx, n))
 
 
+def _block_walk(x, plan, per_block, chunk):
+    """The kernel's control flow in Python: a block a run of ``per_block``
+    segments; zeros for its empty segments only; its rows staged ``chunk``
+    rows at a time; in a chunk, each segment that starts there (or goes on
+    from the chunk before) is added by one thread a column, its rows in
+    order, eight at a time and then the rest, from 0.0 or from the sum
+    carried over; at the segment's end the sum is written, before it
+    carried into the next chunk. Every output element must be written
+    exactly once."""
+    cols = int(np.prod(x.shape[1:]))
+    xf = x.reshape(x.shape[0], cols).numpy()
+    perm, keys = plan.perm.numpy(), plan.keys.numpy()
+    off = plan.offsets.numpy()
+    out = np.full((plan.n, cols), np.nan, np.float32)
+    writes = np.zeros((plan.n, cols), int)
+    for s0 in range(0, plan.n, per_block):
+        ns = min(plan.n, s0 + per_block) - s0
+        soff = off[s0:s0 + ns + 1]
+        for ls in range(ns):                         # the empty segments
+            if soff[ls + 1] == soff[ls]:
+                out[s0 + ls] = 0.0
+                writes[s0 + ls] += 1
+        carry = None
+        for c0 in range(soff[0], soff[ns], chunk):
+            cnt = min(chunk, soff[ns] - c0)
+            skey, rows = keys[c0:c0 + cnt], xf[perm[c0:c0 + cnt]]
+            starts = [r for r in range(cnt)
+                      if r == 0 or skey[r] != skey[r - 1]]
+            carry_out = None
+            for r in starts[::-1]:                   # in any order
+                key = skey[r]
+                end = soff[key - s0 + 1] - c0
+                stop = min(end, cnt)
+                acc = carry if r == 0 and soff[key - s0] < c0 else \
+                    np.zeros(cols, np.float32)
+                while r + 8 <= stop:
+                    for i in range(8):
+                        acc = acc + rows[r + i]
+                    r += 8
+                for i in range(stop - r):
+                    acc = acc + rows[r + i]
+                if stop == end:
+                    out[key] = acc
+                    writes[key] += 1
+                else:
+                    carry_out = acc
+            carry = carry_out
+    assert (writes == 1).all()
+    return torch.from_numpy(out).reshape((plan.n,) + tuple(x.shape[1:]))
+
+
+@pytest.mark.parametrize("per_block,chunk", [(1, 8), (1, 24), (3, 16),
+                                             (7, 32), (64, 48)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_block_walk_in_python_is_the_plain_order(kind, per_block, chunk):
+    """The kernel's blocks, chunks and batches of 8 (``_block_walk``) give
+    ``index_add_``'s bits, at chunks far smaller than the kernel's so that
+    segments cross them."""
+    x, idx, n = _case(kind, (3,), seed=7 + per_block + chunk)
+    plan = SegmentPlan(idx, n)
+    assert torch.equal(_block_walk(x, plan, per_block, chunk),
+                       _index_add(x, idx, n))
+
+
 def test_plan_layout():
     idx = torch.tensor([4, 1, 1, 0, 4, 2, 1])
     plan = SegmentPlan(idx, 4)
     assert plan.perm.tolist() == [3, 1, 2, 6, 5, 0, 4]      # stable
+    assert plan.keys.tolist() == [0, 1, 1, 1, 2, 4, 4]      # idx sorted
     assert plan.offsets.tolist() == [0, 1, 4, 5, 5, 7]     # n + 2 entries
     assert plan.rows == 7
+    # the kernel reads keys and offsets as int32, perm as int64
+    assert plan.keys.dtype == plan.offsets.dtype == torch.int32
+    assert plan.perm.dtype == torch.int64
 
 
 def test_a_plan_is_reused_over_several_rows():

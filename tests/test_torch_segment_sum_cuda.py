@@ -4,7 +4,10 @@ card, and the solvers that sum through it.
 The kernel against its plain version (``index_add_`` on the CPU, in
 ascending row order) bit for bit at the fr1 shapes of the in-loop BA
 (8192 observations into 64 keyframes, 2048 landmarks, and the 65 × 2049
-coupling blocks); twice, the same bits; replayed from a CUDA graph and
+coupling blocks), and at the edges of its design: segments of 0 to 5000
+rows at widths of 1 to 37 columns, every row in one segment, a G-like plan
+of 256 × 2048 segments of at most one row, rows at 4-byte alignment;
+twice, the same bits, one launch a call; replayed from a CUDA graph and
 from inside a conditional node's body, with its launches counted on the
 card (a skipped body launches nothing; the warm-up under ``uncounted`` is
 not counted). Then ``gauss_newton_mm`` on a keyframe-dense fr1 map with
@@ -36,6 +39,14 @@ M = 8192
 # landmark sums (H_ll, b_l) and the coupling G of the fr1 in-loop BA
 SHAPES = [(64, (6, 6)), (64, (6,)), (2048, (3, 3)), (2048, (3,)),
           (65 * 2049, (6, 3))]
+# the edges of the kernel's design: segments of these lengths (a block
+# stages 512 rows' plan and adds tiles of 128 rows), at these widths (a
+# thread a column; 16-, 8- and 4-byte copies)
+LENGTHS = (0, 1, 31, 32, 33, 128, 1000, 5000, 0, 1)
+WIDTHS = {1: (1,), 3: (3,), 6: (6,), 18: (6, 3), 36: (6, 6), 37: (37,)}
+CASES = ([f"shape {n} {trailing}" for n, trailing in SHAPES]
+         + [f"lengths, cols {c}" for c in WIDTHS]
+         + ["one segment", "G-like", "rows at 4-byte alignment"])
 
 
 @pytest.fixture
@@ -55,18 +66,58 @@ def _rows(n, trailing, seed):
     return torch.from_numpy(x), torch.from_numpy(idx)
 
 
+def _case(case, seed):
+    """(x, idx, n) of one case of ``CASES``."""
+    rng = np.random.default_rng(seed)
+    if case.startswith("shape"):
+        n, trailing = SHAPES[CASES.index(case)]
+        return (*_rows(n, trailing, seed), n)
+    if case.startswith("lengths"):
+        # the segments' rows interleaved in a random order, a tenth dropped
+        n = len(LENGTHS)
+        idx = np.repeat(np.arange(n), LENGTHS)
+        idx = np.concatenate([idx, np.full(idx.size // 10, n)])
+        idx = torch.from_numpy(rng.permutation(idx))
+        trailing = WIDTHS[int(case.split()[-1])]
+    elif case == "one segment":
+        n, trailing = 1, (6, 6)
+        idx = torch.zeros(M, dtype=torch.int64)
+    elif case == "G-like":
+        # K * L segments (fr1's 256 keyframes x 2048 landmarks), at most
+        # one row each, nearly all empty
+        n, trailing = 256 * 2048, (6, 3)
+        idx = rng.choice(n, M, replace=False)
+        idx[rng.uniform(size=M) < 0.1] = n
+        idx = torch.from_numpy(idx)
+    x = (rng.standard_normal((idx.shape[0],) + trailing)
+         * 10.0 ** rng.integers(-3, 4, (idx.shape[0],) + trailing))
+    return torch.from_numpy(x.astype(np.float32)), idx, n
+
+
 def _plain_cpu(x, idx, n):
     return segment.plain_segment_sum(x, SegmentPlan(idx, n))
 
 
-@pytest.mark.parametrize("n,trailing", SHAPES, ids=str)
-def test_kernel_equals_plain_bit_for_bit(cuda, n, trailing):
-    x, idx = _rows(n, trailing, seed=n + len(trailing))
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_equals_plain_bit_for_bit(cuda, case):
+    if case == "rows at 4-byte alignment":
+        # rows whose start is 4 mod 16 bytes: the 4-byte copies, 36 columns
+        x, idx = _rows(64, (6, 6), seed=99)
+        n = 64
+        flat = torch.empty(x.numel() + 1, device=cuda)
+        xs = flat[1:].view(x.shape)
+        xs.copy_(x.to(cuda))
+        assert xs.data_ptr() % 16 == 4
+    else:
+        x, idx, n = _case(case, seed=CASES.index(case))
+        xs = x.to(cuda)
     plan = SegmentPlan(idx.to(cuda), n)
-    got = plan.sum(x.to(cuda))
-    again = plan.sum(x.to(cuda))
-    torch.cuda.synchronize()
+    segment.reset_launch_count()
+    got = plan.sum(xs)
+    again = plan.sum(xs)
+    assert segment.launch_count() == 2
     ref = _plain_cpu(x, idx, n)
+    assert got.shape == ref.shape
     assert torch.equal(got.cpu(), ref)
     assert torch.equal(again, got)
 
