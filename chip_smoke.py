@@ -24,9 +24,10 @@ Phases (any failed check raises and the script exits non-zero):
   5. the bench workload — fr1 config, 64-frame synthetic orbit rendered on
      the card, run_slam_final — once to warm up, then timed with the
      kernels' launch counters reset: 1 FAST launch per frame, segment sums
-     launched (the bench makes no keyframe, so finalize's), RANSAC's fit
-     launched at least 6 times a frame (the VO and the map's pass, a
-     sampled fit and two refits each), final ATE under the gate.
+     launched (the bench makes no keyframe, so finalize's), at least 2
+     hypotheses launches, 4 score launches and 4 refits a frame (the VO and
+     the map's pass, a hypotheses launch and two refits each, a score
+     launch a refit), final ATE under the gate.
  5b. the same frames with every tracked frame a keyframe, so keyframe
      bookkeeping and the windowed, landmark-blocked BA run in the loop.
  5c. the segment-sum kernel (csrc/segment_sum.cu, the solvers' sums in a
@@ -42,14 +43,28 @@ Phases (any failed check raises and the script exits non-zero):
  5d. RANSAC's fit (csrc/kabsch_fit.cu, one launch a fit): the RANSAC calls
      of bench frames 1-2 through the frame runner without graphs are
      recorded; on the VO's and the map pass's real matches and inlier
-     masks (the sampled fit of 1024 hypotheses, the refits), and on
+     masks (the sampled fit of 1024 hypotheses, which the main path now
+     runs in 5e's kernel, and the refits), and on
      degenerate sets made from them (all-zero weights, three equal points,
      collinear points, fewer than 3 valid matches), the kernel against its
      plain version on the card bit for bit, and twice the same; timed at
      the main path's three shapes (CUDA events behind a spin kernel, its
      own duration in torch.profiler), beside the plain version and the
      bound from these inputs' bytes and the plain version's operations.
-  6. the CLI: putslam_tpu_torch.run --synthetic 30 writes its five files
+  5e. RANSAC's hypotheses and scores (csrc/ransac_score.cu, one launch a
+     RANSAC call for the sampled fits of all hypotheses and their (H, N)
+     scores, one a refit's score): on the same recorded calls (the VO's
+     and the map pass's hypotheses at their sampler's indices, their refit
+     poses' scores), each error model 0-4 (3 with and without information
+     matrices), no valid match, all valid, N 500, one hypothesis, three
+     poses and N 1500 (above the shared-memory stage), the kernel against
+     its plain version on the card bit for bit, and twice the same; timed
+     at H 1024 x N 512 and 1 x N 512 (CUDA events behind a spin kernel, its
+     own duration in torch.profiler) beside the plain version, the ATen
+     sequence it replaced (its kernels and device time), the bound from
+     these inputs' bytes and the plain version's operations, and the
+     build-time variants of 8 and 32 warps a block (the same bits).
+ 6. the CLI: putslam_tpu_torch.run --synthetic 30 writes its five files
      (statistics.txt included) and reports an ATE under 0.05 m; with
      --loop-closure the same; --only-vo --vo-version 1 (KLT tracking)
      writes its three files and reports an ATE under 0.15 m.
@@ -202,8 +217,9 @@ Phases (any failed check raises and the script exits non-zero):
      polished map with odometry edges and three
      keyframes moved by 0.5 m: the same repairs, poses within
      CHECK_TRAJECTORY_TOL; ms a call.
-Then one JSON line describing the three kernels (fast_score_nms,
-segment_sum, kabsch_fit), the nvidia-smi line, and the final status line.
+Then one JSON line describing the four kernels (fast_score_nms,
+segment_sum, kabsch_fit, ransac_score), the nvidia-smi line, and the final
+status line.
 """
 
 import argparse
@@ -2023,21 +2039,11 @@ def plain_ops(fn):
     return count.n
 
 
-def phase_kabsch_fit(cfg, grays, depths, gt, dev):
-    """Phase 5d, RANSAC's fit (``csrc/kabsch_fit.cu``): the RANSAC calls of
-    frames 1-2 of the bench orbit through the frame runner without graphs
-    (the branches the replay runs) are recorded. On the VO's and the map
-    pass's real matches, and on degenerate sets made from them, the kernel
-    against its plain version on the card, bit for bit, and twice the
-    same. Then at the main path's shapes (the sampled fit of 1024
-    hypotheses, the refit at the VO's and at the map's N) the kernel's time
-    (CUDA events behind a spin kernel, twice; its own duration in
-    torch.profiler), the plain version's, and the bound from these inputs'
-    bytes (each input read once, the poses written once) and the plain
-    version's float operations. Returns (max_abs_err, rows by shape)."""
-    from putslam_tpu_torch.frontend import ransac
+def bench_ransac_calls(cfg, grays, depths, gt, dev):
+    """The RANSAC calls of frames 1-2 of the bench orbit through the frame
+    runner without graphs (the branches the replay runs), recorded
+    (``recorded_ransac``): the VO's and the map pass's."""
     from putslam_tpu_torch.models import compiled, slam
-    from putslam_tpu_torch.ops import kabsch
 
     state0 = slam.slam_init(cfg, grays[0], depths[0],
                             torch.as_tensor(gt[0], device=dev))
@@ -2045,8 +2051,27 @@ def phase_kabsch_fit(cfg, grays, depths, gt, dev):
     draws = [slam.frame_draws(cfg, gen, dev) for _ in range(2)]
     rec = recorded_ransac(lambda: compiled.run_sequence(
         cfg, state0, grays[1:3], depths[1:3], draws=draws, capture=False))
-    vo = next(r for r in rec if r["caller"] == "match_and_estimate")
-    mp = next(r for r in rec if r["caller"] == "run_guided")
+    return (next(r for r in rec if r["caller"] == "match_and_estimate"),
+            next(r for r in rec if r["caller"] == "run_guided"))
+
+
+def phase_kabsch_fit(cfg, calls, dev):
+    """Phase 5d, RANSAC's fit (``csrc/kabsch_fit.cu``): ``calls``, the VO's
+    and the map pass's recorded RANSAC calls (``bench_ransac_calls``). On
+    their real matches, and on degenerate sets made from them, the kernel
+    against its plain version on the card, bit for bit, and twice the
+    same. Then at the main path's shapes (the sampled fit of 1024
+    hypotheses, the refit at the VO's and at the map's N) the kernel's time
+    (CUDA events behind a spin kernel, twice; its own duration in
+    torch.profiler), the plain version's, and the bound from these inputs'
+    bytes (each input read once, the poses written once) and the plain
+    version's float operations. The main path launches the refits; its
+    sampled fit is phase 5e's kernel; ``kabsch_soa``'s kernel, which the
+    package no longer calls, is held here until it is removed. Returns (max_abs_err, rows by shape)."""
+    from putslam_tpu_torch.frontend import ransac
+    from putslam_tpu_torch.ops import kabsch
+
+    vo, mp = calls
 
     def comps(r, valid=None, p=None, q=None):
         idx = ransac.sample_indices(r["cfg"], r["valid"] if valid is None
@@ -2141,6 +2166,175 @@ def phase_kabsch_fit(cfg, grays, depths, gt, dev):
     return max_err, rows
 
 
+def phase_ransac_score(cfg, calls, dev):
+    """Phase 5e, RANSAC's hypotheses and scores (``csrc/ransac_score.cu``):
+    ``calls``, the VO's and the map pass's recorded RANSAC calls
+    (``bench_ransac_calls``). The hypotheses mode at their sampler's
+    indices and the score mode at their refit poses; each error model (0-4,
+    3 with and without information matrices) over the VO's matches; and
+    edge cases made from them (no valid match, all valid, N not a multiple
+    of 32, one pose, N above the shared-memory stage): the kernel against
+    its plain version on the card, bit for bit, and twice the same. Then at
+    H 1024 x N 512 (the VO's hypotheses) and 1 x N 512 (its refit pose's
+    score): the kernel's time (CUDA events behind a spin kernel, twice;
+    its own duration in torch.profiler), the plain version's, the ATen
+    sequence the port ran before the kernel for the same call (gathers,
+    ``kabsch_soa``, the pair errors, mask and sums), and the bound from
+    these inputs' bytes (each input read once, each output written once)
+    and the plain version's float operations. Returns (max_abs_err, rows
+    by shape)."""
+    import math
+
+    from putslam_tpu_torch.frontend import ransac
+    from putslam_tpu_torch.ops import kabsch
+    from putslam_tpu_torch.ops import ransac_score as rs
+
+    vo, mp = calls
+    cam = cfg.camera
+
+    def fmt(x, spec):
+        return "not measured" if x is None else format(x, spec)
+
+    def hyp(r, rc=None, p=None, q=None, valid=None, info=None, h=None):
+        rc = r["cfg"] if rc is None else rc
+        p = (r["p"] if p is None else p).contiguous()
+        q = (r["q"] if q is None else q).contiguous()
+        valid = (r["valid"] if valid is None else valid).contiguous()
+        u = r["u"] if h is None else r["u"][:, :h]
+        idx = ransac.sample_indices(rc, valid, u)
+        return "hypotheses", (p, q, valid, idx, rs.model_of(rc, cam), info)
+
+    def score(r, B=1):
+        p, q = r["p"].contiguous(), r["q"].contiguous()
+        T = kabsch.weighted_kabsch(p, q, r["inliers"].float())[None]
+        T = T.expand(B, 7).contiguous()
+        return "score", (T, p, q, r["valid"].contiguous(),
+                         rs.model_of(r["cfg"], cam), None)
+
+    rc = vo["cfg"]
+    nv = vo["p"].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(14)
+    a = torch.randn((nv, 3, 3), generator=gen, device=dev)
+    info = (a @ a.transpose(1, 2) * 1e4).contiguous()
+    reps = math.ceil(1500 / nv)
+    shift = [0.002 * i for i in range(reps)]
+    big = [torch.cat([vo[k] + s for s in shift])[:1500] for k in ("p", "q")]
+    big_valid = torch.cat([vo["valid"]] * reps)[:1500]
+    main = {
+        f"hypotheses, VO (H {rc.n_hypotheses} x N {nv})": hyp(vo),
+        f"score, VO's refit (1 x N {nv})": score(vo)}
+    cases = dict(main, **{
+        f"hypotheses, map pass (N {mp['p'].shape[0]})": hyp(mp),
+        "score, map pass's refit": score(mp),
+        "score, three poses": score(vo, B=3),
+        **{f"hypotheses, error_version {v}": hyp(vo, dataclasses.replace(
+            rc, error_version=v)) for v in range(5)},
+        "hypotheses, error_version 3 with information matrices": hyp(
+            vo, dataclasses.replace(
+                rc, error_version=3,
+                inlier_threshold_mahalanobis=MAHALANOBIS_GATE), info=info),
+        "hypotheses, no valid match": hyp(
+            vo, valid=torch.zeros_like(vo["valid"])),
+        "hypotheses, all valid": hyp(vo, valid=torch.ones_like(vo["valid"])),
+        "hypotheses, N 500 (not a multiple of 32)": hyp(
+            vo, p=vo["p"][:500], q=vo["q"][:500], valid=vo["valid"][:500]),
+        "hypotheses, one hypothesis": hyp(vo, h=1),
+        "hypotheses, N 1500 (above the stage)": hyp(
+            vo, p=big[0], q=big[1], valid=big_valid)})
+
+    def kernel_of(kind, args):
+        fn = rs.hypotheses if kind == "hypotheses" else rs.score
+        return lambda: fn(*args)
+
+    def plain_of(kind, args):
+        fn = rs.plain_hypotheses if kind == "hypotheses" else rs.plain_score
+        return lambda: fn(*args)
+
+    def aten_of(kind, args):
+        """The ATen sequence the port ran for the same call before the
+        kernel: the six gathers and ``kabsch_soa``'s launch, then the (H, N)
+        pass of the pair errors (``plain_errors``), the mask and ATen's sums
+        (a refit's pass: its errors, mask and count)."""
+        if kind == "hypotheses":
+            p, q, valid, idx, model, inf = args
+
+            def run():
+                T = kabsch.kabsch_soa(*(x[:, c][idx] for x in (p, q)
+                                        for c in range(3)))
+                err, thr = rs.plain_errors(T, p, q, model, inf)
+                inl = (err < thr) & valid[None, :]
+                return T, inl, torch.sum(inl, dim=-1), torch.sum(
+                    torch.where(inl, err, torch.zeros_like(err)), dim=-1)
+            return run
+        T, p, q, valid, model, inf = args
+
+        def run():
+            err, thr = rs.plain_errors(T, p, q, model, inf)
+            inl = (err < thr) & valid
+            return inl, torch.sum(inl)
+        return run
+
+    max_err = 0.0
+    for tag, (kind, args) in cases.items():
+        got, again = kernel_of(kind, args)(), kernel_of(kind, args)()
+        ref = plain_of(kind, args)()
+        torch.cuda.synchronize()
+        for g, a2, r in zip(got, again, ref):
+            check(g.shape == r.shape and g.dtype == r.dtype,
+                  f"[5e] {tag}: {tuple(g.shape)} {g.dtype} against "
+                  f"{tuple(r.shape)} {r.dtype}")
+            diff = float((g.double() - r.double()).abs().max()) \
+                if g.numel() else 0.0
+            check(torch.equal(g, r), f"[5e] {tag}: the kernel differs from "
+                  f"its plain version by {diff:.3e}")
+            check(torch.equal(g, a2), f"[5e] {tag}: two launches differ")
+            max_err = max(max_err, diff)
+        if kind == "hypotheses":
+            check(bool(torch.isfinite(got[0]).all()),
+                  f"[5e] {tag}: poses not finite")
+    print(f"[5e] RANSAC's hypotheses and scores, kernel against its plain "
+          f"version on the card: bit-equal and twice the same on "
+          f"{len(cases)} inputs ({'; '.join(cases)})", flush=True)
+    print(f"[5e] matches staged in shared memory up to {rs.STAGED}; a "
+          f"longer row is read from device memory", flush=True)
+
+    rows = {}
+    for tag, (kind, args) in main.items():
+        kern, plain = kernel_of(kind, args), plain_of(kind, args)
+        aten = aten_of(kind, args)
+        outs = kern()
+        ins = [x for x in args if torch.is_tensor(x)]
+        nbytes = sum(x.numel() * x.element_size() for x in ins + list(outs))
+        ops = plain_ops(plain)
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * ops / FP32_OPS_PER_S
+        bound_ms = max(bytes_ms, ops_ms)
+        ms_plain = median_ms(plain, runs=10)
+        ms_aten = median_ms(aten, runs=20)
+        ms = [median_ms(kern, runs=30), median_ms(kern, runs=30)]
+        ms_k = 0.5 * (ms[0] + ms[1])
+        own = profiler_us(kern, "ransac_score")
+        n_aten, dev_aten = device_kernels(aten)
+        rows[tag] = dict(ms=ms_k, plain_ms=ms_plain, aten_ms=ms_aten,
+                         bound_ms=bound_ms, bytes_ms=bytes_ms, ops_ms=ops_ms,
+                         own_us=own, aten_kernels=n_aten,
+                         aten_device_ms=dev_aten)
+        print(f"[5e] {tag}: {nbytes} bytes = {bytes_ms:.6f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12} TB/s, {ops} float operations (the "
+              f"plain version's) = {ops_ms:.6f} ms at "
+              f"{FP32_OPS_PER_S / 1e12} TFLOP/s: bound {bound_ms:.6f} ms by "
+              f"{'bytes' if bytes_ms >= ops_ms else 'operations'}; kernel "
+              f"{ms[0]:.5f} / {ms[1]:.5f} ms ({100 * bound_ms / ms_k:.2f} % "
+              f"of the bound; own "
+              f"{'not measured' if own is None else f'{own:.2f} us'}, "
+              f"torch.profiler); the ATen sequence it replaced "
+              f"{ms_aten:.5f} ms ({ms_aten / ms_k:.1f}x; {fmt(n_aten, 'd')} "
+              f"kernels, device {fmt(dev_aten and 1e3 * dev_aten, '.2f')} "
+              f"us, torch.profiler); plain {ms_plain:.5f} ms; library call: "
+              f"none", flush=True)
+    return max_err, rows
+
+
 def device_kernels(fn):
     """(kernels, their summed device ms) of one call of ``fn`` as
     torch.profiler (CUPTI) records them, CUDA-graph replays included;
@@ -2194,19 +2388,19 @@ def phase_compiled(cells, dev):
     eagerly with the same per-frame draws, each mode twice: the four runs
     must end bit-equal. Returns the FAST launches of the graph runs, by
     cell, each cell's (config, final state, outputs, truth, gate) of its
-    graph run, and its segment-sum and RANSAC-fit launches a frame by
-    mode."""
+    graph run, and its segment-sum, RANSAC-refit and RANSAC hypotheses /
+    score launches a frame by mode."""
     import numpy as np
 
     from putslam_tpu_torch.eval import ate as ate_mod
     from putslam_tpu_torch.models import compiled, slam
-    from putslam_tpu_torch.ops import fast_cuda, kabsch, segment
+    from putslam_tpu_torch.ops import fast_cuda, kabsch, ransac_score, segment
     from putslam_tpu_torch.utils import graph_cond
 
     def fmt(x, spec):
         return "not measured" if x is None else format(x, spec)
 
-    launches, finals, seg_rows, fit_rows = {}, {}, {}, {}
+    launches, finals, seg_rows, fit_rows, score_rows = {}, {}, {}, {}, {}
     for tag, (c, g, d, truth, gate_before, gate) in cells.items():
         n = g.shape[0] - 1
         state0 = slam.slam_init(c, g[0], d[0],
@@ -2229,9 +2423,11 @@ def phase_compiled(cells, dev):
             nodes = graph_cond.launches - nodes
             segment.reset_launch_count()
             kabsch.reset_launch_count()
+            ransac_score.reset_launch_count()
             (st, outs), dt, n_launch = timed(run, fast_cuda.fast_score_nms)
             n_seg = segment.launch_count()
             n_fit = kabsch.launch_count()
+            n_rs = ransac_score.launch_counts()
             (_, outs2), n_sync = count_syncs(run)
             kernels, dev_ms = device_kernels(lambda: run(COMPILED_PROFILED))
             poses = np.concatenate([truth[:1], outs.pose.cpu().numpy()])
@@ -2241,6 +2437,7 @@ def phase_compiled(cells, dev):
             rows[mode] = r = dict(
                 outs=outs, state=st, s=dt, launches=n_launch,
                 syncs=n_sync / n, seg=n_seg / n, fit=n_fit / n,
+                hyp=n_rs["hypotheses"] / n, score=n_rs["score"] / n,
                 spread=float((outs.pose - outs2.pose).abs().max()),
                 ate_b=ate_mod.ate_rmse_aligned_frames(truth, poses),
                 ate_f=ate_mod.ate_rmse_aligned_frames(truth, after))
@@ -2267,14 +2464,21 @@ def phase_compiled(cells, dev):
                   f"frame, busy share {fmt(busy, '.3f')} (profiler, frames "
                   f"1-{COMPILED_PROFILED}); FAST launches {n_launch}, "
                   f"segment sums {n_seg} ({n_seg / n:.2f} a frame); "
-                  f"RANSAC fits {n_fit} ({n_fit / n:.2f} a frame); "
+                  f"RANSAC refits {n_fit} ({n_fit / n:.2f} a frame), "
+                  f"hypotheses {n_rs['hypotheses']} "
+                  f"({n_rs['hypotheses'] / n:.2f} a frame), scores "
+                  f"{n_rs['score']} ({n_rs['score'] / n:.2f} a frame); "
                   f"keyframes {int(outs.is_keyframe.sum())}, BA calls "
                   f"{int(outs.ba_ran.sum())}; ATE {r['ate_b']:.5f} m, "
                   f"finalized {r['ate_f']:.5f} m{extra}", flush=True)
             check(n_launch == n,
                   f"{tag} {mode}: FAST launches {n_launch} for {n} frames")
-            # the VO and the map's pass, three fits each, every frame
-            check(n_fit >= 6 * n, f"{tag} {mode}: RANSAC fits {n_fit} for "
+            # the VO and the map's pass every frame: each one hypotheses
+            # launch and two refits, each refit a score launch
+            check(n_fit >= 4 * n, f"{tag} {mode}: RANSAC refits {n_fit} for "
+                  f"{n} frames")
+            check(n_rs["hypotheses"] >= 2 * n and n_rs["score"] >= 4 * n,
+                  f"{tag} {mode}: RANSAC hypotheses and scores {n_rs} for "
                   f"{n} frames")
             if mode == "graph":
                 check(n_sync == 0, f"{tag}: {n_sync} host syncs in the "
@@ -2311,6 +2515,8 @@ def phase_compiled(cells, dev):
         launches[tag] = graph["launches"]
         seg_rows[tag] = {m: rows[m]["seg"] for m in rows}
         fit_rows[tag] = {m: rows[m]["fit"] for m in rows}
+        score_rows[tag] = {m: {k: rows[m][k] for k in ("hyp", "score")}
+                           for m in rows}
         finals[tag] = (c, graph["state"], graph["outs"], truth, gate)
         compiled.clear_cache()
     # what the retry ladder's two widened passes, run on every frame, cost:
@@ -2340,7 +2546,7 @@ def phase_compiled(cells, dev):
               f"{100 * ms / top_ms:5.1f} % {calls / COMPILED_PROFILED:6.1f} "
               f"calls a frame  {name[:110]}", flush=True)
     compiled.clear_cache()
-    return launches, finals, seg_rows, fit_rows
+    return launches, finals, seg_rows, fit_rows, score_rows
 
 
 def skipped_iterations(chi2, ratio):
@@ -2536,7 +2742,8 @@ def main() -> int:
     from putslam_tpu_torch.backend import optimize as opt_mod
     from putslam_tpu_torch.slam_map import features_map as fm
     from putslam_tpu_torch.models import slam, vo
-    from putslam_tpu_torch.ops import fast, fast_cuda, kabsch, segment
+    from putslam_tpu_torch.ops import (fast, fast_cuda, kabsch, ransac_score,
+                                       segment)
     from putslam_tpu_torch import run as run_mod
     from putslam_tpu_torch.utils import control, graph_cond
 
@@ -2554,19 +2761,22 @@ def main() -> int:
         cond_build = pool.submit(graph_cond.build)
         seg_build = pool.submit(segment.build)
         fit_build = pool.submit(kabsch.build)
+        score_build = pool.submit(ransac_score.build)
         lib = builds[0].result()
         for b in builds[1:]:
             b.result()
         cond_lib = cond_build.result()
         seg_lib = seg_build.result()
         fit_lib = fit_build.result()
+        score_lib = score_build.result()
     print(f"[2] built {os.path.relpath(lib)} and {len(VARIANTS)} variants, "
           f"the segment-sum kernel {os.path.relpath(seg_lib)}, RANSAC's fit "
-          f"{os.path.relpath(fit_lib)} and the conditional-node plumbing "
+          f"{os.path.relpath(fit_lib)}, RANSAC's hypotheses and scores "
+          f"{os.path.relpath(score_lib)} and the conditional-node plumbing "
           f"{os.path.relpath(cond_lib)}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for log in (fast_cuda.build_log(), segment.build_log(),
-                kabsch.build_log()):
+                kabsch.build_log(), ransac_score.build_log()):
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[2] {line.strip()}", flush=True)
@@ -2725,6 +2935,7 @@ def main() -> int:
     fast_cuda.fast_score_nms.launches = 0
     segment.reset_launch_count()
     kabsch.reset_launch_count()
+    ransac_score.reset_launch_count()
     t0 = time.perf_counter()
     pb, pa, outs, state = slam.run_slam_final(cfg, grays, depths,
                                               init_pose=gt[0], device=dev)
@@ -2733,13 +2944,19 @@ def main() -> int:
     launches = fast_cuda.fast_score_nms.launches
     seg_launches = segment.launch_count()
     fit_launches = kabsch.launch_count()
+    score_launches = ransac_score.launch_counts()
     check(launches == N_FRAMES,
           f"kernel launches {launches} != {N_FRAMES} (one per frame)")
     # the bench makes no keyframe (ROADMAP 3j): its BA is finalize's
     check(seg_launches > 0, "the main path launched no segment sum")
-    # two RANSAC calls a frame (the VO and the map's pass), three fits each
-    check(fit_launches >= 6 * (N_FRAMES - 1), f"the main path launched "
-          f"RANSAC's fit {fit_launches} times in {N_FRAMES - 1} frames")
+    # two RANSAC calls a frame (the VO and the map's pass), each one
+    # hypotheses launch and two refits, each refit a score launch
+    check(fit_launches >= 4 * (N_FRAMES - 1), f"the main path launched "
+          f"RANSAC's refit {fit_launches} times in {N_FRAMES - 1} frames")
+    check(score_launches["hypotheses"] >= 2 * (N_FRAMES - 1)
+          and score_launches["score"] >= 4 * (N_FRAMES - 1),
+          f"the main path launched RANSAC's hypotheses and scores "
+          f"{score_launches} in {N_FRAMES - 1} frames")
     ate_before = ate_mod.ate_rmse_aligned_frames(gt, pb)
     ate_final = ate_mod.ate_rmse_aligned_frames(gt, pa)
     check(pa.shape == (N_FRAMES, 7) and bool(torch.isfinite(
@@ -2750,8 +2967,12 @@ def main() -> int:
     print(f"[5] fr1 {N_FRAMES}-frame orbit, run_slam_final: {dt:.3f} s, "
           f"{N_FRAMES / dt:.2f} SLAM frames/s, {1e3 * dt / N_FRAMES:.2f} "
           f"ms/frame (incl. finalize); kernel launches {launches}, "
-          f"segment sums {seg_launches} (finalize's), RANSAC fits "
-          f"{fit_launches} ({fit_launches / (N_FRAMES - 1):.2f} a frame); "
+          f"segment sums {seg_launches} (finalize's), RANSAC refits "
+          f"{fit_launches} ({fit_launches / (N_FRAMES - 1):.2f} a frame), "
+          f"hypotheses {score_launches['hypotheses']} and scores "
+          f"{score_launches['score']} "
+          f"({score_launches['hypotheses'] / (N_FRAMES - 1):.2f} and "
+          f"{score_launches['score'] / (N_FRAMES - 1):.2f} a frame); "
           f"keyframes {int(outs.is_keyframe.sum())}, BA calls "
           f"{int(outs.ba_ran.sum())}, landmarks {int(outs.n_landmarks[-1])}; "
           f"ATE before final {ate_before:.5f} m, final {ate_final:.5f} m "
@@ -2811,16 +3032,32 @@ def main() -> int:
     main_seg = next(iter(seg_rows.values()))
 
     # ---- 5d. RANSAC's fit on the real matches of two bench frames ---------
-    fit_err, fit_rows = phase_kabsch_fit(cfg, grays, depths, gt, dev)
-    # the six fits of a good bench frame: each of phase_kabsch_fit's rows
-    # twice (the sampled fit for the VO and for the map's pass, at one
-    # shape; the VO's refit and the map's, two iterations each)
-    fit_frame = {k: 2 * sum(r[k] for r in fit_rows.values())
+    ransac_calls = bench_ransac_calls(cfg, grays, depths, gt, dev)
+    fit_err, fit_rows = phase_kabsch_fit(cfg, ransac_calls, dev)
+    # the four fits of a good bench frame: the VO's refit and the map's,
+    # two iterations each (its sampled fits are 5e's kernel)
+    fit_frame = {k: 2 * sum(r[k] for tag, r in fit_rows.items()
+                            if tag.startswith("refit"))
                  for k in ("ms", "plain_ms", "bound_ms", "bytes_ms",
                            "ops_ms")}
-    print(f"[5d] the six fits of a good bench frame: kernel "
+    print(f"[5d] the four refits of a good bench frame: kernel "
           f"{fit_frame['ms']:.5f} ms, plain {fit_frame['plain_ms']:.5f} ms, "
           f"bound {fit_frame['bound_ms']:.6f} ms", flush=True)
+
+    # ---- 5e. RANSAC's hypotheses and scores on the same calls -------------
+    score_err, score_rows = phase_ransac_score(cfg, ransac_calls, dev)
+    del ransac_calls
+    # a good bench frame: two hypotheses launches (the VO's and the map's
+    # pass, one shape) and four scores (a refit's pose each)
+    hyp_row, score_row = score_rows.values()
+    score_frame = {k: 2 * hyp_row[k] + 4 * score_row[k]
+                   for k in ("ms", "plain_ms", "aten_ms", "bound_ms",
+                             "bytes_ms", "ops_ms")}
+    print(f"[5e] the hypotheses and scores of a good bench frame: kernel "
+          f"{score_frame['ms']:.5f} ms, the ATen sequence it replaced "
+          f"{score_frame['aten_ms']:.5f} ms, plain "
+          f"{score_frame['plain_ms']:.5f} ms, bound "
+          f"{score_frame['bound_ms']:.6f} ms", flush=True)
 
     # ---- 6. the CLI ---------------------------------------------------------
     five = FIVE_FILES
@@ -2902,7 +3139,7 @@ def main() -> int:
 
     # ---- 7b. the compiled step: eager against CUDA graphs ------------------
     t7b = time.perf_counter()
-    n7b, finals7b, seg7b, fit7b = phase_compiled({
+    n7b, finals7b, seg7b, fit7b, score7b = phase_compiled({
         "bench": (cfg, grays, depths, gt, ATE_GATE_M, ATE_GATE_M),
         "keyframe_dense": (kf_cfg, grays, depths, gt, None, ATE_GATE_M),
         "revisit_lc": (lc_cfg, grays_r, depths_r, gt_r, None,
@@ -2993,20 +3230,29 @@ def main() -> int:
     # ---- 10b. the tracking VO from its graph against the eager chain -------
     # phase 10's run captured the graph; this one replays it
     kabsch.reset_launch_count()
+    ransac_score.reset_launch_count()
     _, dt4g, n4g = timed(
         lambda: vo.run_vo(klt_cfg, grays, depths, init_pose=gt[0],
                           device=dev), counter)
     fit4g = kabsch.launch_count()
+    rs4g = ransac_score.launch_counts()
     kabsch.reset_launch_count()
+    ransac_score.reset_launch_count()
     (est4e, stats4e), dt4e, n4e = timed(
         lambda: vo.run_vo(klt_cfg, grays, depths, init_pose=gt[0],
                           device=dev, graph=False), counter)
     fit4e = kabsch.launch_count()
+    rs4e = ransac_score.launch_counts()
     check(n4g == N_FRAMES and n4e == N_FRAMES,
           f"tracking VO launches {n4g} (graph), {n4e} (eager)")
-    # one RANSAC call a step, three fits
-    check(fit4g >= 3 * (N_FRAMES - 1) and fit4e >= 3 * (N_FRAMES - 1),
-          f"tracking VO: RANSAC fits {fit4g} (graph), {fit4e} (eager)")
+    # one RANSAC call a step: one hypotheses launch, two refits and their
+    # two scores
+    steps = N_FRAMES - 1
+    check(fit4g >= 2 * steps and fit4e >= 2 * steps,
+          f"tracking VO: RANSAC refits {fit4g} (graph), {fit4e} (eager)")
+    for mode, rs4 in (("graph", rs4g), ("eager", rs4e)):
+        check(rs4["hypotheses"] >= steps and rs4["score"] >= 2 * steps,
+              f"tracking VO {mode}: RANSAC hypotheses and scores {rs4}")
     same4 = (est4 == est4e).all() and all(
         (a == b).all() for a, b in zip(stats4, stats4e))
     check(same4, "tracking VO from its graph differs from the eager chain")
@@ -3016,7 +3262,8 @@ def main() -> int:
           f"; eager: {dt4e:.3f} s, {N_FRAMES / dt4e:.2f} frames/s; "
           f"{dt4e / dt4g:.2f}x; poses and per-step results bit-equal; "
           f"launches {n4g} (graph) and {n4e} (eager), one a frame; "
-          f"RANSAC fits {fit4g} (graph) and {fit4e} (eager)",
+          f"RANSAC refits {fit4g} (graph) and {fit4e} (eager), hypotheses "
+          f"and scores {rs4g} (graph) and {rs4e} (eager)",
           flush=True)
 
     # ---- 11. the uncertainty path, 12. the front-end options ---------------
@@ -3143,8 +3390,8 @@ def main() -> int:
         "launches_tracking_vo": fit4g,
         "launches_tracking_vo_eager": fit4e,
         "max_abs_err": fit_err,
-        # the six fits of a good bench frame: a sampled fit and two refits
-        # for the VO and for the map's pass
+        # the four fits of a good bench frame: two refits for the VO and
+        # for the map's pass (their sampled fits are ransac_score's)
         "ms": fit_frame["ms"],
         "plain_ms": fit_frame["plain_ms"],
         "bound_ms": fit_frame["bound_ms"],
@@ -3152,6 +3399,28 @@ def main() -> int:
                      else "operations"),
         "library_ms": None,
         "by_input": fit_rows,
+    }, {
+        "name": "ransac_score",
+        "route": "cuda",
+        "source": "putslam_tpu_torch/csrc/ransac_score.cu",
+        "replaces": "none: not a TPU kernel (the fusion XLA made of "
+                    "putslam_tpu/frontend/ransac.py:135-149, and the sampled "
+                    "fit of putslam_tpu/ops/kabsch.py)",
+        "launches": sum(score_launches.values()),
+        "launches_by_mode": score_launches,
+        "launches_per_frame_compiled_step": score7b,
+        "launches_tracking_vo": rs4g,
+        "launches_tracking_vo_eager": rs4e,
+        "max_abs_err": score_err,
+        # a good bench frame: two hypotheses launches and four scores
+        "ms": score_frame["ms"],
+        "plain_ms": score_frame["plain_ms"],
+        "aten_ms": score_frame["aten_ms"],
+        "bound_ms": score_frame["bound_ms"],
+        "bound_by": ("bytes" if score_frame["bytes_ms"]
+                     >= score_frame["ops_ms"] else "operations"),
+        "library_ms": None,
+        "by_shape": score_rows,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """The hand-written kernel libraries that count their launches on the card:
-``csrc/segment_sum.cu`` (``ops/segment.py``) and ``csrc/kabsch_fit.cu``
-(``ops/kabsch.py``).
+``csrc/segment_sum.cu`` (``ops/segment.py``), ``csrc/kabsch_fit.cu``
+(``ops/kabsch.py``) and ``csrc/ransac_score.cu`` (``ops/ransac_score.py``).
 
 Each is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``putslam_tpu_torch/build/`` (named by a hash of the source and the flags,
-as ``ops/fast_cuda.py`` builds the FAST kernel) and bound with ``ctypes``.
+``putslam_tpu_torch/build/`` (named by a hash of the source, the headers it
+includes and the flags, as ``ops/fast_cuda.py`` builds the FAST kernel) and
+bound with ``ctypes``.
 Its plain C entry points follow one pattern, ``<name>`` the source's stem:
 ``<name>_load`` loads the kernels and finds the counters before any
 capture, ``<name>_read_launches`` / ``<name>_reset_launches`` read and

@@ -25,6 +25,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 from pathlib import Path
@@ -66,12 +67,34 @@ def library_path(defines: Sequence[str] = ()) -> Path:
     return compiled_path(SOURCE, _flags(defines))
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included_sources(source: Path) -> List[Path]:
+    """``source`` and every file it includes with ``#include "..."``,
+    directly or through another such file (paths relative to the including
+    file), each once, in the order first met."""
+    seen: List[Path] = []
+    todo = [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [(path.parent / m.decode()).resolve()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def compiled_path(source: Path, flags: Sequence[str]) -> Path:
     """Where ``compile_library`` puts ``source`` built with ``flags``: named
-    by a hash of both."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}_{digest}.so"
+    by a hash of both and of the headers the source includes, so that a
+    changed header builds anew."""
+    h = hashlib.sha256()
+    for path in included_sources(source):
+        h.update(path.read_bytes())
+    h.update(" ".join(flags).encode())
+    return BUILD_DIR / f"{source.stem}_{h.hexdigest()[:16]}.so"
 
 
 def compile_library(source: Path, flags: Sequence[str]) -> Path:

@@ -11,7 +11,8 @@ hand-written kernel ``csrc/kabsch_fit.cu`` (built and bound by
 ``ops/cuda_lib.py``):
 
 * ``kabsch_soa(px, …, qz)``: the sampled fit, components (n, ...), one
-  thread a hypothesis;
+  thread a hypothesis (RANSAC's main path runs the same fit inside
+  ``ops/ransac_score.py::hypotheses``, on samples the kernel gathers);
 * ``weighted_kabsch(p, q, w)``: the weighted refit, p, q (..., N, 3), w
   (..., N), one block a batch row, a warp a sum (the independent chains
   of ``row_sum`` / ``inner_sum``'s order on its lanes).

@@ -43,6 +43,7 @@ def test_port_imports_with_jax_blocked():
             "import putslam_tpu_torch.utils.control\n"
             "import putslam_tpu_torch.utils.graph_cond\n"
             "import putslam_tpu_torch.ops.segment\n"
+            "import putslam_tpu_torch.ops.ransac_score\n"
             "import bench_torch\n"
             "sys.path.insert(0, 'tools')\n"
             "import make_disk_dataset_torch, profile_torch_slam\n"
@@ -50,6 +51,7 @@ def test_port_imports_with_jax_blocked():
             "import measure_scaling_torch, profile_vo_torch\n"
             "import run_experiments_torch, export_reference_dataset_torch\n"
             "import run_acceptance_torch, repro_cells_torch\n"
+            "import eager_host_torch\n"
             "assert not [m for m in sys.modules if m.split('.')[0] in\n"
             "            ('jax', 'putslam_tpu') and sys.modules[m] is not None]\n"
             "print('ok')")
@@ -88,6 +90,7 @@ def _port_sources():
               ROOT / "tools" / "export_reference_dataset_torch.py",
               ROOT / "tools" / "run_acceptance_torch.py",
               ROOT / "tools" / "repro_cells_torch.py",
+              ROOT / "tools" / "eager_host_torch.py",
               ROOT / "bench_torch.py"]
     rel = {str(f.relative_to(ROOT)) for f in files}
     for name in ("io/png.py", "io/tum.py", "io/native_loader.py",
@@ -98,7 +101,8 @@ def _port_sources():
                  "parallel/dist_ba.py", "parallel/multi_session.py",
                  "geometry/se2.py", "io/synthetic2.py", "utils/viz.py",
                  "ops/klt.py", "models/compiled.py", "utils/control.py",
-                 "utils/graph_cond.py", "models/slam.py", "ops/segment.py"):
+                 "utils/graph_cond.py", "models/slam.py", "ops/segment.py",
+                 "ops/ransac_score.py"):
         assert f"putslam_tpu_torch/{name}" in rel, name
     assert all(f.exists() for f in files)
     return files

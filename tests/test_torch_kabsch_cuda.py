@@ -13,7 +13,8 @@ call. Replayed from a CUDA graph it gives the eager bits, and a launch
 inside a conditional node's body counts only where the card runs the body
 (the warm-up under ``uncounted`` not at all). Float64 and non-contiguous
 input on the card raise. Then ``ransac.estimate`` at the fr1 widths: the
-same bits eager, twice, and replayed.
+same bits eager, twice, and replayed (its sampled fit is
+``csrc/ransac_score.cu``'s since that kernel came).
 
 Needs a CUDA card and skips without one. Imports no JAX, so on the machine
 with the card it runs as:
@@ -208,8 +209,9 @@ def test_replayed_from_a_graph_and_an_if_body(cuda):
 
 def test_estimate_repeats_itself_eager_and_replayed(cuda):
     """``ransac.estimate`` at the fr1 widths (1024 hypotheses, two refits,
-    512 matches), twice eagerly and once replayed: the same bits, three
-    fits a call."""
+    512 matches), twice eagerly and once replayed: the same bits, a refit
+    launch a refit iteration (the sampled fit is ``csrc/ransac_score.cu``'s
+    launch, ``tests/test_torch_ransac_score_cuda.py``)."""
     from putslam_tpu_torch.config import tum_fr1_config
     from putslam_tpu_torch.frontend import ransac
 
@@ -225,7 +227,7 @@ def test_estimate_repeats_itself_eager_and_replayed(cuda):
 
     kabsch.reset_launch_count()
     first = call()
-    assert kabsch.launch_count() == 1 + cfg.refit_iterations
+    assert kabsch.launch_count() == cfg.refit_iterations
     graph, replayed = _capture(call)
     graph.replay()
     torch.cuda.synchronize()

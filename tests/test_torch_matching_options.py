@@ -30,6 +30,7 @@ from putslam_tpu_torch.frontend import ransac as transac
 from putslam_tpu_torch.ops import brief as tbrief
 from putslam_tpu_torch.ops import fast as tfast
 from putslam_tpu_torch.ops import matching as tmatch
+from putslam_tpu_torch.ops import ransac_score as tscore
 from putslam_tpu_torch.slam_map import features_map as tfm
 
 CFG = tiny_test_config()
@@ -117,7 +118,8 @@ def test_quality_weights_bias_the_sample():
 
 
 def test_ransac_pair_errors_match_jax():
-    """_pair_errors of every model on a batch of poses: error ≤ 1e-5
+    """The pair errors of every model on a batch of poses (the port's
+    ``ops/ransac_score.py::plain_errors``): error ≤ 1e-5
     relative (plus 1e-6), the threshold's values equal."""
     rng = np.random.default_rng(5)
     p, q, _ = _pairs(rng, N=48)
@@ -132,8 +134,9 @@ def test_ransac_pair_errors_match_jax():
             e_ref, thr_ref = jransac._pair_errors(
                 cfg, CFG.camera, jnp.asarray(T), jnp.asarray(p),
                 jnp.asarray(q), None if inf is None else jnp.asarray(inf))
-            e_got, thr_got = transac._pair_errors(
-                port_cfg(cfg), port_cfg(CFG.camera), t(T), t(p), t(q),
+            e_got, thr_got = tscore.plain_errors(
+                t(T), t(p), t(q),
+                tscore.model_of(port_cfg(cfg), port_cfg(CFG.camera)),
                 None if inf is None else t(inf))
             np.testing.assert_allclose(n(e_got), np.asarray(e_ref),
                                        rtol=1e-5, atol=1e-6)
@@ -142,9 +145,8 @@ def test_ransac_pair_errors_match_jax():
                 np.broadcast_to(thr_got, e_ref.shape),
                 np.broadcast_to(np.asarray(thr_ref), e_ref.shape), rtol=1e-7)
     with pytest.raises(ValueError):
-        transac._pair_errors(
-            port_cfg(dataclasses.replace(CFG.ransac, error_version=5)),
-            None, t(T), t(p), t(q))
+        tscore.plain_errors(t(T), t(p), t(q), tscore.model_of(
+            port_cfg(dataclasses.replace(CFG.ransac, error_version=5))))
 
 
 # ---------------------------------------------------------------------------

@@ -20,9 +20,13 @@ The cell is ``chip_smoke.py`` phase 7b's bench: the fr1 config, the
   ``mul`` / ``add`` / ``sub`` operator on a CUDA tensor (one kernel each)
   attributed to the innermost function of the port's package on the
   Python stack, by a ``TorchDispatchMode``; and the calls of RANSAC's fit
-  (``ops/kabsch.py``: ``kabsch_soa``, ``weighted_kabsch``) a frame.
+  (``ops/kabsch.py``: ``kabsch_soa``, ``weighted_kabsch``) and, where the
+  checkout has them, of its hypotheses and scores
+  (``ops/ransac_score.py``: ``hypotheses``, ``score``) a frame.
 * One fit alone, profiled: the kernels a sampled fit (1024 hypotheses of 3
-  points) and a refit (512 matches) launch.
+  points) and a refit (512 matches) launch; and one ``ransac.estimate``
+  call at the fr1 widths (1024 hypotheses, 512 matches, two refits): its
+  kernels, by kind, and its sampler's alone.
 
 ``--repo`` imports ``putslam_tpu_torch`` from another checkout (a parent
 commit, unpacked with ``git archive``), so that two versions are counted on
@@ -91,8 +95,13 @@ def main():
     import putslam_tpu_torch
     from putslam_tpu_torch.config import tum_fr1_config
     from putslam_tpu_torch.io import synthetic
+    from putslam_tpu_torch.frontend import ransac
     from putslam_tpu_torch.models import compiled, slam
     from putslam_tpu_torch.ops import kabsch
+    try:
+        from putslam_tpu_torch.ops import ransac_score
+    except ImportError:         # a checkout from before the kernel
+        ransac_score = None
 
     pkg = os.path.dirname(os.path.abspath(putslam_tpu_torch.__file__))
 
@@ -144,24 +153,27 @@ def main():
 
     host()
     fits = collections.Counter()
-    real = {name: getattr(kabsch, name)
+    real = {(kabsch, name): getattr(kabsch, name)
             for name in ("kabsch_soa", "weighted_kabsch")}
+    if ransac_score is not None:
+        real.update({(ransac_score, name): getattr(ransac_score, name)
+                     for name in ("hypotheses", "score")})
 
-    def counting(name):
+    def counting(key):
         def call(*a, **kw):
-            fits[name] += 1
-            return real[name](*a, **kw)
+            fits[key[1]] += 1
+            return real[key](*a, **kw)
         return call
 
-    for name in real:
-        setattr(kabsch, name, counting(name))
+    for key in real:
+        setattr(*key, counting(key))
     try:
         with OpSites() as sites:
             host()
         torch.cuda.synchronize()
     finally:
-        for name, fn in real.items():
-            setattr(kabsch, name, fn)
+        for key, fn in real.items():
+            setattr(*key, fn)
 
     gen = torch.Generator(device=dev).manual_seed(1)
     comps = [torch.rand((3, 1024), generator=gen, device=dev)
@@ -173,6 +185,20 @@ def main():
                    torch, lambda: kabsch.kabsch_soa(*comps)),
                "weighted_kabsch": profiled_kernels(
                    torch, lambda: kabsch.weighted_kabsch(p, q, w))}
+
+    # one RANSAC call at the fr1 widths, and its sampler alone
+    rcfg = cfg.ransac
+    pr, qr = (torch.rand((512, 3), generator=gen, device=dev) + 1.0
+              for _ in range(2))
+    valid = torch.rand((512,), generator=gen, device=dev) < 0.9
+    u = torch.rand((rcfg.used_pairs, rcfg.n_hypotheses), generator=gen,
+                   device=dev)
+    call = profiled_kernels(torch, lambda: ransac.estimate(
+        rcfg, cfg.camera, pr, qr, valid, u=u))
+    sampler = profiled_kernels(torch, lambda: ransac.sample_indices(
+        rcfg, valid, u))
+    one_call = dict(kernels=sum(call.values()), by_kind=by_kind(call),
+                    sampler_kernels=sum(sampler.values()))
 
     per_site = collections.defaultdict(dict)
     for (op, where), n in sorted(sites.counts.items(),
@@ -187,10 +213,11 @@ def main():
             ops_per_frame={op: sum(v.values()) for op, v in
                            per_site.items()},
             by_site_per_frame=per_site),
-        fits_per_frame={name: fits[name] / k for name in real},
+        fits_per_frame={name: fits[name] / k for _, name in real},
         kernels_per_fit={name: dict(kernels=sum(c.values()),
                                     by_kind=by_kind(c))
                          for name, c in one_fit.items()},
+        kernels_per_ransac_call=one_call,
         device=smi)
     print(json.dumps(line), flush=True)
     if args.json_out:
