@@ -1,0 +1,7 @@
+"""Device ms a frame over the traced frames of the live window: the union of the intervals
+of every kernel, copy and fill (torch.profiler) over its frames."""
+
+
+def read(ctx):
+    n = ctx["window"].traced_frames
+    return 1e3 * ctx["trace"].busy_s / n if n else None
