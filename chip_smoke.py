@@ -947,6 +947,7 @@ def compare_window_solves(cfg, dev, archive):
 
     from putslam_tpu_torch.models import compiled
     from putslam_tpu_torch.slam_map import archive as archive_mod
+    from putslam_tpu_torch.utils import timing
 
     out = {}
     with recorded_archive() as rec:
@@ -965,7 +966,8 @@ def compare_window_solves(cfg, dev, archive):
     runner = [r for k, r in compiled._END_RUNNERS.items()
               if k[0] == "window"][-1]
     print(f"[14] the global BA's window solves, eager against replayed "
-          f"(capture {runner.capture_s:.3f} s, graph pools "
+          f"(captures of the process so far "
+          f"{timing.span_total_s('capture'):.3f} s, graph pools "
           f"{runner.pool_mib():.1f} MiB): eager {out['eager s']:.3f} s, "
           f"graph {out['graph s']:.3f} s, again {out['graph again s']:.3f} s;"
           f" polished keyframes graph against eager {d:.2e}, graph twice "
@@ -2395,7 +2397,7 @@ def phase_compiled(cells, dev):
     from putslam_tpu_torch.eval import ate as ate_mod
     from putslam_tpu_torch.models import compiled, slam
     from putslam_tpu_torch.ops import fast_cuda, kabsch, ransac_score, segment
-    from putslam_tpu_torch.utils import graph_cond
+    from putslam_tpu_torch.utils import graph_cond, timing
 
     def fmt(x, spec):
         return "not measured" if x is None else format(x, spec)
@@ -2416,10 +2418,12 @@ def phase_compiled(cells, dev):
                                           draws=draws[:k], graph=graph)
             t0 = time.perf_counter()
             nodes = graph_cond.launches
+            capture_s = timing.span_total_s("capture")
             if mode == "graph":
                 run()                   # captures; the eager mode is warm
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
+            capture_s = timing.span_total_s("capture") - capture_s
             nodes = graph_cond.launches - nodes
             segment.reset_launch_count()
             kabsch.reset_launch_count()
@@ -2450,7 +2454,7 @@ def phase_compiled(cells, dev):
                 pools = [compiled.graph_pool_bytes(p)
                          for p in (runner.pool, runner.body_pool.id)]
                 extra = (f"; capturing run {first_s:.3f} s, capture "
-                         f"{runner.capture_s:.3f} s, graph pools "
+                         f"{capture_s:.3f} s, graph pools "
                          f"{fmt(runner.pool_mib(), '.1f')} MiB (the graph's "
                          f"{fmt(pools[0] and pools[0] / 2 ** 20, '.1f')}, "
                          f"its IF bodies' "
@@ -2589,7 +2593,7 @@ def phase_compiled_end(cells, dev):
     from putslam_tpu_torch.geometry import se3
     from putslam_tpu_torch.models import compiled, slam
     from putslam_tpu_torch.ops import segment
-    from putslam_tpu_torch.utils import control, graph_cond
+    from putslam_tpu_torch.utils import control, graph_cond, timing
 
     def fmt(x, spec):
         return "not measured" if x is None else format(x, spec)
@@ -2613,7 +2617,9 @@ def phase_compiled_end(cells, dev):
 
             def call():
                 return slam.finalize(c, st, graph=graph)
+            capture_s = timing.span_total_s("capture")
             fin, first_ms = wall(call)
+            capture_s = timing.span_total_s("capture") - capture_s
             nodes = graph_cond.launches - nodes
             segment.reset_launch_count()
             _, warm_ms = wall(call)
@@ -2625,7 +2631,7 @@ def phase_compiled_end(cells, dev):
                 chi2 = runner.chi2
                 pools = [compiled.graph_pool_bytes(p)
                          for p in (runner.pool, runner.body_pool.id)]
-                extra = (f"; capture {runner.capture_s:.3f} s, IF nodes "
+                extra = (f"; capture {capture_s:.3f} s, IF nodes "
                          f"{nodes}, graph pools "
                          f"{fmt(runner.pool_mib(), '.1f')} MiB (the graph's "
                          f"{fmt(pools[0] and pools[0] / 2 ** 20, '.1f')}, "

@@ -603,7 +603,8 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
                 chi2 >= bcfg.chi2_ratio_termination * prev_chi2)
 
     for _ in range(bcfg.gn_iterations):
-        control.cond(~done, iteration, (kf_pose, lm_pos_c, prev_chi2, done))
+        control.cond(~done, iteration, (kf_pose, lm_pos_c, prev_chi2, done),
+                     name="gn_iteration")
         chi2s.append(prev_chi2.clone())
     lm_out = set_rows(lm_pos, torch.where(lm_dead_c, torch.full_like(
         sel_lm, L), sel_lm), lm_pos_c)

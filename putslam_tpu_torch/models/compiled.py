@@ -49,12 +49,18 @@ launches on the card (``ops/segment.py::launch_count``,
 ``ops/kabsch.py::launch_count``: those in an IF body run only where the
 card takes the branch); the warm-up's are not counted either
 (``ops/cuda_lib.py::uncounted``).
+
+The flight recorder (``utils/timing.py``) sees a runner from both sides: a
+capture is its ``capture`` span (and makes the card's ring of stamps); the
+frame's graph opens the stage ``frame`` and ``finalize``'s graph the stage
+``finalize``, so that a replay of either is a row of stamps, counted here
+after ``graph.replay()``; ``run_sequence`` is its ``step`` span, with the
+children ``load``, ``inputs``, ``draws``, ``replay`` and ``clone``.
 """
 
 from __future__ import annotations
 
 import gc
-import time
 from collections import OrderedDict
 from typing import Optional
 
@@ -68,7 +74,7 @@ from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.models import slam as slam_mod
 from putslam_tpu_torch.models import vo as vo_mod
 from putslam_tpu_torch.ops import cuda_lib, fast_cuda
-from putslam_tpu_torch.utils import control, graph_cond
+from putslam_tpu_torch.utils import control, graph_cond, timing
 from putslam_tpu_torch.utils.control import assign as _assign
 from putslam_tpu_torch.utils.control import clone as _clone
 from putslam_tpu_torch.utils.control import leaves as _leaves
@@ -130,10 +136,17 @@ class _Segment:
         self.graph = None
         self.out = None
         self.fast_launches = 0
+        self.roots = ()
 
     def _capture(self):
+        with timing.capture(self.runner.device) as cap:
+            self._record()
+        # the root stages the graph opens: a row of the recorder a replay
+        self.roots, self.ring = cap.roots, cap.ring
+        self.recorder = timing.recorder()
+
+    def _record(self):
         r = self.runner
-        t0 = time.perf_counter()
         side = torch.cuda.Stream(r.device)
         side.wait_stream(torch.cuda.current_stream(r.device))
         counted = fast_cuda.fast_score_nms.launches
@@ -161,16 +174,18 @@ class _Segment:
         self.fast_launches = fast_cuda.fast_score_nms.recorded - recorded
         self.graph = graph
         r.captured = True
-        r.capture_s += time.perf_counter() - t0
 
     def run(self):
         if not self.runner.capture:
-            with control.branching("host"):
+            with timing.span("replay"), control.branching("host"):
                 self.out = self.fn(commit=True)
             return self.out
         if self.graph is None:
             self._capture()
-        self.graph.replay()
+        with timing.span("replay"):
+            self.graph.replay()
+        for root in self.roots:
+            self.recorder.replayed(self.ring, root)
         fast_cuda.fast_score_nms.launches += self.fast_launches
         return self.out
 
@@ -181,7 +196,6 @@ class _Runner:
         self.capture = capture
         self.pool = None
         self.captured = False
-        self.capture_s = 0.0
         if capture:
             if self.device.type != "cuda":
                 raise ValueError(f"CUDA graphs need a CUDA device, not "
@@ -242,29 +256,36 @@ class SlamGraphs(_Runner):
 
     def _frame(self, commit):
         out = (self.state, self.outs)
-        return slam_mod.slam_frame(self.cfg, self.state, self.gray,
-                                   self.depth, self.draws,
-                                   out if commit else _clone(out),
-                                   self.gt_pose, self.playback)
+        with timing.stage("frame"):
+            return slam_mod.slam_frame(self.cfg, self.state, self.gray,
+                                       self.depth, self.draws,
+                                       out if commit else _clone(out),
+                                       self.gt_pose, self.playback)
 
     def load(self, state: slam_mod.SlamState) -> None:
-        _assign(self.state, state)
+        with timing.span("load"):
+            _assign(self.state, state)
 
     def step(self, gray, depth, draws: Optional[dict] = None,
              generator: Optional[torch.Generator] = None, gt_pose=None):
         """One frame. Returns its SlamOutputs (fresh tensors)."""
-        self.gray.copy_(gray)
-        self.depth.copy_(depth)
-        if self.playback:
-            self.gt_pose.copy_(as_tensor(gt_pose, self.device, torch.float32))
-        if draws is None:
-            slam_mod.frame_draws(self.cfg, generator, self.device,
-                                 self.playback, out=self.draws)
-        else:
-            for name, buf in self.draws.items():
-                buf.copy_(draws[name])
+        r = timing.next_replay()
+        with timing.span("inputs", r):
+            self.gray.copy_(gray)
+            self.depth.copy_(depth)
+            if self.playback:
+                self.gt_pose.copy_(as_tensor(gt_pose, self.device,
+                                             torch.float32))
+        with timing.span("draws", r):
+            if draws is None:
+                slam_mod.frame_draws(self.cfg, generator, self.device,
+                                     self.playback, out=self.draws)
+            else:
+                for name, buf in self.draws.items():
+                    buf.copy_(draws[name])
         self.frame.run()
-        return _clone(self.outs)
+        with timing.span("clone", r):
+            return _clone(self.outs)
 
 
 class VoGraphs(_Runner):
@@ -373,7 +394,8 @@ class FinalizeGraphs(_Runner):
         self.segment = _Segment(self, self._polish)
 
     def _polish(self, commit):
-        return slam_mod.finalize_map(self.cfg, self.map, self.graph)
+        with timing.stage("finalize"):
+            return slam_mod.finalize_map(self.cfg, self.map, self.graph)
 
     def run(self, state: slam_mod.SlamState) -> slam_mod.SlamState:
         """The finalized state (fresh tensors for the map and graph)."""
@@ -484,13 +506,15 @@ def run_sequence(cfg, state, grays, depths, draws=None,
     runner's, cloned."""
     playback = gt_poses is not None
     runner = slam_runner(cfg, state, grays.shape[1:], playback, capture)
-    runner.load(state)
-    outs = [runner.step(grays[i], depths[i],
-                        draws=None if draws is None else draws[i],
-                        generator=generator,
-                        gt_pose=None if gt_poses is None else gt_poses[i])
-            for i in range(grays.shape[0])]
-    return _clone(runner.state), slam_mod._stack_outputs(outs)
+    with timing.span("step"):
+        runner.load(state)
+        outs = [runner.step(grays[i], depths[i],
+                            draws=None if draws is None else draws[i],
+                            generator=generator,
+                            gt_pose=None if gt_poses is None else gt_poses[i])
+                for i in range(grays.shape[0])]
+        with timing.span("clone", timing.next_replay() - 1):
+            return _clone(runner.state), slam_mod._stack_outputs(outs)
 
 
 def _run_steps(kind, make, carry0, cfg, grays, depths, init_pose, draws,

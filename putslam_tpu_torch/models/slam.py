@@ -88,7 +88,7 @@ from putslam_tpu_torch.motion.ekf import EKFState  # noqa: F401
 from putslam_tpu_torch.ops import rgbd
 from putslam_tpu_torch.parallel import dist_ba
 from putslam_tpu_torch.slam_map import features_map as fm
-from putslam_tpu_torch.utils import control
+from putslam_tpu_torch.utils import control, timing
 from putslam_tpu_torch.utils.device import (as_tensor, resolve_device,
                                             use_graphs)
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows, take_row
@@ -532,7 +532,7 @@ def slam_track(cfg: SlamConfig, state: SlamState, gray, depth, draws: dict,
             return (_tree_where(better, gm2, gm),
                     _tree_where(better, res2, res_map))
 
-        control.cond(need_retry, wider, (gm, res_map))
+        control.cond(need_retry, wider, (gm, res_map), name="map_retry")
     p_cam = feat.xyz[torch.clamp(gm.feat_idx, 0, N - 1)]
     # correction sanity gate with the drift budget
     correction = torch.linalg.norm(se3.translation(res_map.pose)
@@ -702,19 +702,22 @@ def slam_frame(cfg: SlamConfig, state: SlamState, gray, depth, draws: dict,
     ``slam_finish``} (``putslam_tpu/models/slam.py:447`` and ``:539``),
     each writing the frame's end into ``out`` = (state, SlamOutputs)
     buffers. ``out`` may be ``state`` itself: the keyframe branch reads
-    ``state`` only where the tail did not run. Returns the Track."""
-    tr = slam_track(cfg, state, gray, depth, draws, gt_pose, playback)
+    ``state`` only where the tail did not run. The parts are the flight
+    recorder's stages ``track``, ``tail``, ``keyframe`` and ``ba``
+    (``utils/timing.py``). Returns the Track."""
+    with timing.stage("track"):
+        tr = slam_track(cfg, state, gray, depth, draws, gt_pose, playback)
     is_kf, do_ba = tr.flags[0], tr.flags[1]
     control.cond(~is_kf, lambda: slam_tail(cfg, state, tr, draws, playback),
-                 out)
+                 out, name="tail")
 
     def keyframe():
         kb = slam_keyframe(cfg, state, tr, draws)
         control.cond(do_ba, lambda: bundle_adjust(cfg, kb.map, kb.graph),
-                     _ba_targets(kb))
+                     _ba_targets(kb), name="ba")
         return slam_finish(cfg, state, tr, kb, playback)
 
-    control.cond(is_kf, keyframe, out)
+    control.cond(is_kf, keyframe, out, name="keyframe")
     return tr
 
 
@@ -961,14 +964,16 @@ def finalize(cfg: SlamConfig, state: SlamState,
     ``graph``: replay it from a CUDA graph (``compiled.FinalizeGraphs``,
     one capture per config and state layout; a capture or replay that
     fails raises); None is on for a CUDA state, off elsewhere. Off, it runs
-    eagerly with each Gauss-Newton iteration's stop read on the host."""
-    if use_graphs(graph, state.pose.device):
-        from putslam_tpu_torch.models import compiled
+    eagerly with each Gauss-Newton iteration's stop read on the host. The
+    call is the flight recorder's ``finalize`` span."""
+    with timing.span("finalize"):
+        if use_graphs(graph, state.pose.device):
+            from putslam_tpu_torch.models import compiled
 
-        return compiled.finalize_runner(cfg, state).run(state)
-    with control.branching("host"):
-        m, g, _ = finalize_map(cfg, state.map, state.graph)
-    return state._replace(map=m, graph=g)
+            return compiled.finalize_runner(cfg, state).run(state)
+        with control.branching("host"):
+            m, g, _ = finalize_map(cfg, state.map, state.graph)
+        return state._replace(map=m, graph=g)
 
 
 def finalize_dist(cfg: SlamConfig, state: SlamState, mesh) -> SlamState:

@@ -143,7 +143,8 @@ def vo_step(cfg: SlamConfig, prev: Features, curr: Features,
                                 for a, b in zip(r2, res))))
 
         n_matches, res = control.cond(starved, wider,
-                                      control.clone((n_matches, res)))
+                                      control.clone((n_matches, res)),
+                                      name="vo_retry")
     too_far = torch.linalg.norm(se3.translation(res.pose)) > cfg.max_vo_translation
     rel = torch.where(too_far, se3.identity(dtype=res.pose.dtype,
                                             device=res.pose.device), res.pose)

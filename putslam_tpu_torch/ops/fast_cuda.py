@@ -33,6 +33,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from putslam_tpu_torch.utils import timing
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fast_score_nms.cu"
 BUILD_DIR = _PKG / "build"
@@ -101,7 +103,7 @@ def compile_library(source: Path, flags: Sequence[str]) -> Path:
     """Compile ``source`` with ``nvcc`` and ``flags`` into a shared library
     in ``BUILD_DIR`` unless it is built already; what nvcc printed is kept
     beside it (``.log``). Returns its path. Raises with the compiler's
-    output on failure."""
+    output on failure. A build is the flight recorder's ``build`` span."""
     out = compiled_path(source, flags)
     if out.exists():
         return out
@@ -110,7 +112,8 @@ def compile_library(source: Path, flags: Sequence[str]) -> Path:
     os.close(fd)
     try:
         cmd = [_nvcc(), *flags, "-o", tmp, str(source)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with timing.span("build"):
+            proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"

@@ -25,6 +25,10 @@ config knob, decides how it runs (``branching``):
   runs only where it holds: the host's stand-in for the IF node, the same
   body and the same ``out``.
 
+``name`` records the body as a stage of the flight recorder
+(``utils/timing.py``): a stamp at each end of the body in a capture, the
+host's clock in ``"host"`` mode, nothing when masked.
+
 A tensor the body allocates is garbage after a replay that skipped the
 body: only ``out`` may be read after the branch. ``checking()`` turns on a
 guard that raises where a body writes in place to a tensor it did not
@@ -35,10 +39,12 @@ branch, outside the guard). Branches nest.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from putslam_tpu_torch.utils import timing
 
 MODES = ("masked", "host", "capture")
 _mode = "masked"
@@ -112,9 +118,11 @@ def assign(dst, src, keep=None):
         d.copy_(s)
 
 
-def cond(pred: torch.Tensor, body: Callable, out):
+def cond(pred: torch.Tensor, body: Callable, out,
+         name: Optional[str] = None):
     """``out`` ← ``body()`` where the 0-d bool ``pred`` holds, else left as
-    it is; returns ``out``. See the module docstring for the three modes."""
+    it is; returns ``out``. See the module docstring for the three modes;
+    ``name``: the body's stage (``timing.STAGES``), or None."""
     global predicate_reads
     if pred.dtype != torch.bool or pred.dim() != 0:
         raise ValueError(f"a branch predicate is a 0-d bool, not "
@@ -122,7 +130,8 @@ def cond(pred: torch.Tensor, body: Callable, out):
     if _mode == "host":
         predicate_reads += 1
         if bool(pred):
-            assign(out, _checked(body))
+            with timing.stage(name):
+                assign(out, _checked(body))
     elif _mode == "masked":
         assign(out, _checked(body), keep=~pred)
     else:
@@ -131,7 +140,7 @@ def cond(pred: torch.Tensor, body: Callable, out):
                                "capture (or with a predicate off the card)")
         from putslam_tpu_torch.utils import graph_cond
 
-        with graph_cond.if_node(pred):
+        with graph_cond.if_node(pred), timing.stage(name):
             assign(out, _checked(body))
     return out
 

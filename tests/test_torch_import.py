@@ -46,7 +46,7 @@ def test_port_imports_with_jax_blocked():
             "import putslam_tpu_torch.ops.ransac_score\n"
             "import bench_torch\n"
             "sys.path.insert(0, 'tools')\n"
-            "import make_disk_dataset_torch, profile_torch_slam\n"
+            "import make_disk_dataset_torch\n"
             "import lc_spread_torch, multihost_dryrun_torch\n"
             "import measure_scaling_torch, profile_vo_torch\n"
             "import run_experiments_torch, export_reference_dataset_torch\n"
@@ -81,7 +81,6 @@ def _port_sources():
     files = sorted((ROOT / "putslam_tpu_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py",
               ROOT / "tools" / "make_disk_dataset_torch.py",
-              ROOT / "tools" / "profile_torch_slam.py",
               ROOT / "tools" / "lc_spread_torch.py",
               ROOT / "tools" / "multihost_dryrun_torch.py",
               ROOT / "tools" / "measure_scaling_torch.py",
