@@ -23,11 +23,11 @@ Phases (any failed check raises and the script exits non-zero):
   4. detect_and_describe at fr1 on the card against the CPU on one frame.
   5. the bench workload — fr1 config, 64-frame synthetic orbit rendered on
      the card, run_slam_final — once to warm up, then timed with the
-     kernels' launch counters reset: 1 FAST launch per frame, segment sums
-     launched (the bench makes no keyframe, so finalize's), at least 2
-     hypotheses launches, 4 score launches and 4 refits a frame (the VO and
-     the map's pass, a hypotheses launch and two refits each, a score
-     launch a refit), final ATE under the gate.
+     kernels' launch counters reset: 1 FAST launch and 1 keypoint-chain
+     call per frame, segment sums launched (the bench makes no keyframe,
+     so finalize's), at least 2 hypotheses launches, 4 score launches and
+     4 refits a frame (the VO and the map's pass, a hypotheses launch and
+     two refits each, a score launch a refit), final ATE under the gate.
  5b. the same frames with every tracked frame a keyframe, so keyframe
      bookkeeping and the windowed, landmark-blocked BA run in the loop.
  5c. the segment-sum kernel (csrc/segment_sum.cu, the solvers' sums in a
@@ -64,6 +64,18 @@ Phases (any failed check raises and the script exits non-zero):
      sequence it replaced (its kernels and device time), the bound from
      these inputs' bytes and the plain version's operations, and the
      build-time variants of 8 and 32 warps a block (the same bits).
+  5f. the detector's keypoint chain (csrc/keypoints.cu, one call of two
+     launches a frame, from FAST's maps to the bfloat16 patch matrix): on
+     phase 5's fr1 frames as ``detect_and_describe`` builds its inputs
+     (the main path's shapes), on a frame with no corner and on depth at
+     0 and beyond the gate, the kernel against the ATen chain it replaces
+     (``keypoints.plain_chain`` on the card) bit for bit in every output
+     and in the patch matrix (max_abs_err 0), twice the same, and replayed
+     from a CUDA graph the same bits; timed (CUDA events behind a spin
+     kernel: eager and replayed; its two kernels' own duration in
+     torch.profiler) beside the ATen chain eager and replayed from a graph
+     (its kernels and device time) and the bound from the bytes it must
+     move.
  6. the CLI: putslam_tpu_torch.run --synthetic 30 writes its five files
      (statistics.txt included) and reports an ATE under 0.05 m; with
      --loop-closure the same; --only-vo --vo-version 1 (KLT tracking)
@@ -481,10 +493,12 @@ def run_cli(run_mod, args, files, extras=None):
                            "map_matches_median", "landmarks_final"],
                   f"statistics.txt keys {keys}")
         if extras is not None:
+            # the stage timer's lines (the recorder's stage lines carry no
+            # total)
             with open(os.path.join(tmp, "times.txt")) as f:
                 extras["stages"] = {
                     line.split(":")[0]: float(line.split("(total ")[1].split()[0])
-                    for line in f}
+                    for line in f if "(total " in line}
             with open(os.path.join(tmp, "statistics.txt")) as f:
                 extras["stats"] = {k: float(v) for k, v in
                                    (line.split() for line in f)}
@@ -2337,6 +2351,165 @@ def phase_ransac_score(cfg, calls, dev):
     return max_err, rows
 
 
+def phase_keypoints(cfg, grays, depths, dev):
+    """Phase 5f, the detector's keypoint chain (``csrc/keypoints.cu``): on
+    frames 0, 21, 42 and 63 of phase 5's orbit with their inputs built as
+    ``detect_and_describe`` builds them (fr1's four levels and budgets),
+    a flat frame (no corner) and frame 21 with its depth at 0 on the left
+    half and at 9 m (beyond the gate) on the right, the kernel against the
+    ATen chain it replaces (``keypoints.plain_chain`` on the card): every
+    output and the bfloat16 patch matrix bit for bit, twice the same, and
+    replayed from a CUDA graph on each frame's inputs the same bits. Then on
+    frame 21: the call's time eager and replayed (CUDA events behind a spin
+    kernel, twice each), its two kernels' own duration (torch.profiler),
+    the ATen chain's eager and replayed, its kernels and device time a
+    replay, and the bound from the bytes the call must move: the NMS maps
+    read once and the outputs and patch matrix written once, and at most
+    every window's pixels read besides. Returns (max_abs_err, row)."""
+    from putslam_tpu_torch.frontend import detector
+    from putslam_tpu_torch.ops import cuda_lib, fast_cuda, keypoints
+
+    det = cfg.detector
+    shapes = detector._pyramid_shapes(cfg)
+    budgets = detector._level_budgets(cfg)
+
+    def inputs(gray, depth):
+        levels = [gray.contiguous()] + [detector.resize(gray, s).contiguous()
+                                        for s in shapes[1:]]
+        maps = fast_cuda.fast_score_nms_levels(levels, det.fast_threshold,
+                                               det.nms_radius)
+        return [levels, maps, depth.contiguous()]
+
+    half = depths[21].clone()
+    W = half.shape[1]
+    half[:, :W // 2] = 0.0
+    half[:, W // 2:] = 9.0
+    cases = {f"fr1 frame {i}": inputs(grays[i], depths[i])
+             for i in (0, 21, 42, 63)}
+    cases["flat frame (no corner)"] = inputs(torch.full_like(grays[0], 0.5),
+                                             depths[0])
+    cases["frame 21, depth 0 and 9 m"] = inputs(grays[21], half)
+
+    def call(fn, levels, maps, depth):
+        return fn(det, cfg.camera, shapes, budgets, levels, maps, depth)
+
+    def bits(x):
+        if x.dtype == torch.float32:
+            return x.view(torch.int32)
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16)
+        return x
+
+    def compare(tag, got, ref):
+        err = 0.0
+        for name, g, r in zip(keypoints.Chain._fields, got, ref):
+            check(g.shape == r.shape and g.dtype == r.dtype,
+                  f"[5f] {tag}: {name} {tuple(g.shape)} {g.dtype} against "
+                  f"{tuple(r.shape)} {r.dtype}")
+            diff = float((g.double() - r.double()).abs().max())
+            check(torch.equal(bits(g), bits(r)), f"[5f] {tag}: {name} "
+                  f"differs by {diff:.3e}")
+            err = max(err, diff)
+        return err
+
+    # one graph of the call, on buffers the cases are copied into
+    levels21, maps21, depth21 = cases["fr1 frame 21"]
+    buf = [[t.clone() for t in levels21],
+           [tuple(m.clone() for m in pair) for pair in maps21],
+           depth21.clone()]
+
+    def graph_of(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), cuda_lib.uncounted():
+            call(fn, *buf)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = call(fn, *buf)
+        return g, out
+
+    def load(levels, maps, depth):
+        for dst, src in zip(buf[0], levels):
+            dst.copy_(src)
+        for dst, src in zip(buf[1], maps):
+            dst[0].copy_(src[0])
+            dst[1].copy_(src[1])
+        buf[2].copy_(depth)
+
+    g_kern, g_out = graph_of(keypoints.chain)
+    max_err = 0.0
+    valid = {}
+    for tag, args in cases.items():
+        got = call(keypoints.chain, *args)
+        again = call(keypoints.chain, *args)
+        ref = call(keypoints.plain_chain, *args)
+        load(*args)
+        g_kern.replay()
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare(tag, got, ref))
+        compare(f"{tag}, twice", again, got)
+        compare(f"{tag}, replayed", g_out, got)
+        valid[tag] = (int(got.valid.sum()), int(got.has_depth.sum()))
+    check(all(v[0] > 100 for t, v in valid.items() if t.startswith("fr1")),
+          f"[5f] too few keypoints on the fr1 frames: {valid}")
+    check(valid["flat frame (no corner)"][0] == 0,
+          f"[5f] keypoints on the flat frame: {valid}")
+    print(f"[5f] the keypoint chain, kernel against the ATen chain on the "
+          f"card: every output and the patch matrix bit-equal "
+          f"(max_abs_err {max_err}), twice the same and replayed from a "
+          f"graph the same, on {len(cases)} inputs (valid / with depth: "
+          f"{valid})", flush=True)
+
+    load(*cases["fr1 frame 21"])
+    g_plain, _ = graph_of(keypoints.plain_chain)
+    kern = lambda: call(keypoints.chain, *buf)           # noqa: E731
+    plain = lambda: call(keypoints.plain_chain, *buf)    # noqa: E731
+    ms = [median_ms(kern, runs=30), median_ms(kern, runs=30)]
+    graph_ms = [median_ms(g_kern.replay, runs=30),
+                median_ms(g_kern.replay, runs=30)]
+    plain_ms = median_ms(plain, runs=10)
+    plain_graph_ms = median_ms(g_plain.replay, runs=30)
+    own = [profiler_us(kern, k) for k in ("tiles_kernel", "select_kernel")]
+    own_us = None if None in own else sum(own)
+
+    def fmt(x, spec):
+        return "not measured" if x is None else format(x, spec)
+
+    n_plain, dev_plain = device_kernels(g_plain.replay)
+    levels, maps, depth = buf
+    nms_bytes = sum(nms.numel() * nms.element_size() for _, nms in maps)
+    out_bytes = sum(t.numel() * t.element_size() for t in g_out)
+    window_bytes = (g_out.patches.numel()
+                    * levels[0].element_size())
+    bound_ms = 1e3 * (nms_bytes + out_bytes) / HBM_BYTES_PER_S
+    bound_hi_ms = 1e3 * (nms_bytes + out_bytes + window_bytes) \
+        / HBM_BYTES_PER_S
+    row = dict(ms=0.5 * (ms[0] + ms[1]),
+               graph_ms=0.5 * (graph_ms[0] + graph_ms[1]),
+               plain_ms=plain_ms, plain_graph_ms=plain_graph_ms,
+               bound_ms=bound_ms, bound_hi_ms=bound_hi_ms, own_us=own_us,
+               plain_kernels=n_plain, plain_device_ms=dev_plain)
+    print(f"[5f] frame 21: {nms_bytes} bytes of NMS maps read, "
+          f"{out_bytes} written (outputs and the patch matrix), at most "
+          f"{window_bytes} of windows read: bound {1e3 * bound_ms:.3f}-"
+          f"{1e3 * bound_hi_ms:.3f} us by bytes at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s; kernel call eager "
+          f"{1e3 * ms[0]:.3f} / {1e3 * ms[1]:.3f} us, replayed "
+          f"{1e3 * graph_ms[0]:.3f} / {1e3 * graph_ms[1]:.3f} us "
+          f"({100 * bound_ms / row['graph_ms']:.2f}-"
+          f"{100 * bound_hi_ms / row['graph_ms']:.2f} % of the bound; own "
+          f"{' + '.join(fmt(u, '.2f') for u in own)} us, torch.profiler);"
+          f" the ATen chain eager {1e3 * plain_ms:.2f} us, replayed "
+          f"{1e3 * plain_graph_ms:.2f} us "
+          f"({plain_graph_ms / row['graph_ms']:.1f}x; "
+          f"{fmt(n_plain, 'd')} kernels, device "
+          f"{fmt(dev_plain and 1e3 * dev_plain, '.2f')} us, "
+          f"torch.profiler); library call: none", flush=True)
+    del g_kern, g_plain
+    return max_err, row
+
+
 def device_kernels(fn):
     """(kernels, their summed device ms) of one call of ``fn`` as
     torch.profiler (CUPTI) records them, CUDA-graph replays included;
@@ -2748,8 +2921,8 @@ def main() -> int:
     from putslam_tpu_torch.backend import optimize as opt_mod
     from putslam_tpu_torch.slam_map import features_map as fm
     from putslam_tpu_torch.models import slam, vo
-    from putslam_tpu_torch.ops import (fast, fast_cuda, kabsch, ransac_score,
-                                       segment)
+    from putslam_tpu_torch.ops import (fast, fast_cuda, kabsch, keypoints,
+                                       ransac_score, segment)
     from putslam_tpu_torch import run as run_mod
     from putslam_tpu_torch.utils import control, graph_cond
 
@@ -2768,6 +2941,7 @@ def main() -> int:
         seg_build = pool.submit(segment.build)
         fit_build = pool.submit(kabsch.build)
         score_build = pool.submit(ransac_score.build)
+        kp_build = pool.submit(keypoints.build)
         lib = builds[0].result()
         for b in builds[1:]:
             b.result()
@@ -2775,14 +2949,17 @@ def main() -> int:
         seg_lib = seg_build.result()
         fit_lib = fit_build.result()
         score_lib = score_build.result()
+        kp_lib = kp_build.result()
     print(f"[2] built {os.path.relpath(lib)} and {len(VARIANTS)} variants, "
           f"the segment-sum kernel {os.path.relpath(seg_lib)}, RANSAC's fit "
           f"{os.path.relpath(fit_lib)}, RANSAC's hypotheses and scores "
-          f"{os.path.relpath(score_lib)} and the conditional-node plumbing "
+          f"{os.path.relpath(score_lib)}, the keypoint chain "
+          f"{os.path.relpath(kp_lib)} and the conditional-node plumbing "
           f"{os.path.relpath(cond_lib)}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for log in (fast_cuda.build_log(), segment.build_log(),
-                kabsch.build_log(), ransac_score.build_log()):
+                kabsch.build_log(), ransac_score.build_log(),
+                keypoints.build_log()):
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[2] {line.strip()}", flush=True)
@@ -2942,17 +3119,21 @@ def main() -> int:
     segment.reset_launch_count()
     kabsch.reset_launch_count()
     ransac_score.reset_launch_count()
+    keypoints.reset_launch_count()
     t0 = time.perf_counter()
     pb, pa, outs, state = slam.run_slam_final(cfg, grays, depths,
                                               init_pose=gt[0], device=dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = fast_cuda.fast_score_nms.launches
+    kp_launches = keypoints.launch_count()
     seg_launches = segment.launch_count()
     fit_launches = kabsch.launch_count()
     score_launches = ransac_score.launch_counts()
     check(launches == N_FRAMES,
           f"kernel launches {launches} != {N_FRAMES} (one per frame)")
+    check(kp_launches == N_FRAMES, f"keypoint-chain calls {kp_launches} "
+          f"!= {N_FRAMES} (one per frame)")
     # the bench makes no keyframe (ROADMAP 3j): its BA is finalize's
     check(seg_launches > 0, "the main path launched no segment sum")
     # two RANSAC calls a frame (the VO and the map's pass), each one
@@ -2973,7 +3154,7 @@ def main() -> int:
     print(f"[5] fr1 {N_FRAMES}-frame orbit, run_slam_final: {dt:.3f} s, "
           f"{N_FRAMES / dt:.2f} SLAM frames/s, {1e3 * dt / N_FRAMES:.2f} "
           f"ms/frame (incl. finalize); kernel launches {launches}, "
-          f"segment sums {seg_launches} (finalize's), RANSAC refits "
+          f"keypoint-chain calls {kp_launches}, segment sums {seg_launches} (finalize's), RANSAC refits "
           f"{fit_launches} ({fit_launches / (N_FRAMES - 1):.2f} a frame), "
           f"hypotheses {score_launches['hypotheses']} and scores "
           f"{score_launches['score']} "
@@ -3064,6 +3245,9 @@ def main() -> int:
           f"{score_frame['aten_ms']:.5f} ms, plain "
           f"{score_frame['plain_ms']:.5f} ms, bound "
           f"{score_frame['bound_ms']:.6f} ms", flush=True)
+
+    # ---- 5f. the keypoint chain on the bench's frames ----------------------
+    kp_err, kp_row = phase_keypoints(cfg, grays, depths, dev)
 
     # ---- 6. the CLI ---------------------------------------------------------
     five = FIVE_FILES
@@ -3427,6 +3611,31 @@ def main() -> int:
                      >= score_frame["ops_ms"] else "operations"),
         "library_ms": None,
         "by_shape": score_rows,
+    }, {
+        "name": "keypoints",
+        "route": "cuda",
+        "source": "putslam_tpu_torch/csrc/keypoints.cu",
+        "replaces": "none: not a TPU kernel (the ATen chain of "
+                    "putslam_tpu_torch/frontend/detector.py::"
+                    "detect_and_describe from FAST's maps to the descriptor "
+                    "product's input: grid cap, refine, lifting, windows)",
+        "launches": kp_launches,
+        "launches_per_frame": kp_launches / N_FRAMES,
+        "kernels_per_call": 2,
+        "max_abs_err": kp_err,
+        # one call a frame at fr1, eager and replayed from a graph; the
+        # plain version is the ATen chain, eager and replayed
+        "ms": kp_row["ms"],
+        "graph_ms": kp_row["graph_ms"],
+        "plain_ms": kp_row["plain_ms"],
+        "plain_graph_ms": kp_row["plain_graph_ms"],
+        "bound_ms": kp_row["bound_ms"],
+        "bound_hi_ms": kp_row["bound_hi_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "device_us_profiler": kp_row["own_us"],
+        "plain_kernels": kp_row["plain_kernels"],
+        "plain_device_ms": kp_row["plain_device_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

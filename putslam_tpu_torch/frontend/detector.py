@@ -1,11 +1,13 @@
 """Multi-scale keypoint detection + description + depth lifting (torch).
 
 Port of ``putslam_tpu/frontend/detector.py``: a scale pyramid, FAST + NMS
-of all its levels (one launch of the CUDA kernel on the card), the grid cap
-per level (subtile or exact), one fused descriptor matmul (steered BRIEF or
-LDB) over every level's patches, and the lift of each
-keypoint to a camera-frame 3D point through undistortion with the depth
-gate. Output is a fixed-capacity ``Features`` batch.
+of all its levels (one launch of the CUDA kernel on the card), then the
+keypoint chain (``ops/keypoints.py``): the grid cap per level (subtile or
+exact), the sub-pixel refine, the lift of each keypoint to a camera-frame
+3D point through undistortion with the depth gate, and every level's
+patches as one bfloat16 matrix (one call of its CUDA kernel on the card
+for the subtile cap); then one fused descriptor matmul (steered BRIEF or
+LDB) over that matrix. Output is a fixed-capacity ``Features`` batch.
 """
 
 from __future__ import annotations
@@ -15,8 +17,7 @@ from typing import NamedTuple
 import torch
 
 from putslam_tpu_torch.config import SlamConfig
-from putslam_tpu_torch.geometry import camera as camera_mod
-from putslam_tpu_torch.ops import brief, fast, fast_cuda
+from putslam_tpu_torch.ops import brief, fast_cuda, keypoints
 
 
 class Features(NamedTuple):
@@ -103,7 +104,6 @@ def detect_and_describe(cfg: SlamConfig, gray: torch.Tensor,
             f"detector.descriptor={det.descriptor!r} is not known "
             f"(one of {brief.KINDS})")
     budgets = _level_budgets(cfg)
-    dev = gray.device
 
     # every level depends on ``gray`` alone, so the pyramid is built first
     # and FAST + NMS of all its levels is one call (one launch on the card)
@@ -112,45 +112,19 @@ def detect_and_describe(cfg: SlamConfig, gray: torch.Tensor,
                                     for s in shapes[1:]]
     maps = fast_cuda.fast_score_nms_levels(levels, det.fast_threshold,
                                            det.nms_radius)
-
-    all_uv0, all_resp, all_oct, all_patch, all_valid = [], [], [], [], []
-    for lvl, (img, (Hl, Wl)) in enumerate(zip(levels, shapes)):
-        scale = det.scale_factor ** lvl
-        Nl = budgets[lvl]
-        uv_l, resp, valid = fast.detect(
-            img, det.fast_threshold, det.nms_radius, det.grid_rows,
-            det.grid_cols, Nl, grid_policy=det.grid_policy, maps=maps[lvl])
-        b = float(max(det.border // max(int(scale), 1), brief.PATCH // 2 + 1))
-        inb = ((uv_l[:, 0] >= b) & (uv_l[:, 0] <= Wl - 1 - b)
-               & (uv_l[:, 1] >= b) & (uv_l[:, 1] <= Hl - 1 - b))
-        valid = valid & inb
-        all_patch.append(brief.extract_patches(img, uv_l))
-        all_uv0.append(uv_l * scale)
-        all_resp.append(torch.where(valid, resp, torch.zeros_like(resp)))
-        all_oct.append(torch.full((Nl,), lvl, dtype=torch.int32, device=dev))
-        all_valid.append(valid)
-
-    uv0 = torch.cat(all_uv0)
-    resp = torch.cat(all_resp)
-    octv = torch.cat(all_oct)
-    valid = torch.cat(all_valid)
-    desc, ang = brief.describe_patches(torch.cat(all_patch),
-                                       kind=det.descriptor)
-    desc = torch.where(valid[:, None], desc, torch.zeros_like(desc))
-
-    z = camera_mod.sample_depth(depth, uv0)
-    uv_und = camera_mod.undistort_pixels(cam, uv0)
-    xyz = camera_mod.unproject(cam, uv_und, z)
-    has_depth = valid & camera_mod.depth_valid_mask(cam, z)
-    v2 = valid[:, None]
+    # the keypoint chain: the kernel on the card for the subtile cap, the
+    # ATen chain on the CPU and for the exact per-cell cap
+    kp = keypoints.chain(det, cam, shapes, budgets, levels, maps,
+                         depth.contiguous())
+    desc, ang = brief.describe_patches(kp.patches, kind=det.descriptor)
     return Features(
-        uv=torch.where(v2, uv0, torch.full_like(uv0, -1.0)),
-        uv_undist=torch.where(v2, uv_und, torch.full_like(uv_und, -1.0)),
-        xyz=torch.where(has_depth[:, None], xyz, torch.zeros_like(xyz)),
-        response=torch.where(valid, resp, torch.zeros_like(resp)),
-        octave=octv,
+        uv=kp.uv,
+        uv_undist=kp.uv_undist,
+        xyz=kp.xyz,
+        response=kp.response,
+        octave=kp.octave,
         angle=ang,
-        desc=desc,
-        valid=valid,
-        has_depth=has_depth,
+        desc=torch.where(kp.valid[:, None], desc, torch.zeros_like(desc)),
+        valid=kp.valid,
+        has_depth=kp.has_depth,
     )

@@ -425,7 +425,8 @@ def slam_track(cfg: SlamConfig, state: SlamState, gray, depth, draws: dict,
     m0 = state.map
     L = m0.capacity
 
-    feat = detect_and_describe(cfg, gray, depth)
+    with timing.stage("detect"):
+        feat = detect_and_describe(cfg, gray, depth)
     N = feat.capacity
     obs_dirs = _obs_dirs(cfg, gray, depth, feat)
 
@@ -703,8 +704,8 @@ def slam_frame(cfg: SlamConfig, state: SlamState, gray, depth, draws: dict,
     each writing the frame's end into ``out`` = (state, SlamOutputs)
     buffers. ``out`` may be ``state`` itself: the keyframe branch reads
     ``state`` only where the tail did not run. The parts are the flight
-    recorder's stages ``track``, ``tail``, ``keyframe`` and ``ba``
-    (``utils/timing.py``). Returns the Track."""
+    recorder's stages ``track`` (``detect`` inside it), ``tail``,
+    ``keyframe`` and ``ba`` (``utils/timing.py``). Returns the Track."""
     with timing.stage("track"):
         tr = slam_track(cfg, state, gray, depth, draws, gt_pose, playback)
     is_kf, do_ba = tr.flags[0], tr.flags[1]

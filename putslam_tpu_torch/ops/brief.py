@@ -233,13 +233,20 @@ def _select_bits(diffs: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     return torch.where(sel > 0, one, -one)
 
 
+def patch_matrix(patches: torch.Tensor) -> torch.Tensor:
+    """(N, P, P) float32 patches → the (N, P·P) bfloat16 operand of the
+    descriptor product, rounded to nearest even."""
+    return patches.reshape(patches.shape[0], PATCH * PATCH).to(torch.bfloat16)
+
+
 def describe_patches(patches: torch.Tensor, kind: str = "brief"):
-    """(N, P, P) raw patches → (desc (N, 256) int8 ±1, angles (N,))."""
+    """(N, P, P) raw patches, or their (N, P·P) bfloat16 matrix
+    (``patch_matrix``; the detector's keypoint chain writes it directly) →
+    (desc (N, 256) int8 ±1, angles (N,))."""
     from putslam_tpu_torch.convert import brief_bank
 
-    N = patches.shape[0]
     bank = brief_bank(patches.device, kind)
-    flat = patches.reshape(N, PATCH * PATCH).to(torch.bfloat16)
+    flat = patch_matrix(patches) if patches.dim() == 3 else patches
     out = flat @ bank                                  # bf16 output rounding
     ang = torch.atan2(out[:, -1].float(), out[:, -2].float())
     return _select_bits(out[:, :N_BINS * DESC_BITS], ang), ang
@@ -252,10 +259,8 @@ def steered_brief(patches: torch.Tensor, angles: torch.Tensor,
     from the same matmul and is the path the detector takes)."""
     from putslam_tpu_torch.convert import brief_bank
 
-    N = patches.shape[0]
     bank = brief_bank(patches.device, kind, fused=False)
-    flat = patches.reshape(N, PATCH * PATCH).to(torch.bfloat16)
-    return _select_bits(flat @ bank, angles)
+    return _select_bits(patch_matrix(patches) @ bank, angles)
 
 
 def describe(img: torch.Tensor, uv: torch.Tensor, valid: torch.Tensor,

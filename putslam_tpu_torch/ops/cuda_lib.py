@@ -1,6 +1,7 @@
 """The hand-written kernel libraries that count their launches on the card:
 ``csrc/segment_sum.cu`` (``ops/segment.py``), ``csrc/kabsch_fit.cu``
-(``ops/kabsch.py``) and ``csrc/ransac_score.cu`` (``ops/ransac_score.py``).
+(``ops/kabsch.py``), ``csrc/ransac_score.cu`` (``ops/ransac_score.py``) and
+``csrc/keypoints.cu`` (``ops/keypoints.py``).
 
 Each is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``putslam_tpu_torch/build/`` (named by a hash of the source, the headers it

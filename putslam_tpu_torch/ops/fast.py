@@ -69,6 +69,18 @@ def nms(score: torch.Tensor, radius: int) -> torch.Tensor:
                        torch.zeros_like(score))
 
 
+def subtile_grid(H: int, W: int, grid_rows: int, grid_cols: int,
+                 max_features: int) -> Tuple[int, int, int, int]:
+    """``grid_topk``'s split of an (H, W) map: (subtile rows, subtile
+    columns, subtile height, subtile width). Each grid cell is split m × m,
+    m the ceiling of the square root of twice its share of
+    ``max_features``."""
+    k_cell = -(-max_features // (grid_rows * grid_cols)) * 2
+    m = max(int(-(-(k_cell ** 0.5) // 1)), 1)
+    nsh, nsw = grid_rows * m, grid_cols * m
+    return nsh, nsw, -(-H // nsh), -(-W // nsw)
+
+
 def grid_topk(score: torch.Tensor, grid_rows: int, grid_cols: int,
               max_features: int
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -77,11 +89,8 @@ def grid_topk(score: torch.Tensor, grid_rows: int, grid_cols: int,
     index, as ``lax.top_k`` / ``argmax`` do. Returns (uv (K,2) [u, v],
     response (K,), valid (K,)); invalid slots have response 0, uv −1."""
     H, W = score.shape
-    k_cell = -(-max_features // (grid_rows * grid_cols)) * 2
-    m = max(int(-(-(k_cell ** 0.5) // 1)), 1)
-    nsh, nsw = grid_rows * m, grid_cols * m
-    sub_h = -(-H // nsh)
-    sub_w = -(-W // nsw)
+    nsh, nsw, sub_h, sub_w = subtile_grid(H, W, grid_rows, grid_cols,
+                                          max_features)
     padded = F.pad(score, (0, sub_w * nsw - W, 0, sub_h * nsh - H))
     tiles = padded.reshape(nsh, sub_h, nsw, sub_w).permute(0, 2, 1, 3)
     tiles = tiles.reshape(nsh * nsw, sub_h * sub_w)

@@ -69,6 +69,7 @@ def test_counts_equal_the_outputs(case, seed):
     assert kf.any() and ba.any()          # the case reaches both
     c = count[frames]
     assert (c[:, S["frame"]] == 1).all() and (c[:, S["track"]] == 1).all()
+    assert (c[:, S["detect"]] == 1).all()
     assert (c[:, S["keyframe"]] == kf).all()
     assert (c[:, S["tail"]] == ~kf).all()
     assert (c[:, S["ba"]] == ba).all()
@@ -87,12 +88,13 @@ def test_counts_equal_the_outputs(case, seed):
     assert snap["root"][-1] == S["finalize"] and f[S["finalize"]] == 1
     assert 2 <= f[S["gn_iteration"]] <= 2 * cfg.backend.final_gn_iterations
     assert f[[S[n] for n in ("frame", "track", "tail", "keyframe",
-                             "ba")]].sum() == 0
+                             "ba", "detect")]].sum() == 0
     # a stage's summed time lies inside its replay's root, child in parent
     tot = snap["total"]
     assert (tot[frames, S["frame"]] >= tot[frames, S["track"]]
             + tot[frames, S["tail"]] + tot[frames, S["keyframe"]]).all()
     assert (tot[:, S["keyframe"]] >= tot[:, S["ba"]]).all()
+    assert (tot[frames, S["track"]] >= tot[frames, S["detect"]]).all()
     assert (tot[frames, S["ba"]] >= tot[frames, S["gn_iteration"]]).all()
 
 
@@ -247,6 +249,7 @@ def _hand_made():
                                   + snap["total"][:, S["frame"]])
     snap["count"][:4, S["frame"]] = 1
     put("track", "total", [2, 3, 3, 50, 0])
+    put("detect", "total", [1, 1.5, 2, 20, 0])
     put("keyframe", "total", [0, 2, 2.5, 40, 0])
     snap["count"][:, S["keyframe"]] = [0, 1, 1, 1, 0]
     put("ba", "total", [0, 0, 1.5, 30, 0])
@@ -272,6 +275,7 @@ def _hand_made():
 EXPECTED = {
     "frame_device_ms.offline": 5.0,          # mean of 4, 5, 6
     "track_device_ms.offline": 8.0 / 3,
+    "detect_device_ms.offline": 1.5,         # mean of 1, 1.5, 2
     "keyframe_device_ms.offline": 1.5,       # (2 - 0) and (2.5 - 1.5)
     "ba_device_ms.offline": 1.5,
     "between_frames_ms.offline": 1.1,        # 1005.1 - 1004, replays 10-11
@@ -294,3 +298,19 @@ def test_metric_reads_the_recorder(metric):
         empty = timing.snapshot(rec)
     assert read({recorder.KEY: empty}) is None
     assert read({recorder.KEY: None}) is None
+
+
+def test_detect_metric_without_the_stage():
+    """A recorder without the ``detect`` stage (an older port) gives the
+    metric nothing to read: None, and no error."""
+    from slambench import recorder, spec
+
+    snap = _hand_made()
+    k = S["detect"]
+    snap["stages"] = snap["stages"][:k] + snap["stages"][k + 1:]
+    for f in timing.FIELDS:
+        snap[f] = np.delete(snap[f], k, axis=1)
+    read = spec.load_module("metrics", "detect_device_ms.offline").read
+    assert read({recorder.KEY: snap}) is None
+    track = spec.load_module("metrics", "track_device_ms.offline").read
+    assert track({recorder.KEY: snap}) == pytest.approx(8.0 / 3, rel=1e-12)
