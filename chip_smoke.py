@@ -76,6 +76,18 @@ Phases (any failed check raises and the script exits non-zero):
      torch.profiler) beside the ATen chain eager and replayed from a graph
      (its kernels and device time) and the bound from the bytes it must
      move.
+  5g. guided map matching (csrc/guided_match.cu, one launch a call, a call
+     a frame and one a rung): on the maps after frames 15, 31, 47 and 62 of
+     phase 5's orbit against the next frame's features, and on the last of
+     them with every landmark valid, at radius scales 1, 2 and 4 with both
+     acceptances, the kernel against the ATen chain it replaces
+     (``guided_match.plain_match`` on the card) bit for bit in the feature
+     index, distance, acceptance and count (max_abs_err 0), twice the
+     same, and replayed from a CUDA graph the same bits; timed on frame
+     31's map (CUDA events behind a spin kernel: eager and replayed; its
+     own duration in torch.profiler) beside the ATen chain eager and
+     replayed from a graph (its kernels and device time) and the bound from
+     the bytes it must move.
  6. the CLI: putslam_tpu_torch.run --synthetic 30 writes its five files
      (statistics.txt included) and reports an ATE under 0.05 m; with
      --loop-closure the same; --only-vo --vo-version 1 (KLT tracking)
@@ -2510,6 +2522,164 @@ def phase_keypoints(cfg, grays, depths, dev):
     return max_err, row
 
 
+def phase_guided(cfg, grays, depths, gt, dev):
+    """Phase 5g, guided map matching (``csrc/guided_match.cu``): the maps
+    after frames 15, 31, 47 and 62 of phase 5's orbit (run from the frame's
+    graph) against the next frame's features at its pose, and the last map
+    with every landmark valid, at radius scales 1, 2 and 4 with both
+    acceptances: the kernel against the ATen chain it replaces
+    (``guided_match.plain_match`` on the card), every output bit for bit,
+    twice the same, and replayed from a CUDA graph the same bits. Then on
+    frame 31's map at scale 1: the call eager and replayed (CUDA events
+    behind a spin kernel, twice each), its kernel's own duration
+    (torch.profiler), the ATen chain eager and replayed, its kernels and
+    device time a replay, and the bound from the bytes the call must move
+    (``slambench/roofline/guided_match.py``'s count at these shapes).
+    Returns (max_abs_err, row)."""
+    from putslam_tpu_torch.frontend import detector
+    from putslam_tpu_torch.models import compiled, slam
+    from putslam_tpu_torch.ops import cuda_lib, guided_match
+    from putslam_tpu_torch.slam_map import features_map as fm
+
+    mc = cfg.matcher
+    compiled.clear_cache()
+    state = slam.slam_init(cfg, grays[0], depths[0],
+                           torch.as_tensor(gt[0], device=dev))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases, k0 = {}, 1
+    for k in (15, 31, 47, 62):
+        state, _ = compiled.run_sequence(cfg, state, grays[k0:k + 1],
+                                         depths[k0:k + 1], generator=gen)
+        k0 = k + 1
+        feat = detector.detect_and_describe(cfg, grays[k + 1], depths[k + 1])
+        cases[f"map after frame {k}"] = (
+            fm._landmarks_in_camera(state.map, state.pose), state.map, feat)
+    compiled.clear_cache()
+    lm_cam, m, feat = cases["map after frame 62"]
+    cases["frame 62, every landmark valid"] = (
+        lm_cam, m._replace(lm_valid=torch.ones_like(m.lm_valid)), feat)
+
+    def gates(scale, acceptance):
+        return guided_match.Gates(mc.matching_xyz_sphere_radius * scale,
+                                  mc.octave_window, mc.max_hamming,
+                                  acceptance,
+                                  mc.matching_xyz_acceptance_ratio)
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    def compare(tag, got, ref):
+        err = 0.0
+        for name, g, r in zip(("feat_idx", "dist", "valid", "n_candidates"),
+                              got, ref):
+            check(g.shape == r.shape and g.dtype == r.dtype,
+                  f"[5g] {tag}: {name} {tuple(g.shape)} {g.dtype} against "
+                  f"{tuple(r.shape)} {r.dtype}")
+            same = torch.equal(bits(g), bits(r))
+            finite = torch.isfinite(g.double()) & torch.isfinite(r.double())
+            diff = float((g.double() - r.double())[finite].abs().max()) \
+                if finite.any() else 0.0
+            check(same, f"[5g] {tag}: {name} differs (finite entries by "
+                  f"{diff:.3e})")
+            err = max(err, diff)
+        return err
+
+    # one graph of the call, on buffers the cases are copied into
+    lm_cam31, m31, feat31 = cases["map after frame 31"]
+    buf = (lm_cam31.clone(), fm.MapState(*(t.clone() for t in m31)),
+           type(feat31)(*(t.clone() for t in feat31)))
+    g1 = gates(1.0, mc.acceptance)
+
+    def graph_of(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), cuda_lib.uncounted():
+            fn(*buf, g1)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = fn(*buf, g1)
+        return g, out
+
+    def load(lm_cam, m, feat):
+        buf[0].copy_(lm_cam)
+        for dst, src in zip(buf[1], m):
+            dst.copy_(src)
+        for dst, src in zip(buf[2], feat):
+            dst.copy_(src)
+
+    g_kern, g_out = graph_of(guided_match.match)
+    max_err = 0.0
+    counts = {}
+    for tag, (lm_cam, m, feat) in cases.items():
+        for scale in (1.0, 2.0, 4.0):
+            for acceptance in ("hamming", "ratio"):
+                g = gates(scale, acceptance)
+                got = guided_match.match(lm_cam, m, feat, g)
+                again = guided_match.match(lm_cam, m, feat, g)
+                ref = guided_match.plain_match(lm_cam, m, feat, g)
+                what = f"{tag} x{scale} {acceptance}"
+                max_err = max(max_err, compare(what, got, ref))
+                compare(f"{what}, twice", again, got)
+                if scale == 1.0:
+                    counts[tag] = (int(m.lm_valid.sum()),
+                                   int(ref[3]), int(ref[2].sum()))
+        load(lm_cam, m, feat)
+        g_kern.replay()
+        torch.cuda.synchronize()
+        compare(f"{tag}, replayed", g_out,
+                guided_match.match(lm_cam, m, feat, g1))
+    check(all(c[2] > 20 for c in counts.values()),
+          f"[5g] too few matches: {counts}")
+    print(f"[5g] guided map matching, kernel against the ATen chain on the "
+          f"card: feature index, distance, acceptance and count bit-equal "
+          f"(max_abs_err {max_err}), twice the same and replayed from a "
+          f"graph the same, on {len(cases)} maps x 3 radius scales x 2 "
+          f"acceptances (valid landmarks / with a candidate / accepted at "
+          f"scale 1: {counts})", flush=True)
+
+    load(*cases["map after frame 31"])
+    g_plain, _ = graph_of(guided_match.plain_match)
+    kern = lambda: guided_match.match(*buf, g1)          # noqa: E731
+    plain = lambda: guided_match.plain_match(*buf, g1)   # noqa: E731
+    ms = [median_ms(kern, runs=30), median_ms(kern, runs=30)]
+    graph_ms = [median_ms(g_kern.replay, runs=30),
+                median_ms(g_kern.replay, runs=30)]
+    plain_ms = median_ms(plain, runs=10)
+    plain_graph_ms = median_ms(g_plain.replay, runs=30)
+    own_us = profiler_us(kern, "guided_match_kernel")
+    n_plain, dev_plain = device_kernels(g_plain.replay)
+    lm_cam, m, feat = buf
+    L, D, _ = m.lm_desc.shape
+    N = feat.xyz.shape[0]
+    nbytes = (L * D * 256 + L * D + L * 4 + L + L * 12 + N * 12 + N + N * 4
+              + N * 256 + L * 4 + L * 4 + L + 4)
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    row = dict(ms=0.5 * (ms[0] + ms[1]),
+               graph_ms=0.5 * (graph_ms[0] + graph_ms[1]),
+               plain_ms=plain_ms, plain_graph_ms=plain_graph_ms,
+               bound_ms=bound_ms, own_us=own_us, plain_kernels=n_plain,
+               plain_device_ms=dev_plain)
+
+    def fmt(x, spec):
+        return "not measured" if x is None else format(x, spec)
+
+    print(f"[5g] frame 31's map: {nbytes} bytes read and written once: "
+          f"bound {1e3 * bound_ms:.3f} us by bytes at "
+          f"{HBM_BYTES_PER_S / 1e12} TB/s; kernel call eager "
+          f"{1e3 * ms[0]:.3f} / {1e3 * ms[1]:.3f} us, replayed "
+          f"{1e3 * graph_ms[0]:.3f} / {1e3 * graph_ms[1]:.3f} us "
+          f"({100 * bound_ms / row['graph_ms']:.2f} % of the bound; own "
+          f"{fmt(own_us, '.2f')} us, torch.profiler); the ATen chain eager "
+          f"{1e3 * plain_ms:.2f} us, replayed {1e3 * plain_graph_ms:.2f} us "
+          f"({plain_graph_ms / row['graph_ms']:.1f}x; "
+          f"{fmt(n_plain, 'd')} kernels, device "
+          f"{fmt(dev_plain and 1e3 * dev_plain, '.2f')} us, "
+          f"torch.profiler); library call: none", flush=True)
+    del g_kern, g_plain
+    return max_err, row
+
+
 def device_kernels(fn):
     """(kernels, their summed device ms) of one call of ``fn`` as
     torch.profiler (CUPTI) records them, CUDA-graph replays included;
@@ -2921,10 +3091,10 @@ def main() -> int:
     from putslam_tpu_torch.backend import optimize as opt_mod
     from putslam_tpu_torch.slam_map import features_map as fm
     from putslam_tpu_torch.models import slam, vo
-    from putslam_tpu_torch.ops import (fast, fast_cuda, kabsch, keypoints,
-                                       ransac_score, segment)
+    from putslam_tpu_torch.ops import (fast, fast_cuda, guided_match, kabsch,
+                                       keypoints, ransac_score, segment)
     from putslam_tpu_torch import run as run_mod
-    from putslam_tpu_torch.utils import control, graph_cond
+    from putslam_tpu_torch.utils import control, graph_cond, timing
 
     dev = torch.device("cuda:0")
     name = torch.cuda.get_device_name(0)
@@ -2942,6 +3112,7 @@ def main() -> int:
         fit_build = pool.submit(kabsch.build)
         score_build = pool.submit(ransac_score.build)
         kp_build = pool.submit(keypoints.build)
+        gm_build = pool.submit(guided_match.build)
         lib = builds[0].result()
         for b in builds[1:]:
             b.result()
@@ -2950,16 +3121,18 @@ def main() -> int:
         fit_lib = fit_build.result()
         score_lib = score_build.result()
         kp_lib = kp_build.result()
+        gm_lib = gm_build.result()
     print(f"[2] built {os.path.relpath(lib)} and {len(VARIANTS)} variants, "
           f"the segment-sum kernel {os.path.relpath(seg_lib)}, RANSAC's fit "
           f"{os.path.relpath(fit_lib)}, RANSAC's hypotheses and scores "
           f"{os.path.relpath(score_lib)}, the keypoint chain "
-          f"{os.path.relpath(kp_lib)} and the conditional-node plumbing "
+          f"{os.path.relpath(kp_lib)}, guided map matching "
+          f"{os.path.relpath(gm_lib)} and the conditional-node plumbing "
           f"{os.path.relpath(cond_lib)}, in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for log in (fast_cuda.build_log(), segment.build_log(),
                 kabsch.build_log(), ransac_score.build_log(),
-                keypoints.build_log()):
+                keypoints.build_log(), guided_match.build_log()):
         for line in log.splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[2] {line.strip()}", flush=True)
@@ -3120,6 +3293,8 @@ def main() -> int:
     kabsch.reset_launch_count()
     ransac_score.reset_launch_count()
     keypoints.reset_launch_count()
+    guided_match.reset_launch_count()
+    first_replay = timing.recorder().n_replays
     t0 = time.perf_counter()
     pb, pa, outs, state = slam.run_slam_final(cfg, grays, depths,
                                               init_pose=gt[0], device=dev)
@@ -3127,6 +3302,13 @@ def main() -> int:
     dt = time.perf_counter() - t0
     launches = fast_cuda.fast_score_nms.launches
     kp_launches = keypoints.launch_count()
+    gm_launches = guided_match.launch_count()
+    snap = timing.snapshot()
+    rows = (snap["valid"] & (snap["replay"] >= first_replay)
+            & (snap["root"] == timing.STAGES.index("frame")))
+    gm_stages = int(snap["count"][rows, timing.STAGES.index("guided")].sum())
+    gm_rungs = int(snap["count"][rows,
+                                 timing.STAGES.index("map_retry")].sum())
     seg_launches = segment.launch_count()
     fit_launches = kabsch.launch_count()
     score_launches = ransac_score.launch_counts()
@@ -3134,6 +3316,11 @@ def main() -> int:
           f"kernel launches {launches} != {N_FRAMES} (one per frame)")
     check(kp_launches == N_FRAMES, f"keypoint-chain calls {kp_launches} "
           f"!= {N_FRAMES} (one per frame)")
+    check(int(rows.sum()) == N_FRAMES - 1
+          and gm_launches == gm_stages == N_FRAMES - 1 + gm_rungs,
+          f"guided-match launches {gm_launches}, stages {gm_stages}, in "
+          f"{int(rows.sum())} replayed frames with {gm_rungs} rungs (one a "
+          f"tracked frame and one a rung)")
     # the bench makes no keyframe (ROADMAP 3j): its BA is finalize's
     check(seg_launches > 0, "the main path launched no segment sum")
     # two RANSAC calls a frame (the VO and the map's pass), each one
@@ -3154,7 +3341,8 @@ def main() -> int:
     print(f"[5] fr1 {N_FRAMES}-frame orbit, run_slam_final: {dt:.3f} s, "
           f"{N_FRAMES / dt:.2f} SLAM frames/s, {1e3 * dt / N_FRAMES:.2f} "
           f"ms/frame (incl. finalize); kernel launches {launches}, "
-          f"keypoint-chain calls {kp_launches}, segment sums {seg_launches} (finalize's), RANSAC refits "
+          f"keypoint-chain calls {kp_launches}, guided matches "
+          f"{gm_launches} ({gm_rungs} rungs), segment sums {seg_launches} (finalize's), RANSAC refits "
           f"{fit_launches} ({fit_launches / (N_FRAMES - 1):.2f} a frame), "
           f"hypotheses {score_launches['hypotheses']} and scores "
           f"{score_launches['score']} "
@@ -3248,6 +3436,9 @@ def main() -> int:
 
     # ---- 5f. the keypoint chain on the bench's frames ----------------------
     kp_err, kp_row = phase_keypoints(cfg, grays, depths, dev)
+
+    # ---- 5g. guided map matching on the bench's maps ------------------------
+    gm_err, gm_row = phase_guided(cfg, grays, depths, gt, dev)
 
     # ---- 6. the CLI ---------------------------------------------------------
     five = FIVE_FILES
@@ -3636,6 +3827,32 @@ def main() -> int:
         "device_us_profiler": kp_row["own_us"],
         "plain_kernels": kp_row["plain_kernels"],
         "plain_device_ms": kp_row["plain_device_ms"],
+    }, {
+        "name": "guided_match",
+        "route": "cuda",
+        "source": "putslam_tpu_torch/csrc/guided_match.cu",
+        "replaces": "none: not a TPU kernel (the XLA fusion of "
+                    "putslam_tpu/slam_map/features_map.py's guided "
+                    "distances; in the port the ATen chain of "
+                    "putslam_tpu_torch/ops/guided_match.py::plain_match)",
+        "launches": gm_launches,
+        "launches_per_frame": gm_launches / (N_FRAMES - 1),
+        "rungs": gm_rungs,
+        "kernels_per_call": 1,
+        "max_abs_err": gm_err,
+        # one call a tracked frame (and a rung) at fr1, eager and replayed
+        # from a graph; the plain version is the ATen chain, eager and
+        # replayed
+        "ms": gm_row["ms"],
+        "graph_ms": gm_row["graph_ms"],
+        "plain_ms": gm_row["plain_ms"],
+        "plain_graph_ms": gm_row["plain_graph_ms"],
+        "bound_ms": gm_row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "device_us_profiler": gm_row["own_us"],
+        "plain_kernels": gm_row["plain_kernels"],
+        "plain_device_ms": gm_row["plain_device_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -460,9 +460,10 @@ def slam_track(cfg: SlamConfig, state: SlamState, gray, depth, draws: dict,
         if cfg.matcher.max_mates > 1:
             # multi-mate band acceptance: every landmark contributes up to
             # max_mates candidate pairs and RANSAC arbitrates
-            pr = fm.guided_match_pairs(cfg, m0, pose_pred, feat,
-                                       radius_scale=scale,
-                                       hamming_slack=hamming_slack)
+            with timing.stage("guided"):
+                pr = fm.guided_match_pairs(cfg, m0, pose_pred, feat,
+                                           radius_scale=scale,
+                                           hamming_slack=hamming_slack)
             fi = pr.feat_idx.long()
             lm = pr.lm_idx.long()
             p_s = feat.xyz[fi]                                    # (P, 3)
@@ -490,8 +491,10 @@ def slam_track(cfg: SlamConfig, state: SlamState, gray, depth, draws: dict,
             gm_s = fm.GuidedMatchResult(fidx_L, bestd, valid_L,
                                         pr.n_candidates)
             return gm_s, res_c._replace(inliers=inliers_L)
-        gm_s = fm.guided_match(cfg, m0, pose_pred, feat, radius_scale=scale,
-                               hamming_slack=hamming_slack)
+        with timing.stage("guided"):
+            gm_s = fm.guided_match(cfg, m0, pose_pred, feat,
+                                   radius_scale=scale,
+                                   hamming_slack=hamming_slack)
         # compact the matched landmarks to the feature capacity
         sel = nonzero_fixed(gm_s.valid, N, -1)
         on = sel >= 0

@@ -16,6 +16,7 @@ import torch
 from putslam_tpu_torch.config import SlamConfig
 from putslam_tpu_torch.frontend.detector import Features
 from putslam_tpu_torch.geometry import se3
+from putslam_tpu_torch.ops import guided_match as guided_ops
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows, take_row
 
 DESC_BITS = 256
@@ -81,7 +82,19 @@ class GuidedMatchResult(NamedTuple):
     n_candidates: torch.Tensor  # () int32 — landmarks with any candidate
 
 
-ACCEPTANCES = ("hamming", "ratio")
+ACCEPTANCES = guided_ops.ACCEPTANCES
+
+
+def _gates(cfg: SlamConfig, radius_scale: float,
+           hamming_slack: float) -> guided_ops.Gates:
+    mc = cfg.matcher
+    return guided_ops.Gates(mc.matching_xyz_sphere_radius * radius_scale,
+                            mc.octave_window, mc.max_hamming + hamming_slack,
+                            mc.acceptance, mc.matching_xyz_acceptance_ratio)
+
+
+def _landmarks_in_camera(m: MapState, pose_guess) -> torch.Tensor:
+    return se3.apply(se3.inverse(pose_guess), m.lm_pos)             # (L, 3)
 
 
 def _guided_distances(cfg: SlamConfig, m: MapState, pose_guess,
@@ -89,22 +102,10 @@ def _guided_distances(cfg: SlamConfig, m: MapState, pose_guess,
     """(L, N) gated descriptor distances: 3D sphere gate + octave window +
     min over the multi-view slots of the Hamming distance (one matmul).
     inf where gated out."""
-    mc = cfg.matcher
-    L, D, _ = m.lm_desc.shape
-    N = feat.capacity
-    lm_cam = se3.apply(se3.inverse(pose_guess), m.lm_pos)             # (L, 3)
-    d3 = torch.linalg.norm(lm_cam[:, None, :] - feat.xyz[None, :, :], dim=-1)
-    radius = mc.matching_xyz_sphere_radius * radius_scale
-    gate = (d3 < radius) & m.lm_valid[:, None] & feat.has_depth[None, :]
-    d_oct = torch.abs(m.lm_octave[:, None] - feat.octave[None, :])
-    gate &= d_oct <= mc.octave_window
-    dots = (feat.desc.float()
-            @ m.lm_desc.reshape(L * D, DESC_BITS).float().T).reshape(N, L, D)
-    ham = 0.5 * (DESC_BITS - dots)
-    ham = torch.where(m.lm_slot_used[None, :, :], ham,
-                      torch.full_like(ham, math.inf))
-    desc_dist = torch.amin(ham, dim=-1).T                            # (L, N)
-    return torch.where(gate, desc_dist, torch.full_like(desc_dist, math.inf))
+    return guided_ops.plain_distances(
+        _landmarks_in_camera(m, pose_guess), m, feat,
+        cfg.matcher.matching_xyz_sphere_radius * radius_scale,
+        cfg.matcher.octave_window)
 
 
 class GuidedMatchPairs(NamedTuple):
@@ -187,24 +188,9 @@ def guided_match(cfg: SlamConfig, m: MapState, pose_guess, feat: Features,
         raise NotImplementedError(
             f"matcher.acceptance={mc.acceptance!r} is not known "
             f"(one of {ACCEPTANCES})")
-    dist = _guided_distances(cfg, m, pose_guess, feat, radius_scale)
-    best_idx = torch.argmin(dist, dim=1).to(torch.int32)
-    if mc.acceptance == "ratio":
-        two = torch.topk(torch.where(torch.isfinite(dist), dist,
-                                     torch.full_like(dist, 1e9)),
-                         2, dim=1, largest=False, sorted=True).values
-        best, second = two[:, 0], two[:, 1]
-        distinct = (best <= mc.matching_xyz_acceptance_ratio * second) \
-            | (second >= 1e9)
-        ok = (best < 1e9) & (best <= mc.max_hamming + hamming_slack) \
-            & distinct
-    else:
-        best = torch.amin(dist, dim=1)
-        ok = torch.isfinite(best) & (best <= mc.max_hamming + hamming_slack)
-    n_cand = torch.sum(torch.any(torch.isfinite(dist), dim=1)).to(torch.int32)
-    return GuidedMatchResult(best_idx,
-                             torch.where(ok, best, torch.full_like(best, math.inf)),
-                             ok, n_cand)
+    return GuidedMatchResult(*guided_ops.match(
+        _landmarks_in_camera(m, pose_guess), m, feat,
+        _gates(cfg, radius_scale, hamming_slack)))
 
 
 def _allocate_slots(free_mask, want, max_add: int

@@ -61,7 +61,7 @@ import torch
 from putslam_tpu_torch.utils import control
 
 STAGES = ("frame", "track", "vo_retry", "map_retry", "tail", "keyframe",
-          "ba", "gn_iteration", "finalize", "detect")
+          "ba", "gn_iteration", "finalize", "detect", "guided")
 ROOTS = ("frame", "finalize")
 FIELDS = ("begin", "end", "total", "count")    # per stage in a row
 WIDTH = 1 + len(FIELDS) * len(STAGES)    # a row: its sequence number first
@@ -430,12 +430,13 @@ def capture(device):
 def _launch_counts() -> Dict[str, int]:
     """The launch counters of the hand-written kernels that have been
     loaded (a counter on the card is read with a synchronise)."""
-    from putslam_tpu_torch.ops import (fast_cuda, kabsch, keypoints,
-                                       ransac_score, segment)
+    from putslam_tpu_torch.ops import (fast_cuda, guided_match, kabsch,
+                                       keypoints, ransac_score, segment)
 
     out = {"fast_score_nms": int(fast_cuda.fast_score_nms.launches)}
     for name, mod in (("segment_sum", segment), ("kabsch_fit", kabsch),
-                      ("keypoints", keypoints)):
+                      ("keypoints", keypoints),
+                      ("guided_match", guided_match)):
         if mod._LIB._lib is not None:
             out[name] = mod.launch_count()
     if ransac_score._LIB._lib is not None:

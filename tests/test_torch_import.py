@@ -45,6 +45,7 @@ def test_port_imports_with_jax_blocked():
             "import putslam_tpu_torch.ops.segment\n"
             "import putslam_tpu_torch.ops.ransac_score\n"
             "import putslam_tpu_torch.ops.keypoints\n"
+            "import putslam_tpu_torch.ops.guided_match\n"
             "import bench_torch\n"
             "sys.path.insert(0, 'tools')\n"
             "import make_disk_dataset_torch\n"
@@ -102,7 +103,8 @@ def _port_sources():
                  "geometry/se2.py", "io/synthetic2.py", "utils/viz.py",
                  "ops/klt.py", "models/compiled.py", "utils/control.py",
                  "utils/graph_cond.py", "models/slam.py", "ops/segment.py",
-                 "ops/ransac_score.py", "ops/keypoints.py"):
+                 "ops/ransac_score.py", "ops/keypoints.py",
+                 "ops/guided_match.py"):
         assert f"putslam_tpu_torch/{name}" in rel, name
     assert all(f.exists() for f in files)
     return files

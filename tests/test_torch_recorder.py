@@ -70,6 +70,7 @@ def test_counts_equal_the_outputs(case, seed):
     c = count[frames]
     assert (c[:, S["frame"]] == 1).all() and (c[:, S["track"]] == 1).all()
     assert (c[:, S["detect"]] == 1).all()
+    assert (c[:, S["guided"]] == 1 + c[:, S["map_retry"]]).all()
     assert (c[:, S["keyframe"]] == kf).all()
     assert (c[:, S["tail"]] == ~kf).all()
     assert (c[:, S["ba"]] == ba).all()
@@ -88,13 +89,14 @@ def test_counts_equal_the_outputs(case, seed):
     assert snap["root"][-1] == S["finalize"] and f[S["finalize"]] == 1
     assert 2 <= f[S["gn_iteration"]] <= 2 * cfg.backend.final_gn_iterations
     assert f[[S[n] for n in ("frame", "track", "tail", "keyframe",
-                             "ba", "detect")]].sum() == 0
+                             "ba", "detect", "guided")]].sum() == 0
     # a stage's summed time lies inside its replay's root, child in parent
     tot = snap["total"]
     assert (tot[frames, S["frame"]] >= tot[frames, S["track"]]
             + tot[frames, S["tail"]] + tot[frames, S["keyframe"]]).all()
     assert (tot[:, S["keyframe"]] >= tot[:, S["ba"]]).all()
-    assert (tot[frames, S["track"]] >= tot[frames, S["detect"]]).all()
+    assert (tot[frames, S["track"]] >= tot[frames, S["detect"]]
+            + tot[frames, S["guided"]]).all()
     assert (tot[frames, S["ba"]] >= tot[frames, S["gn_iteration"]]).all()
 
 
@@ -250,6 +252,7 @@ def _hand_made():
     snap["count"][:4, S["frame"]] = 1
     put("track", "total", [2, 3, 3, 50, 0])
     put("detect", "total", [1, 1.5, 2, 20, 0])
+    put("guided", "total", [0.25, 0.5, 0.75, 10, 0])
     put("keyframe", "total", [0, 2, 2.5, 40, 0])
     snap["count"][:, S["keyframe"]] = [0, 1, 1, 1, 0]
     put("ba", "total", [0, 0, 1.5, 30, 0])
@@ -276,6 +279,7 @@ EXPECTED = {
     "frame_device_ms.offline": 5.0,          # mean of 4, 5, 6
     "track_device_ms.offline": 8.0 / 3,
     "detect_device_ms.offline": 1.5,         # mean of 1, 1.5, 2
+    "guided_device_ms.offline": 0.5,         # mean of 0.25, 0.5, 0.75
     "keyframe_device_ms.offline": 1.5,       # (2 - 0) and (2.5 - 1.5)
     "ba_device_ms.offline": 1.5,
     "between_frames_ms.offline": 1.1,        # 1005.1 - 1004, replays 10-11
@@ -311,6 +315,22 @@ def test_detect_metric_without_the_stage():
     for f in timing.FIELDS:
         snap[f] = np.delete(snap[f], k, axis=1)
     read = spec.load_module("metrics", "detect_device_ms.offline").read
+    assert read({recorder.KEY: snap}) is None
+    track = spec.load_module("metrics", "track_device_ms.offline").read
+    assert track({recorder.KEY: snap}) == pytest.approx(8.0 / 3, rel=1e-12)
+
+
+def test_guided_metric_without_the_stage():
+    """A recorder without the ``guided`` stage (an older port) gives the
+    metric nothing to read: None, and no error."""
+    from slambench import recorder, spec
+
+    snap = _hand_made()
+    k = S["guided"]
+    snap["stages"] = snap["stages"][:k] + snap["stages"][k + 1:]
+    for f in timing.FIELDS:
+        snap[f] = np.delete(snap[f], k, axis=1)
+    read = spec.load_module("metrics", "guided_device_ms.offline").read
     assert read({recorder.KEY: snap}) is None
     track = spec.load_module("metrics", "track_device_ms.offline").read
     assert track({recorder.KEY: snap}) == pytest.approx(8.0 / 3, rel=1e-12)
