@@ -6,9 +6,9 @@ Run from the repository root:  python3 chip_smoke.py [--dump-map NPZ]
 Phases (any failed check raises and the script exits non-zero):
   1. the card: torch.cuda must be available; prints its name and the
      ``nvidia-smi`` name / power limit line.
-  2. build the FAST-9 + NMS kernel from csrc/ with nvcc (timed), and its
-     build-time variants beside it, all nvcc runs started together; prints
-     what ``ptxas -v`` said of each kernel (registers, shared memory, spills).
+  2. build every library of csrc/ with nvcc (timed), all nvcc runs started
+     together; prints what ``ptxas -v`` said of each kernel (registers,
+     shared memory, spills).
   3. the kernel against its plain PyTorch version on the card: the four fr1
      pyramid levels in ONE launch, on a rendered frame's levels, on uniform
      noise and on a uint8-quantised (tie-heavy) image, each level alone, two
@@ -17,9 +17,9 @@ Phases (any failed check raises and the script exits non-zero):
      (twice): median of 50 calls each, CUDA events behind a spin kernel;
      then per level alone, 20 calls back to back, once after a flush of the
      L2, the floor of this way of timing (a one-element fill), the kernel's
-     own duration as torch.profiler records it, and the build-time tile
-     variants on the frame and on noise. The bound is computed from the
-     bytes and the operations of this input.
+     own duration as torch.profiler records it, and the frame against
+     noise. The bound is computed from the bytes and the operations of this
+     input.
   4. detect_and_describe at fr1 on the card against the CPU on one frame.
   5. the bench workload — fr1 config, 64-frame synthetic orbit rendered on
      the card, run_slam_final — once to warm up, then timed with the
@@ -40,17 +40,16 @@ Phases (any failed check raises and the script exits non-zero):
      all sums of a solve (kernel twice, the plain version, index_add_ with
      atomics, the plans' stable sorts), the kernel's own duration, the
      bound from the bytes and adds of these inputs.
- 5d. RANSAC's fit (csrc/kabsch_fit.cu, one launch a fit): the RANSAC calls
-     of bench frames 1-2 through the frame runner without graphs are
+ 5d. RANSAC's refit (csrc/kabsch_fit.cu, one launch a refit): the RANSAC
+     calls of bench frames 1-2 through the frame runner without graphs are
      recorded; on the VO's and the map pass's real matches and inlier
-     masks (the sampled fit of 1024 hypotheses, which the main path now
-     runs in 5e's kernel, and the refits), and on
-     degenerate sets made from them (all-zero weights, three equal points,
-     collinear points, fewer than 3 valid matches), the kernel against its
-     plain version on the card bit for bit, and twice the same; timed at
-     the main path's three shapes (CUDA events behind a spin kernel, its
-     own duration in torch.profiler), beside the plain version and the
-     bound from these inputs' bytes and the plain version's operations.
+     masks, and on degenerate sets made from them (all-zero weights, three
+     equal points, collinear points, fewer than 3 valid matches), the
+     kernel against its plain version on the card bit for bit, and twice
+     the same; timed at the main path's two shapes (CUDA events behind a
+     spin kernel, its own duration in torch.profiler), beside the plain
+     version and the bound from these inputs' bytes and the plain
+     version's operations. (The sampled fit runs in 5e's kernel.)
   5e. RANSAC's hypotheses and scores (csrc/ransac_score.cu, one launch a
      RANSAC call for the sampled fits of all hypotheses and their (H, N)
      scores, one a refit's score): on the same recorded calls (the VO's
@@ -379,21 +378,20 @@ COMPILED_PROFILED = 4
 # phase 18: check_trajectory on the card against the CPU, the CPU test's
 # tolerance against the JAX package (tests/test_torch_finalize.py)
 CHECK_TRAJECTORY_TOL = 1e-5
-# build-time variants of csrc/fast_score_nms.cu, timed beside the default
-# (32x24 tiles, 128 threads, plain vector loads, sums only behind an arc)
-VARIANTS = {
-    "tile 32x32, 256 threads": ("FAST_TILE_H=32", "FAST_THREADS=256"),
-    "tile 64x32, 256 threads": ("FAST_TILE_W=64", "FAST_TILE_H=32",
-                                "FAST_THREADS=256"),
-    "tile 64x32, 1024 threads": ("FAST_TILE_W=64", "FAST_TILE_H=32",
-                                 "FAST_THREADS=1024"),
-    "tile 32x16, 128 threads": ("FAST_TILE_H=16",),
-}
 
 
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def ransac_counts() -> dict:
+    """RANSAC's kernel launches on the card by mode since the last reset:
+    ``{"hypotheses": n, "score": n}``."""
+    from putslam_tpu_torch.ops import ransac_score
+
+    return {key.rsplit(".", 1)[1]: n
+            for key, n in ransac_score._LIB.launch_counts().items()}
 
 
 def nvidia_smi_line() -> str:
@@ -464,15 +462,16 @@ def count_syncs(fn):
     return out, n
 
 
-def timed(fn, launches):
-    """(fn(), wall seconds, FAST kernel launches) of one call, between two
-    synchronisations, with the launch counter set to 0 just before."""
-    torch.cuda.synchronize()
-    launches.launches = 0
+def timed(fn, lib):
+    """(fn(), wall seconds, kernel launches of ``lib``, a
+    ``cuda_lib.Library``) of one call, between two synchronisations, with
+    its launch counter set to 0 just before."""
+    lib.reset_launch_count()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, launches.launches
+    dt = time.perf_counter() - t0
+    return out, dt, lib.launch_count()
 
 
 def frames_processed(n, chunk):
@@ -545,7 +544,7 @@ def phase_uncertainty(cfg, grays, depths, gt, dev, ref_s, dump_map=None):
     ucfg = uncertainty_config(cfg)
     (pb, pa, outs, state), dt, n_launch = timed(
         lambda: slam.run_slam_final(ucfg, grays, depths, init_pose=gt[0],
-                                    device=dev), fast_cuda.fast_score_nms)
+                                    device=dev), fast_cuda._LIB)
     check(n_launch == n_frames,
           f"uncertainty run: kernel launches {n_launch} != {n_frames}")
     n_ba = int(outs.ba_ran.sum())
@@ -695,7 +694,7 @@ def phase_frontend_options(cfg, grays, depths, gt, dev, ref_s):
         (pb, pa, outs, _), dt, n_launch = timed(
             lambda vcfg=vcfg: slam.run_slam_final(
                 vcfg, grays, depths, init_pose=gt[0], device=dev),
-            fast_cuda.fast_score_nms)
+            fast_cuda._LIB)
         check(n_launch == n_frames,
               f"{label}: kernel launches {n_launch} != {n_frames}")
         ate_b = ate_mod.ate_rmse_aligned_frames(gt, pb)
@@ -805,9 +804,9 @@ def phase_file_player(cfg, dev, root, ref_s):
     run_cli(run_mod, ["--dataset", root, "--max-frames", "4"], FIVE_FILES)
     extras = {}
     torch.cuda.synchronize()
-    fast_cuda.fast_score_nms.launches = 0
+    fast_cuda._LIB.reset_launch_count()
     report = run_cli(run_mod, ["--dataset", root], FIVE_FILES, extras)
-    launches = fast_cuda.fast_score_nms.launches
+    launches = fast_cuda._LIB.launch_count()
     check(report["frames"] == n, f"file player ran {report['frames']} frames")
     n_det = frames_processed(n, 64)      # the CLI's default --chunk
     check(launches == n_det,
@@ -1021,10 +1020,10 @@ def phase_archive(cfg, dev, root, grays, depths, gt, ref_report):
     with recorded_archive() as rec:
         extras = {}
         torch.cuda.synchronize()
-        fast_cuda.fast_score_nms.launches = 0
+        fast_cuda._LIB.reset_launch_count()
         report = run_cli(run_mod, ["--dataset", root, "--global-ba"],
                          FIVE_FILES, extras)
-        launches = fast_cuda.fast_score_nms.launches
+        launches = fast_cuda._LIB.launch_count()
     n_det = frames_processed(n, 64)
     check(launches == n_det,
           f"--global-ba: kernel launches {launches} != {n_det}")
@@ -1054,7 +1053,7 @@ def phase_archive(cfg, dev, root, grays, depths, gt, ref_report):
         (pb, pa, outs, state, _), dt, n_launch = timed(
             lambda: slam.run_slam_global(
                 wcfg, grays[:w], depths[:w], init_pose=gt[0],
-                chunk_size=WRAP_CHUNK, device=dev), fast_cuda.fast_score_nms)
+                chunk_size=WRAP_CHUNK, device=dev), fast_cuda._LIB)
     w_det = frames_processed(w, WRAP_CHUNK)
     check(n_launch == w_det,
           f"wrapped ring: kernel launches {n_launch} != {w_det}")
@@ -1096,7 +1095,7 @@ def phase_state_tools(cfg, dev, grays, depths, gt, dense_state, dense_poses,
     from putslam_tpu_torch.utils.checkpoint import _leaves
 
     n, k = grays.shape[0], CHECKPOINT_FRAME
-    counter = fast_cuda.fast_score_nms
+    counter = fast_cuda._LIB
 
     # ---- checkpoint and resume. The RANSAC draws come from a
     # torch.Generator that lives outside the state: its get_state() is
@@ -1109,7 +1108,7 @@ def phase_state_tools(cfg, dev, grays, depths, gt, dense_state, dense_poses,
                               device=dev), gen
 
     torch.cuda.synchronize()
-    counter.launches = 0
+    counter.reset_launch_count()
     state, gen = start()
     state, _ = slam.slam_sequence(cfg, state, grays[1:k + 1], depths[1:k + 1],
                                   generator=gen)
@@ -1120,7 +1119,7 @@ def phase_state_tools(cfg, dev, grays, depths, gt, dense_state, dense_poses,
     gen_state = gen.get_state()
     full_state, full_outs = slam.slam_sequence(
         cfg, state, grays[k + 1:], depths[k + 1:], generator=gen)
-    n_ckpt = counter.launches
+    n_ckpt = counter.launch_count()
     check(n_ckpt == n, f"checkpointed run: kernel launches {n_ckpt} != {n}")
     fresh, gen2 = start()
     t0 = time.perf_counter()
@@ -1400,7 +1399,7 @@ def phase_distributed(cfg, dev, dense_state, window_fixed, root, h_gt, work):
         __file__)), "tools"))
     import multihost_dryrun_torch as dryrun
 
-    counter = fast_cuda.fast_score_nms
+    counter = fast_cuda._LIB
     t_phase = time.perf_counter()
     played = list(tum.TumDataset(root, depth_scale=cfg.camera.depth_image_scale))
     h_grays = torch.as_tensor(np.stack([f.gray for f in played]), device=dev)
@@ -1611,14 +1610,14 @@ def phase_bench(dev, work, ref_s):
     from putslam_tpu_torch.ops import fast_cuda
 
     torch.cuda.synchronize()
-    fast_cuda.fast_score_nms.launches = 0
+    fast_cuda._LIB.reset_launch_count()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         bench_torch.main(reps=1, trials=1, device=dev,
                          detail_path=os.path.join(work, "bench_detail.json"))
     wall = time.perf_counter() - t0
-    launches = fast_cuda.fast_score_nms.launches
+    launches = fast_cuda._LIB.launch_count()
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     check(set(line) == {"metric", "value", "unit", "vs_baseline"},
           f"bench line keys {sorted(line)}")
@@ -1653,14 +1652,14 @@ def phase_profile_vo(work):
     tool = tools_module("profile_vo_torch")
     out = os.path.join(work, "profile_vo.json")
     torch.cuda.synchronize()
-    fast_cuda.fast_score_nms.launches = 0
+    fast_cuda._LIB.reset_launch_count()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = tool.main(["--frames", str(N_FRAMES), "--device", "cuda",
                         "--runs", str(PROFILE_VO_RUNS), "--json-out", out])
     wall = time.perf_counter() - t0
-    launches = fast_cuda.fast_score_nms.launches
+    launches = fast_cuda._LIB.launch_count()
     check(rc == 0, f"profile_vo_torch returned {rc}")
     with open(out) as f:
         stages = json.load(f)["stages"]
@@ -1722,9 +1721,9 @@ def phase_planes(cfg, dev, work):
     check(rc == 0, f"make_disk_dataset_torch --renderer planes returned {rc}")
     extras = {}
     torch.cuda.synchronize()
-    fast_cuda.fast_score_nms.launches = 0
+    fast_cuda._LIB.reset_launch_count()
     report = run_cli(run_mod, ["--dataset", root], FIVE_FILES, extras)
-    launches = fast_cuda.fast_score_nms.launches
+    launches = fast_cuda._LIB.launch_count()
     n_det = frames_processed(N_FRAMES, 64)
     check(launches == n_det, f"planes run launches {launches} != {n_det}")
     ate = report["ate_rmse_m"]
@@ -1758,9 +1757,9 @@ def phase_acceptance(dev, root, h_gt):
     tool = tools_module("run_acceptance_torch")
     rev = tools_module("run_reference_eval")
     torch.cuda.synchronize()
-    fast_cuda.fast_score_nms.launches = 0
+    fast_cuda._LIB.reset_launch_count()
     r = tool.run_engine(root, device=dev)
-    launches = fast_cuda.fast_score_nms.launches
+    launches = fast_cuda._LIB.launch_count()
     n = FILE_FRAMES
     n_det = frames_processed(n, 64)
     check(r["frames"] == n and launches == n_det,
@@ -2084,34 +2083,24 @@ def bench_ransac_calls(cfg, grays, depths, gt, dev):
 
 
 def phase_kabsch_fit(cfg, calls, dev):
-    """Phase 5d, RANSAC's fit (``csrc/kabsch_fit.cu``): ``calls``, the VO's
-    and the map pass's recorded RANSAC calls (``bench_ransac_calls``). On
-    their real matches, and on degenerate sets made from them, the kernel
-    against its plain version on the card, bit for bit, and twice the
-    same. Then at the main path's shapes (the sampled fit of 1024
-    hypotheses, the refit at the VO's and at the map's N) the kernel's time
-    (CUDA events behind a spin kernel, twice; its own duration in
-    torch.profiler), the plain version's, and the bound from these inputs'
-    bytes (each input read once, the poses written once) and the plain
-    version's float operations. The main path launches the refits; its
-    sampled fit is phase 5e's kernel; ``kabsch_soa``'s kernel, which the
-    package no longer calls, is held here until it is removed. Returns (max_abs_err, rows by shape)."""
-    from putslam_tpu_torch.frontend import ransac
+    """Phase 5d, RANSAC's refit (``csrc/kabsch_fit.cu``): ``calls``, the
+    VO's and the map pass's recorded RANSAC calls (``bench_ransac_calls``).
+    On their real matches, and on degenerate sets made from them, the
+    kernel against its plain version on the card, bit for bit, and twice
+    the same. Then at the main path's shapes (the refit at the VO's and at
+    the map's N) the kernel's time (CUDA events behind a spin kernel,
+    twice; its own duration in torch.profiler), the plain version's, and
+    the bound from these inputs' bytes (each input read once, the poses
+    written once) and the plain version's float operations. The sampled
+    fit is phase 5e's kernel. Returns (max_abs_err, rows by shape)."""
     from putslam_tpu_torch.ops import kabsch
 
     vo, mp = calls
 
-    def comps(r, valid=None, p=None, q=None):
-        idx = ransac.sample_indices(r["cfg"], r["valid"] if valid is None
-                                    else valid, r["u"])
-        p, q = (r["p"] if p is None else p), (r["q"] if q is None else q)
-        return ("sampled", [x[:, c][idx].contiguous() for x in (p, q)
-                            for c in range(3)])
-
     def refit(r, w=None, p=None, q=None):
         w = r["inliers"].float() if w is None else w
-        return ("refit", ((r["p"] if p is None else p).contiguous(),
-                          (r["q"] if q is None else q).contiguous(), w))
+        return ((r["p"] if p is None else p).contiguous(),
+                (r["q"] if q is None else q).contiguous(), w)
 
     # degenerate sets made from the VO's matches
     on = torch.nonzero(vo["valid"]).flatten()
@@ -2125,50 +2114,37 @@ def phase_kabsch_fit(cfg, calls, dev):
     s = torch.linspace(-1.0, 1.0, nv, device=dev)[:, None]
     line_p = vo["p"][on[0]] + s * torch.tensor([0.6, -0.3, 0.2], device=dev)
     line_q = line_p + torch.tensor([0.05, 0.0, -0.02], device=dev)
-    two_valid = torch.zeros_like(vo["valid"])
-    two_valid[on[:2]] = True
     main = {
-        f"sampled fit, VO (H {cfg.ransac.n_hypotheses})": comps(vo),
         f"refit, VO (N {nv})": refit(vo),
         f"refit, map pass (N {mp['p'].shape[0]})": refit(mp)}
     cases = dict(main, **{
-        "sampled fit, map pass": comps(mp),
-        "sampled fit, three equal points": ("sampled", [
-            c[:1].expand_as(c).contiguous() for c in comps(vo)[1]]),
-        "sampled fit, fewer than 3 valid matches": comps(vo, two_valid),
-        "sampled fit, collinear points": comps(vo, p=line_p, q=line_q),
         "refit, all-zero weights": refit(vo, torch.zeros(nv, device=dev)),
         "refit, fewer than 3 valid matches": refit(vo, two),
         "refit, three equal points": refit(vo, three, eq_p, eq_q),
         "refit, collinear points": refit(vo, p=line_p, q=line_q)})
 
-    def kernel_of(kind, args):
-        if kind == "sampled":
-            return lambda: kabsch.kabsch_soa(*args)
-        return lambda: kabsch.weighted_kabsch(*args)
-
-    def plain_of(kind, args):
-        if kind == "sampled":
-            return lambda: kabsch.plain_kabsch_soa(*args)
-        return lambda: kabsch.plain_weighted_kabsch(*args)
-
     max_err = 0.0
-    for tag, (kind, args) in cases.items():
-        got, again = kernel_of(kind, args)(), kernel_of(kind, args)()
-        ref = plain_of(kind, args)()
+    for tag, args in cases.items():
+        got, again = kabsch.weighted_kabsch(*args), kabsch.weighted_kabsch(*args)
+        ref = kabsch.plain_weighted_kabsch(*args)
         torch.cuda.synchronize()
         check(torch.equal(got, ref), f"[5d] {tag}: the kernel differs from "
               f"its plain version by {float((got - ref).abs().max()):.3e}")
         check(torch.equal(got, again), f"[5d] {tag}: two launches differ")
         check(bool(torch.isfinite(got).all()), f"[5d] {tag}: not finite")
         max_err = max(max_err, float((got - ref).abs().max()))
-    print(f"[5d] RANSAC's fit, kernel against its plain version on the card: "
-          f"bit-equal and twice the same on {len(cases)} inputs ("
+    print(f"[5d] RANSAC's refit, kernel against its plain version on the "
+          f"card: bit-equal and twice the same on {len(cases)} inputs ("
           f"{'; '.join(cases)})", flush=True)
 
     rows = {}
-    for tag, (kind, args) in main.items():
-        kern, plain = kernel_of(kind, args), plain_of(kind, args)
+    for tag, args in main.items():
+        def kern():
+            return kabsch.weighted_kabsch(*args)
+
+        def plain():
+            return kabsch.plain_weighted_kabsch(*args)
+
         out = kern()
         nbytes = 4 * (sum(a.numel() for a in args) + out.numel())
         ops = plain_ops(plain)
@@ -2379,7 +2355,8 @@ def phase_keypoints(cfg, grays, depths, dev):
     read once and the outputs and patch matrix written once, and at most
     every window's pixels read besides. Returns (max_abs_err, row)."""
     from putslam_tpu_torch.frontend import detector
-    from putslam_tpu_torch.ops import cuda_lib, fast_cuda, keypoints
+    from putslam_tpu_torch.ops import fast_cuda, keypoints
+    from putslam_tpu_torch.utils import cuda_lib
 
     det = cfg.detector
     shapes = detector._pyramid_shapes(cfg)
@@ -2538,7 +2515,8 @@ def phase_guided(cfg, grays, depths, gt, dev):
     Returns (max_abs_err, row)."""
     from putslam_tpu_torch.frontend import detector
     from putslam_tpu_torch.models import compiled, slam
-    from putslam_tpu_torch.ops import cuda_lib, guided_match
+    from putslam_tpu_torch.ops import guided_match
+    from putslam_tpu_torch.utils import cuda_lib
     from putslam_tpu_torch.slam_map import features_map as fm
 
     mc = cfg.matcher
@@ -2768,13 +2746,13 @@ def phase_compiled(cells, dev):
             first_s = time.perf_counter() - t0
             capture_s = timing.span_total_s("capture") - capture_s
             nodes = graph_cond.launches - nodes
-            segment.reset_launch_count()
-            kabsch.reset_launch_count()
-            ransac_score.reset_launch_count()
-            (st, outs), dt, n_launch = timed(run, fast_cuda.fast_score_nms)
-            n_seg = segment.launch_count()
-            n_fit = kabsch.launch_count()
-            n_rs = ransac_score.launch_counts()
+            segment._LIB.reset_launch_count()
+            kabsch._LIB.reset_launch_count()
+            ransac_score._LIB.reset_launch_count()
+            (st, outs), dt, n_launch = timed(run, fast_cuda._LIB)
+            n_seg = segment._LIB.launch_count()
+            n_fit = kabsch._LIB.launch_count()
+            n_rs = ransac_counts()
             (_, outs2), n_sync = count_syncs(run)
             kernels, dev_ms = device_kernels(lambda: run(COMPILED_PROFILED))
             poses = np.concatenate([truth[:1], outs.pose.cpu().numpy()])
@@ -2877,7 +2855,7 @@ def phase_compiled(cells, dev):
         return slam.slam_sequence(c, state0, g[1:k + 1], d[1:k + 1],
                                   generator=torch.Generator(device=dev))
     run()
-    _, dt, _ = timed(run, fast_cuda.fast_score_nms)
+    _, dt, _ = timed(run, fast_cuda._LIB)
     kernels, dev_ms = device_kernels(lambda: run(COMPILED_PROFILED))
     n, k = g.shape[0] - 1, COMPILED_PROFILED
     print(f"[7b] bench without the retry ladder (matcher.retries 0), graph: "
@@ -2964,9 +2942,9 @@ def phase_compiled_end(cells, dev):
             fin, first_ms = wall(call)
             capture_s = timing.span_total_s("capture") - capture_s
             nodes = graph_cond.launches - nodes
-            segment.reset_launch_count()
+            segment._LIB.reset_launch_count()
             _, warm_ms = wall(call)
-            n_seg = segment.launch_count()
+            n_seg = segment._LIB.launch_count()
             _, n_sync = count_syncs(call)
             kernels, dev_ms = device_kernels(call)
             if graph:
@@ -3094,7 +3072,7 @@ def main() -> int:
     from putslam_tpu_torch.ops import (fast, fast_cuda, guided_match, kabsch,
                                        keypoints, ransac_score, segment)
     from putslam_tpu_torch import run as run_mod
-    from putslam_tpu_torch.utils import control, graph_cond, timing
+    from putslam_tpu_torch.utils import control, cuda_lib, graph_cond, timing
 
     dev = torch.device("cuda:0")
     name = torch.cuda.get_device_name(0)
@@ -3102,38 +3080,15 @@ def main() -> int:
     print(f"[1] device: {name} | nvidia-smi: {smi} | torch {torch.__version__}"
           f" cuda {torch.version.cuda}", flush=True)
 
-    # ---- 2. build: the library and its variants, all nvcc runs at once -----
+    # ---- 2. build: every library of csrc/, all nvcc runs at once ----------
     t0 = time.perf_counter()
+    libs = cuda_lib.registered() + [graph_cond._LIB, timing._LIB]
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
-        builds = [pool.submit(fast_cuda.build, d)
-                  for d in [(), *VARIANTS.values()]]
-        cond_build = pool.submit(graph_cond.build)
-        seg_build = pool.submit(segment.build)
-        fit_build = pool.submit(kabsch.build)
-        score_build = pool.submit(ransac_score.build)
-        kp_build = pool.submit(keypoints.build)
-        gm_build = pool.submit(guided_match.build)
-        lib = builds[0].result()
-        for b in builds[1:]:
-            b.result()
-        cond_lib = cond_build.result()
-        seg_lib = seg_build.result()
-        fit_lib = fit_build.result()
-        score_lib = score_build.result()
-        kp_lib = kp_build.result()
-        gm_lib = gm_build.result()
-    print(f"[2] built {os.path.relpath(lib)} and {len(VARIANTS)} variants, "
-          f"the segment-sum kernel {os.path.relpath(seg_lib)}, RANSAC's fit "
-          f"{os.path.relpath(fit_lib)}, RANSAC's hypotheses and scores "
-          f"{os.path.relpath(score_lib)}, the keypoint chain "
-          f"{os.path.relpath(kp_lib)}, guided map matching "
-          f"{os.path.relpath(gm_lib)} and the conditional-node plumbing "
-          f"{os.path.relpath(cond_lib)}, in "
+        built = list(pool.map(lambda lib: lib.build(), libs))
+    print(f"[2] built {', '.join(os.path.relpath(b) for b in built)} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for log in (fast_cuda.build_log(), segment.build_log(),
-                kabsch.build_log(), ransac_score.build_log(),
-                keypoints.build_log(), guided_match.build_log()):
-        for line in log.splitlines():
+    for lib in cuda_lib.registered():
+        for line in lib.build_log().splitlines():
             if "Compiling entry" in line or "Used" in line or "spill" in line:
                 print(f"[2] {line.strip()}", flush=True)
 
@@ -3177,11 +3132,7 @@ def main() -> int:
              f"one launch, {tag}")
         same([fast_cuda.fast_score_nms(x, thr, rad) for x in lv], ref,
              f"level by level, {tag}")
-        for vname, defines in VARIANTS.items():
-            same(fast_cuda.launch_levels(lv, thr, rad, defines), ref,
-                 f"variant {vname}, {tag}")
-        print(f"[3] {tag}: one launch, level by level and {len(VARIANTS)} "
-              f"variants bit-exact at "
+        print(f"[3] {tag}: one launch and level by level bit-exact at "
               f"{' '.join(f'{h}x{w}' for h, w in shapes)} "
               f"({sum(int((m > 0).sum()) for _, m in ref)} maxima)",
               flush=True)
@@ -3244,17 +3195,8 @@ def main() -> int:
           f"{us(us_new)}; 480x640 alone {us(us_lvl0)}", flush=True)
     ms_noise = median_ms(lambda: fast_cuda.fast_score_nms_levels(
         noise_lv, thr, rad), runs=30)
-    print(f"[3] default build: frame {median_ms(new_frame, runs=30):.5f} ms, "
-          f"uniform noise {ms_noise:.5f} ms", flush=True)
-    for vname, defines in VARIANTS.items():
-        tf = median_ms(lambda: fast_cuda.launch_levels(
-            frame_lv, thr, rad, defines), runs=30)
-        tn = median_ms(lambda: fast_cuda.launch_levels(
-            noise_lv, thr, rad, defines), runs=30)
-        tp = profiler_us(lambda: fast_cuda.launch_levels(
-            frame_lv, thr, rad, defines), "fast_score_nms_kernel")
-        print(f"[3] variant {vname}: frame {tf:.5f} ms, uniform noise "
-              f"{tn:.5f} ms; own duration on the frame {us(tp)}", flush=True)
+    print(f"[3] frame {median_ms(new_frame, runs=30):.5f} ms, uniform "
+          f"noise {ms_noise:.5f} ms", flush=True)
 
     # ---- 4. detect_and_describe: card vs CPU -------------------------------
     f_gpu = detector.detect_and_describe(cfg, gray0, depth0)
@@ -3288,30 +3230,30 @@ def main() -> int:
     gt = poses.cpu().numpy()
     slam.run_slam_final(cfg, grays, depths, init_pose=gt[0], device=dev)
     torch.cuda.synchronize()
-    fast_cuda.fast_score_nms.launches = 0
-    segment.reset_launch_count()
-    kabsch.reset_launch_count()
-    ransac_score.reset_launch_count()
-    keypoints.reset_launch_count()
-    guided_match.reset_launch_count()
+    fast_cuda._LIB.reset_launch_count()
+    segment._LIB.reset_launch_count()
+    kabsch._LIB.reset_launch_count()
+    ransac_score._LIB.reset_launch_count()
+    keypoints._LIB.reset_launch_count()
+    guided_match._LIB.reset_launch_count()
     first_replay = timing.recorder().n_replays
     t0 = time.perf_counter()
     pb, pa, outs, state = slam.run_slam_final(cfg, grays, depths,
                                               init_pose=gt[0], device=dev)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = fast_cuda.fast_score_nms.launches
-    kp_launches = keypoints.launch_count()
-    gm_launches = guided_match.launch_count()
+    launches = fast_cuda._LIB.launch_count()
+    kp_launches = keypoints._LIB.launch_count()
+    gm_launches = guided_match._LIB.launch_count()
     snap = timing.snapshot()
     rows = (snap["valid"] & (snap["replay"] >= first_replay)
             & (snap["root"] == timing.STAGES.index("frame")))
     gm_stages = int(snap["count"][rows, timing.STAGES.index("guided")].sum())
     gm_rungs = int(snap["count"][rows,
                                  timing.STAGES.index("map_retry")].sum())
-    seg_launches = segment.launch_count()
-    fit_launches = kabsch.launch_count()
-    score_launches = ransac_score.launch_counts()
+    seg_launches = segment._LIB.launch_count()
+    fit_launches = kabsch._LIB.launch_count()
+    score_launches = ransac_counts()
     check(launches == N_FRAMES,
           f"kernel launches {launches} != {N_FRAMES} (one per frame)")
     check(kp_launches == N_FRAMES, f"keypoint-chain calls {kp_launches} "
@@ -3360,15 +3302,15 @@ def main() -> int:
     # fr1 capacities
     kf_cfg = cfg.replace(map=dataclasses.replace(cfg.map,
                                                  min_keyframe_matches=10_000))
-    fast_cuda.fast_score_nms.launches = 0
-    segment.reset_launch_count()
+    fast_cuda._LIB.reset_launch_count()
+    segment._LIB.reset_launch_count()
     t0 = time.perf_counter()
     pb2, pa2, outs2, state2 = slam.run_slam_final(kf_cfg, grays, depths,
                                                   init_pose=gt[0], device=dev)
     torch.cuda.synchronize()
     dt2 = time.perf_counter() - t0
-    seg_launches2 = segment.launch_count()
-    check(fast_cuda.fast_score_nms.launches == launches,
+    seg_launches2 = segment._LIB.launch_count()
+    check(fast_cuda._LIB.launch_count() == launches,
           "keyframe-dense run: wrong kernel launch count")
     n_ba = int(outs2.ba_ran.sum())
     check(n_ba >= 2, f"keyframe-dense run ran {n_ba} BA calls")
@@ -3411,8 +3353,7 @@ def main() -> int:
     fit_err, fit_rows = phase_kabsch_fit(cfg, ransac_calls, dev)
     # the four fits of a good bench frame: the VO's refit and the map's,
     # two iterations each (its sampled fits are 5e's kernel)
-    fit_frame = {k: 2 * sum(r[k] for tag, r in fit_rows.items()
-                            if tag.startswith("refit"))
+    fit_frame = {k: 2 * sum(r[k] for r in fit_rows.values())
                  for k in ("ms", "plain_ms", "bound_ms", "bytes_ms",
                            "ops_ms")}
     print(f"[5d] the four refits of a good bench frame: kernel "
@@ -3460,7 +3401,7 @@ def main() -> int:
           flush=True)
 
     # ---- 7. loop closure on a leave-and-return trajectory ------------------
-    counter = fast_cuda.fast_score_nms
+    counter = fast_cuda._LIB
     poses_r = synthetic.revisit_trajectory(LC_FRAMES, sweep=1.2, device=dev)
     grays_r, depths_r = synthetic.render_sequence(cfg.camera, poses_r)
     gt_r = poses_r.cpu().numpy()
@@ -3480,10 +3421,10 @@ def main() -> int:
             return slam.run_slam_final(lc_cfg, grays_r, depths_r,
                                        init_pose=gt_r[0], device=dev)
         (pb_r, pa_r, outs_r, st_r), dt_r, n_launch = timed(lc_run, counter)
-        segment.reset_launch_count()
+        segment._LIB.reset_launch_count()
         # the same run again (its graphs are captured): the same bits
         pb_r2, pa_r2 = lc_run()[:2]
-        n_seg = segment.launch_count()
+        n_seg = segment._LIB.launch_count()
         check(n_launch == LC_FRAMES,
               f"LC {enabled}: kernel launches {n_launch}")
         check(np.array_equal(pa_r, pa_r2) and np.array_equal(pb_r, pb_r2),
@@ -3610,20 +3551,20 @@ def main() -> int:
           f" ATE {ate4:.5f} m", flush=True)
     # ---- 10b. the tracking VO from its graph against the eager chain -------
     # phase 10's run captured the graph; this one replays it
-    kabsch.reset_launch_count()
-    ransac_score.reset_launch_count()
+    kabsch._LIB.reset_launch_count()
+    ransac_score._LIB.reset_launch_count()
     _, dt4g, n4g = timed(
         lambda: vo.run_vo(klt_cfg, grays, depths, init_pose=gt[0],
                           device=dev), counter)
-    fit4g = kabsch.launch_count()
-    rs4g = ransac_score.launch_counts()
-    kabsch.reset_launch_count()
-    ransac_score.reset_launch_count()
+    fit4g = kabsch._LIB.launch_count()
+    rs4g = ransac_counts()
+    kabsch._LIB.reset_launch_count()
+    ransac_score._LIB.reset_launch_count()
     (est4e, stats4e), dt4e, n4e = timed(
         lambda: vo.run_vo(klt_cfg, grays, depths, init_pose=gt[0],
                           device=dev, graph=False), counter)
-    fit4e = kabsch.launch_count()
-    rs4e = ransac_score.launch_counts()
+    fit4e = kabsch._LIB.launch_count()
+    rs4e = ransac_counts()
     check(n4g == N_FRAMES and n4e == N_FRAMES,
           f"tracking VO launches {n4g} (graph), {n4e} (eager)")
     # one RANSAC call a step: one hypotheses launch, two refits and their

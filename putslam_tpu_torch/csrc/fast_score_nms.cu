@@ -21,12 +21,11 @@
 //    level; a by-value parameter struct (<= 8 levels) maps a block to its
 //    level, so nothing is allocated or copied for it. The small levels fill
 //    the tail of the large one.
-//  - FAST_TILE_W x FAST_TILE_H output tiles, FAST_THREADS threads a block
-//    (32 x 24, 128 by default): at r = 3 a block evaluates FAST on 38 x 30
-//    pixels for 768 outputs (1.48x; a 64 x 32 tile: 1.30x, but its 302
-//    blocks balance worse over 132 SMs than these 789 and it measured
-//    slower). Loop divisors are compile-time constants on the r = 3
-//    instantiation; the generic one takes any r in [0, 16].
+//  - 32 x 24 output tiles, 128 threads a block: at r = 3 a block evaluates
+//    FAST on 38 x 30 pixels for 768 outputs (1.48x; a 64 x 32 tile: 1.30x,
+//    but its 302 blocks balance worse over 132 SMs than these 789 and it
+//    measured slower). Loop divisors are compile-time constants on the
+//    r = 3 instantiation; the generic one takes any r in [0, 16].
 //  - The gray window is staged in 16-, 8- or 4-byte pieces, chosen per level
 //    from the row pitch and the pointers' alignment (640 and 320 columns take
 //    16 bytes, 226 takes 8, 453 takes 4; never a misaligned vector access).
@@ -51,35 +50,26 @@
 // round-to-nearest intrinsics, so nvcc cannot contract or reorder them (the
 // library is also built with -fmad=false); a maximum is exact in any order.
 //
-// The tile macros below are build-time variants for measurement
-// (chip_smoke.py times them in one call); their defaults are what the main
-// path runs.
+// One thread of block 0 adds one to the launch counter on the card
+// (launch_counter.cuh).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
-#ifndef FAST_TILE_W
-#define FAST_TILE_W 32
-#endif
-#ifndef FAST_TILE_H
-#define FAST_TILE_H 24
-#endif
-#ifndef FAST_THREADS
-#define FAST_THREADS 128
-#endif
-
-static_assert(FAST_TILE_W % 4 == 0 && FAST_TILE_W >= 16, "tile width");
-static_assert(FAST_TILE_H >= 4, "tile height");
-static_assert(FAST_THREADS % 32 == 0 && FAST_THREADS <= 1024, "block size");
+#include "launch_counter.cuh"
 
 namespace {
 
 constexpr int kCircle = 3;        // Bresenham circle radius of FAST
-constexpr int kThreads = FAST_THREADS;
+constexpr int kThreads = 128;
 constexpr int kMaxLevels = 8;
 constexpr int kMaxRadius = 16;
-constexpr int TW = FAST_TILE_W;
-constexpr int TH = FAST_TILE_H;
+constexpr int TW = 32;            // output tile
+constexpr int TH = 24;
+
+static_assert(TW % 4 == 0 && TW >= 16, "tile width");
+static_assert(TH >= 4, "tile height");
+static_assert(kThreads % 32 == 0 && kThreads <= 1024, "block size");
 
 // The 16 circle pixels F(k, dx, dy), clockwise from 12 o'clock: the order of
 // putslam_tpu_torch/ops/fast.py FAST_OFFSETS; k is the bit of each test.
@@ -104,6 +94,7 @@ struct Params {
   int n_levels;
   int r;
   float t;
+  unsigned long long* counter;
 };
 
 // some cyclic run of 9 consecutive set bits among the low 16
@@ -222,6 +213,7 @@ fast_score_nms_kernel(const Params p) {
   const int ty0 = tile_y * TH;
   const int H = lv.H, W = lv.W;
   const int tid = threadIdx.x;
+  if (bid == 0 && tid == 0) atomicAdd(p.counter, 1ULL);
 
   // 1. gray window, x255, zero outside the image
   if (lv.vec == 4)
@@ -319,21 +311,36 @@ size_t smem_bytes(int r) {
 
 }  // namespace
 
-extern "C" int fast_score_nms_tile_w() { return TW; }
-extern "C" int fast_score_nms_tile_h() { return TH; }
+extern "C" {
+
+int fast_score_nms_tile_w() { return TW; }
+int fast_score_nms_tile_h() { return TH; }
+
+// Loads the kernels and finds the counters on the current device (lazy
+// module loading would load them at their first launch, which may lie
+// inside a capture, where loading is not permitted).
+int fast_score_nms_load() {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fast_score_nms_kernel<3>);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncGetAttributes(&attr, fast_score_nms_kernel<-1>);
+  if (err != cudaSuccess) return err;
+  return find_launch_counters();
+}
 
 // One launch over the tiles of n_levels images. The arrays are host arrays of
 // n_levels entries; tiles_x / first_tile / total_tiles lay the tiles of all
 // levels out on one flat grid (level 0 first), vec is 4, 2 or 1 floats per
 // access as the level's pitch and pointers allow. Returns the CUDA error.
-extern "C" int fast_score_nms_levels_launch(
+int fast_score_nms_levels_launch(
     int n_levels, const void* const* gray, void* const* raw, void* const* nms,
     const int* H, const int* W, const int* tiles_x, const int* first_tile,
     const int* vec, int total_tiles, float threshold, int nms_radius,
-    void* stream) {
+    int counted, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || nms_radius < 0 ||
       nms_radius > kMaxRadius || total_tiles < 1)
     return (int)cudaErrorInvalidValue;
+  if (!launch_counters_found()) return (int)cudaErrorInitializationError;
   Params p;
   for (int i = 0; i < kMaxLevels; ++i) {
     const int j = i < n_levels ? i : 0;
@@ -349,11 +356,12 @@ extern "C" int fast_score_nms_levels_launch(
   p.n_levels = n_levels;
   p.r = nms_radius;
   p.t = threshold;
+  p.counter = launch_counter(counted);
   const size_t smem = smem_bytes(nms_radius);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (nms_radius == 3) {
-    static_assert(sizeof(float) * ((FAST_TILE_H + 12) * (FAST_TILE_W + 16) +
-                                   (FAST_TILE_H + 6) * (FAST_TILE_W + 6)) <=
+    static_assert(sizeof(float) * ((TH + 12) * (TW + 16) +
+                                   (TH + 6) * (TW + 6)) <=
                       48 * 1024,
                   "the r = 3 tile must fit the default shared memory");
     fast_score_nms_kernel<3><<<total_tiles, kThreads, smem, st>>>(p);
@@ -368,3 +376,7 @@ extern "C" int fast_score_nms_levels_launch(
   }
   return (int)cudaGetLastError();
 }
+
+}  // extern "C"
+
+LAUNCH_COUNTER_ENTRY_POINTS(fast_score_nms)

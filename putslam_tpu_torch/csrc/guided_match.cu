@@ -49,14 +49,16 @@
 // the map's): their dot is an exact integer either way, so 0.5·(256 − dot)
 // is the chain's number.
 //
-// The launch adds one to a counter on the card (with counted == 0, the
-// warm-up before a capture, a second counter that nothing reads).
+// The launch adds one to the launch counter on the card
+// (launch_counter.cuh).
 //
 // Plain C entry points, bound with ctypes; each returns a cudaError_t.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "launch_counter.cuh"
 
 namespace {
 
@@ -93,9 +95,6 @@ struct Params {
   int* n_candidates;           // () out, zeroed by the caller
   unsigned long long* counter;
 };
-
-__device__ unsigned long long launches_counted;
-__device__ unsigned long long launches_uncounted;
 
 // The square of the distance as the card's vector_norm sums it, then the
 // correctly rounded root.
@@ -330,7 +329,6 @@ __global__ void norm3_kernel(const float* xyz, float* out, long long n) {
     out[i] = norm3(xyz[3 * i], xyz[3 * i + 1], xyz[3 * i + 2]);
 }
 
-unsigned long long* counters[2] = {nullptr, nullptr};
 int n_sms = 0;
 
 size_t shared_bytes(int n) { return (size_t)kFeatureBytes * n; }
@@ -360,9 +358,7 @@ int guided_match_load() {
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  err = cudaGetSymbolAddress((void**)&counters[0], launches_uncounted);
-  if (err != cudaSuccess) return err;
-  return cudaGetSymbolAddress((void**)&counters[1], launches_counted);
+  return find_launch_counters();
 }
 
 // lm_cam (L, 3) float32, lm_desc (L, D, 256) int8, lm_slot_used (L, D),
@@ -383,13 +379,14 @@ int guided_match_launch(const float* lm_cam, const int8_t* lm_desc,
                         cudaStream_t stream) {
   if (L < 1 || D < 1 || D > kMaxViews || N < 1 || N > kMaxFeatures)
     return cudaErrorInvalidValue;
-  if (counters[0] == nullptr || n_sms < 1) return cudaErrorInitializationError;
+  if (!launch_counters_found() || n_sms < 1)
+    return cudaErrorInitializationError;
   const Params p{lm_cam,   lm_desc,   lm_slot_used, lm_valid,
                  lm_octave, xyz,      has_depth,    octave,
                  desc,     L,         D,            N,
                  radius,   octave_window, max_dist, ratio,
                  accept_ratio, feat_idx, dist,      valid,
-                 n_candidates, counters[counted ? 1 : 0]};
+                 n_candidates, launch_counter(counted)};
   int blocks = (L + kWarps - 1) / kWarps;
   if (blocks > n_sms) blocks = n_sms;
   if (D <= 4)
@@ -413,18 +410,6 @@ int guided_match_warps() { return kWarps; }
 int guided_match_max_features() { return kMaxFeatures; }
 int guided_match_max_views() { return kMaxViews; }
 
-// The counted calls since the last reset (synchronises the device).
-int guided_match_read_launches(unsigned long long* value) {
-  return cudaMemcpyFromSymbol(value, launches_counted, sizeof(*value));
-}
-
-int guided_match_reset_launches() {
-  const unsigned long long zero = 0;
-  return cudaMemcpyToSymbol(launches_counted, &zero, sizeof(zero));
-}
-
-const char* guided_match_error(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
 }  // extern "C"
+
+LAUNCH_COUNTER_ENTRY_POINTS(guided_match)

@@ -1,6 +1,7 @@
-// RANSAC's rigid fit for Hopper (sm_90a): the closed-form Horn / Kabsch
-// solve of putslam_tpu_torch/ops/kabsch.py in ONE launch a call, from the
-// point sets to the (..., 7) poses [tx, ty, tz, qw, qx, qy, qz].
+// RANSAC's weighted refit for Hopper (sm_90a): the closed-form Horn /
+// Kabsch solve of putslam_tpu_torch/ops/kabsch.py::weighted_kabsch in ONE
+// launch a call, from the point sets to the (..., 7) poses [tx, ty, tz, qw,
+// qx, qy, qz].
 //
 // Not a port of a TPU kernel: there is no Pallas kernel here. The JAX
 // package writes the solve structure-of-arrays (putslam_tpu/ops/kabsch.py:
@@ -9,87 +10,56 @@
 // PyTorch it was ~500 elementwise launches a solve (5 symmetric squarings
 // of 10 entries, the set-up and the tail), 3 solves a RANSAC call, ~3,000
 // launches of a replayed SLAM frame: this kernel is the counterpart of
-// that fusion.
+// that fusion for the refit; the sampled fit of the hypotheses runs inside
+// csrc/ransac_score.cu (horn_fit.cuh::sampled_fit), on samples that kernel
+// gathers itself.
 //
-// Two modes:
-// * the sampled fit (kabsch_soa): the components px ... qz, each (n, H),
-//   n points of H hypotheses; one thread a hypothesis, the means, the nine
-//   cross-covariance sums, Horn's squarings and the tail in registers.
-//   RANSAC's main path no longer launches it: csrc/ransac_score.cu runs
-//   the same fit (horn_fit.cuh::sampled_fit) on samples it gathers itself
-//   and scores each hypothesis in the same launch.
-// * the weighted refit (weighted_kabsch): p, q (B, N, 3), w (B, N); one
-//   block of nine warps a batch row (staged in shared memory up to kStaged
-//   points), a warp a sum, in three passes: sum(w) (warp 0); the six
-//   weighted means (warps 0-5); the nine sums of S = sum wn (p - p_bar)
-//   (q - q_bar)^T (warps 0-8). A warp runs its sum's independent chains
-//   of ATen's order on its lanes (warp_row_sum, warp_inner_sum). Then
-//   thread 0 runs Horn and the tail.
+// p, q (B, N, 3), w (B, N): one block of nine warps a batch row (staged in
+// shared memory up to kStaged points), a warp a sum, in three passes:
+// sum(w) (warp 0); the six weighted means (warps 0-5); the nine sums of
+// S = sum wn (p - p_bar) (q - q_bar)^T (warps 0-8). A warp runs its sum's
+// independent chains of ATen's order on its lanes (warp_row_sum,
+// warp_inner_sum). Then thread 0 runs Horn and the tail.
 //
 // The arithmetic (Horn, the sums, the helpers) is in horn_fit.cuh. Bit for
-// bit equal to the plain version (ops/kabsch.py: plain_kabsch_soa,
-// plain_weighted_kabsch), which writes out the arithmetic the port did on
-// the CPU before this kernel: the refit's sums in the order of ATen's CPU
-// float sums (row_sum: four accumulators over rows of four elements
-// through a cascade of partial sums; inner_sum: vectors of kLanes through
-// row_sum, then the leftover elements and the lanes in turn), the sampled
-// fit's over its few points in turn from +0.0f, a mean as the sum divided
-// by n, every norm as the squares added in turn and a correctly rounded
-// square root, the cross products as the CPU's FMA (fma_cpu: the exact
-// product in double, the sum, then float). Every other operation is a
-// round-to-nearest intrinsic in the plain version's order, compiled with
-// -fmad=false, so no multiply and add are contracted into an FMA. The
-// plain version's scalar constants are Python floats that PyTorch casts to
-// float, as the (float) casts of double literals in horn_fit.cuh do; its
-// torch.maximum and clamp propagate a NaN, as maximum and clamp_min do.
+// bit equal to the plain version (ops/kabsch.py::plain_weighted_kabsch),
+// which writes out the arithmetic the port did on the CPU before this
+// kernel: the sums in the order of ATen's CPU float sums (row_sum: four
+// accumulators over rows of four elements through a cascade of partial
+// sums; inner_sum: vectors of kLanes through row_sum, then the leftover
+// elements and the lanes in turn), every norm as the squares added in turn
+// and a correctly rounded square root, the cross products as the CPU's FMA
+// (fma_cpu: the exact product in double, the sum, then float). Every other
+// operation is a round-to-nearest intrinsic in the plain version's order,
+// compiled with -fmad=false, so no multiply and add are contracted into an
+// FMA. The plain version's scalar constants are Python floats that PyTorch
+// casts to float, as the (float) casts of double literals in horn_fit.cuh
+// do; its torch.maximum and clamp propagate a NaN, as maximum and clamp_min
+// do.
 //
-// What bounds it: not bytes (~100 KB a sampled fit at H = 1024, ~14 KB a
-// refit at N = 512: tens of nanoseconds at 3.35 TB/s) and not operations
-// (~700 a hypothesis, ~10 ns of the card's float32 rate), but chains of
-// dependent operations and the launch itself. The sampled fit's is one
-// thread's ~600 (twenty of them divisions and square roots), kept in
-// registers. In the refit a warp a sum cuts a sum's chain of dependent
-// adds from N terms to N / 32 and the merges (at N = 512: 16 adds, then
-// 4 + 3 + 8), so what is left is the staging load, three block barriers
-// and Horn's chain on one thread, as in the sampled fit.
+// What bounds it: not bytes (~14 KB a refit at N = 512: tens of
+// nanoseconds at 3.35 TB/s) and not operations (~700 a row, ~10 ns of the
+// card's float32 rate), but chains of dependent operations and the launch
+// itself. A warp a sum cuts a sum's chain of dependent adds from N terms to
+// N / 32 and the merges (at N = 512: 16 adds, then 4 + 3 + 8), so what is
+// left is the staging load, three block barriers and Horn's chain of ~600
+// dependent operations on one thread.
 //
-// Thread 0 of each launch adds one to a device counter: a launch recorded
-// into a CUDA graph, inside a conditional node's body, runs only where the
-// card takes the branch, and only the card can count it. A launch counts
-// into launches_counted, or, with counted == 0 (the warm-up before a
-// capture), into a second counter that nothing reads.
+// Thread 0 of each launch adds one to the launch counter on the card
+// (launch_counter.cuh).
 //
 // Plain C entry points, bound with ctypes; each returns a cudaError_t.
 
 #include <cuda_runtime.h>
 
 #include "horn_fit.cuh"
+#include "launch_counter.cuh"
 
 namespace {
 
 constexpr int kThreads = 9 * 32;     // a refit block: a warp a sum
 constexpr int kStaged = 1024;        // a refit row of up to this many
                                      // points is staged in shared memory
-constexpr int kSampledThreads = 64;  // threads of a sampled-fit block
-
-__device__ unsigned long long launches_counted;
-__device__ unsigned long long launches_uncounted;
-
-struct Components {
-  const float* c[6];                   // px, py, pz, qx, qy, qz
-};
-
-__global__ void kabsch_sampled_kernel(Components comp, int n, long long h_count,
-                                      int n_sq,
-                                      float* __restrict__ out,
-                                      unsigned long long* counter) {
-  const long long h = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (h == 0) atomicAdd(counter, 1ULL);
-  if (h >= h_count) return;
-  sampled_fit(
-      n, n_sq, [&](int c, int j) { return comp.c[c][j * h_count + h]; },
-      out + 7 * h);
-}
 
 __global__ void __launch_bounds__(kThreads)
 kabsch_weighted_kernel(const float* __restrict__ p, const float* __restrict__ q,
@@ -158,8 +128,6 @@ kabsch_weighted_kernel(const float* __restrict__ p, const float* __restrict__ q,
   if (t == 0) fit_pose(S, bar, bar + 3, n_sq, out + 7 * row);
 }
 
-unsigned long long* counters[2] = {nullptr, nullptr};
-
 }  // namespace
 
 extern "C" {
@@ -169,29 +137,9 @@ extern "C" {
 // inside a capture, where loading is not permitted).
 int kabsch_fit_load() {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kabsch_sampled_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kabsch_weighted_kernel);
   if (err != cudaSuccess) return err;
-  err = cudaFuncGetAttributes(&attr, kabsch_weighted_kernel);
-  if (err != cudaSuccess) return err;
-  err = cudaGetSymbolAddress((void**)&counters[0], launches_uncounted);
-  if (err != cudaSuccess) return err;
-  return cudaGetSymbolAddress((void**)&counters[1], launches_counted);
-}
-
-// comps: six pointers to (n, h_count) float32 arrays px, py, pz, qx, qy, qz;
-// out (h_count, 7) float32; all contiguous on the current device.
-int kabsch_fit_sampled_launch(const float* const* comps, int n,
-                              long long h_count, int n_sq, float* out,
-                              int counted, cudaStream_t stream) {
-  if (h_count <= 0) return cudaSuccess;
-  if (n < 1) return cudaErrorInvalidValue;
-  if (counters[0] == nullptr) return cudaErrorInitializationError;
-  Components comp;
-  for (int k = 0; k < 6; ++k) comp.c[k] = comps[k];
-  const long long blocks = (h_count + kSampledThreads - 1) / kSampledThreads;
-  kabsch_sampled_kernel<<<(unsigned)blocks, kSampledThreads, 0, stream>>>(
-      comp, n, h_count, n_sq, out, counters[counted ? 1 : 0]);
-  return cudaGetLastError();
+  return find_launch_counters();
 }
 
 // p, q (batch, n, 3), w (batch, n), out (batch, 7), float32, contiguous on
@@ -201,26 +149,14 @@ int kabsch_fit_weighted_launch(const float* p, const float* q, const float* w,
                                int counted, cudaStream_t stream) {
   if (batch <= 0) return cudaSuccess;
   if (n < 0) return cudaErrorInvalidValue;
-  if (counters[0] == nullptr) return cudaErrorInitializationError;
+  if (!launch_counters_found()) return cudaErrorInitializationError;
   kabsch_weighted_kernel<<<(unsigned)batch, kThreads, 0, stream>>>(
-      p, q, w, n, n_sq, out, counters[counted ? 1 : 0]);
+      p, q, w, n, n_sq, out, launch_counter(counted));
   return cudaGetLastError();
 }
 
 int kabsch_fit_lanes() { return kLanes; }
 
-// The counted launches since the last reset (synchronises the device).
-int kabsch_fit_read_launches(unsigned long long* value) {
-  return cudaMemcpyFromSymbol(value, launches_counted, sizeof(*value));
-}
-
-int kabsch_fit_reset_launches() {
-  const unsigned long long zero = 0;
-  return cudaMemcpyToSymbol(launches_counted, &zero, sizeof(zero));
-}
-
-const char* kabsch_fit_error(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
 }  // extern "C"
+
+LAUNCH_COUNTER_ENTRY_POINTS(kabsch_fit)

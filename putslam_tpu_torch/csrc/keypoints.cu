@@ -47,14 +47,15 @@
 // ties to even); the conversion to bfloat16 is __float2bfloat16_rn.
 //
 // Thread 0 of the select launch adds one to the launch counter on the card
-// (with counted == 0, the warm-up before a capture, a second counter that
-// nothing reads): one a call, which a CUDA graph's replay repeats.
+// (launch_counter.cuh): one a call, which a CUDA graph's replay repeats.
 //
 // Plain C entry points, bound with ctypes; each returns a cudaError_t.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "launch_counter.cuh"
 
 namespace {
 
@@ -106,9 +107,6 @@ struct Params {
   int* cand_arg;
   unsigned long long* counter;
 };
-
-__device__ unsigned long long launches_counted;
-__device__ unsigned long long launches_uncounted;
 
 // The level whose range of `first` (cand0 or block0) holds `i`.
 template <typename First>
@@ -293,8 +291,6 @@ __global__ void __launch_bounds__(kThreads) select_kernel(const Params p) {
     dst[r * kPatch] = __float2bfloat16_rn(__ldg(src + (size_t)r * L.W));
 }
 
-unsigned long long* counters[2] = {nullptr, nullptr};
-
 }  // namespace
 
 extern "C" {
@@ -308,9 +304,7 @@ int keypoints_load() {
   if (err != cudaSuccess) return err;
   err = cudaFuncGetAttributes(&attr, select_kernel);
   if (err != cudaSuccess) return err;
-  err = cudaGetSymbolAddress((void**)&counters[0], launches_uncounted);
-  if (err != cudaSuccess) return err;
-  return cudaGetSymbolAddress((void**)&counters[1], launches_counted);
+  return find_launch_counters();
 }
 
 // n_levels levels; ptrs: per level its image, raw map and NMS map (H, W)
@@ -336,7 +330,7 @@ int keypoints_launch(int n_levels, const void* const* ptrs, const int* ints,
       blocks < 1 || max_candidates < 1 || max_candidates > kMaxCandidates ||
       depth_h < 1 || depth_w < 1)
     return cudaErrorInvalidValue;
-  if (counters[0] == nullptr) return cudaErrorInitializationError;
+  if (!launch_counters_found()) return cudaErrorInitializationError;
   Params p;
   for (int i = 0; i < kMaxLevels; ++i) {
     const int j = i < n_levels ? i : 0;
@@ -382,7 +376,7 @@ int keypoints_launch(int n_levels, const void* const* ptrs, const int* ints,
   p.patches = patches;
   p.cand_score = cand_score;
   p.cand_arg = cand_arg;
-  p.counter = counters[counted ? 1 : 0];
+  p.counter = launch_counter(counted);
   tiles_kernel<<<(candidates + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
       p, candidates);
   cudaError_t err = cudaGetLastError();
@@ -394,18 +388,6 @@ int keypoints_launch(int n_levels, const void* const* ptrs, const int* ints,
 
 int keypoints_warps() { return kWarps; }
 
-// The counted calls since the last reset (synchronises the device).
-int keypoints_read_launches(unsigned long long* value) {
-  return cudaMemcpyFromSymbol(value, launches_counted, sizeof(*value));
-}
-
-int keypoints_reset_launches() {
-  const unsigned long long zero = 0;
-  return cudaMemcpyToSymbol(launches_counted, &zero, sizeof(zero));
-}
-
-const char* keypoints_error(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
 }  // extern "C"
+
+LAUNCH_COUNTER_ENTRY_POINTS(keypoints)

@@ -54,17 +54,17 @@
 // the five models' code is inlined once: a copy in each of the sum's
 // unrolled loads overflowed the instruction cache.
 //
-// Thread 0 of each launch adds one to the device counter of its mode: a
-// launch recorded into a CUDA graph, inside a conditional node's body,
-// runs only where the card takes the branch, and only the card can count
-// it. With counted == 0 (the warm-up before a capture) it adds to a second
-// counter that nothing reads.
+// Thread 0 of each launch adds one to the launch counter of its mode on
+// the card (launch_counter.cuh): hypotheses, score.
 //
 // Plain C entry points, bound with ctypes; each returns a cudaError_t.
 
 #include <cuda_runtime.h>
 
 #include "horn_fit.cuh"
+
+#define LAUNCH_MODES 2
+#include "launch_counter.cuh"
 
 namespace {
 
@@ -78,9 +78,6 @@ constexpr int kHypotheses = 0, kScore = 1;   // the modes, their counters
 // and their counts
 constexpr int kMaxShared =
     (3 + 3 + 6 + kPoses) * kStaged * 4 + kStaged + kPoses * (7 + 1) * 4;
-
-__device__ unsigned long long launches_counted[2];
-__device__ unsigned long long launches_uncounted[2];
 
 // ops/ransac_score.py::ScoreModel, the Python floats cast to float
 struct Model {
@@ -307,8 +304,6 @@ ransac_score_kernel(const float* __restrict__ p, const float* __restrict__ q,
   }
 }
 
-unsigned long long* counters[2] = {nullptr, nullptr};
-
 template <bool kFit, int kN>
 int launch(const float* p, const float* q, const unsigned char* valid,
            const float* info, const long long* idx, int k,
@@ -354,9 +349,7 @@ int ransac_score_load() {
   if (err == cudaSuccess) err = prepare<true, 0>();
   if (err == cudaSuccess) err = prepare<false, 0>();
   if (err != cudaSuccess) return err;
-  err = cudaGetSymbolAddress((void**)&counters[0], launches_uncounted);
-  if (err != cudaSuccess) return err;
-  return cudaGetSymbolAddress((void**)&counters[1], launches_counted);
+  return find_launch_counters();
 }
 
 // p, q (n, 3) float32; valid (n,) bool; info (n, 3, 3) float32 or null;
@@ -377,8 +370,8 @@ int ransac_score_hypotheses_launch(const float* p, const float* q,
   if (h_count <= 0) return cudaSuccess;
   if (n < 1 || k < 1 || version < 0 || version > 4)
     return cudaErrorInvalidValue;
-  if (counters[0] == nullptr) return cudaErrorInitializationError;
-  unsigned long long* counter = counters[counted ? 1 : 0] + kHypotheses;
+  if (!launch_counters_found()) return cudaErrorInitializationError;
+  unsigned long long* counter = launch_counter(counted, kHypotheses);
   const Model model = make_model(version, thr);
   if (k == 3)
     return launch<true, 3>(p, q, valid, info, idx, k, nullptr, n, h_count,
@@ -400,8 +393,8 @@ int ransac_score_score_launch(const float* p, const float* q,
                               cudaStream_t stream) {
   if (b <= 0) return cudaSuccess;
   if (n < 0 || version < 0 || version > 4) return cudaErrorInvalidValue;
-  if (counters[0] == nullptr) return cudaErrorInitializationError;
-  unsigned long long* counter = counters[counted ? 1 : 0] + kScore;
+  if (!launch_counters_found()) return cudaErrorInitializationError;
+  unsigned long long* counter = launch_counter(counted, kScore);
   return launch<false, 0>(p, q, valid, info, nullptr, 0, poses, n, b, 0,
                           make_model(version, thr), scratch, nullptr, inl,
                           counts, err_sum, counter, stream);
@@ -409,29 +402,6 @@ int ransac_score_score_launch(const float* p, const float* q,
 
 int ransac_score_staged() { return kStaged; }
 
-// The counted launches of both modes since the last reset (synchronises
-// the device).
-int ransac_score_read_launches(unsigned long long* value) {
-  unsigned long long both[2];
-  const cudaError_t err =
-      cudaMemcpyFromSymbol(both, launches_counted, sizeof(both));
-  *value = both[0] + both[1];
-  return err;
-}
-
-// The counted launches of each mode: value[0] hypotheses, value[1] score.
-int ransac_score_read_mode_launches(unsigned long long* value) {
-  return cudaMemcpyFromSymbol(value, launches_counted,
-                              2 * sizeof(*value));
-}
-
-int ransac_score_reset_launches() {
-  const unsigned long long zero[2] = {0, 0};
-  return cudaMemcpyToSymbol(launches_counted, zero, sizeof(zero));
-}
-
-const char* ransac_score_error(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
 }  // extern "C"
+
+LAUNCH_COUNTER_ENTRY_POINTS(ransac_score)

@@ -53,16 +53,15 @@
 // keyframe-dense map: three round trips, then its adds); for the many
 // short sums, the launch and the three round trips.
 //
-// Thread 0 of each launch adds one to a device counter: a launch recorded
-// into a CUDA graph, inside a conditional node's body, runs only where the
-// card takes the branch, and only the card can count it. A launch counts
-// into launches_counted, or, with counted == 0 (the warm-up before a
-// capture), into a second counter that nothing reads.
+// Thread 0 of each launch adds one to the launch counter on the card
+// (launch_counter.cuh).
 //
 // Plain C entry points, bound with ctypes; each returns a cudaError_t.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "launch_counter.cuh"
 
 namespace {
 
@@ -75,9 +74,6 @@ constexpr int kBlocks = 512;             // blocks a launch, about
 constexpr int kPerBlockMax = 4096;       // segments a block at most
 constexpr int kSmemMax = 227 * 1024;     // dynamic shared memory a block
 constexpr int kSmemSm = 228 * 1024;      // shared memory of an SM
-
-__device__ unsigned long long launches_counted;
-__device__ unsigned long long launches_uncounted;
 
 // an asynchronous copy of kBytes (4, 8 or 16) from global to shared memory
 template <int kBytes>
@@ -271,7 +267,6 @@ cudaError_t load_kernel() {
 }
 
 int sm_count = 0;
-unsigned long long* counters[2] = {nullptr, nullptr};
 
 }  // namespace
 
@@ -291,9 +286,7 @@ int segment_sum_load() {
     err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount,
                                  dev);
   if (err != cudaSuccess) return err;
-  err = cudaGetSymbolAddress((void**)&counters[0], launches_uncounted);
-  if (err != cudaSuccess) return err;
-  return cudaGetSymbolAddress((void**)&counters[1], launches_counted);
+  return find_launch_counters();
 }
 
 // x (rows, cols) float32, perm (rows,) int64, keys (rows,) int32 sorted,
@@ -307,7 +300,7 @@ int segment_sum_launch(const float* x, const long long* perm, const int* keys,
                        int counted, cudaStream_t stream) {
   if (n <= 0 || cols <= 0) return cudaSuccess;
   if (cols > kColsMax) return cudaErrorInvalidValue;
-  if (counters[0] == nullptr) return cudaErrorInitializationError;
+  if (!launch_counters_found()) return cudaErrorInitializationError;
   int per_block = (n + kBlocks - 1) / kBlocks;
   if (per_block > kPerBlockMax) per_block = kPerBlockMax;
   const int blocks = (n + per_block - 1) / per_block;
@@ -320,7 +313,7 @@ int segment_sum_launch(const float* x, const long long* perm, const int* keys,
   const Layout lay(per_block, chunk, cols);
   if (lay.bytes > kSmemMax) return cudaErrorInvalidValue;
   const uintptr_t at = reinterpret_cast<uintptr_t>(x);
-  unsigned long long* counter = counters[counted ? 1 : 0];
+  unsigned long long* counter = launch_counter(counted);
   if (cols % 4 == 0 && at % 16 == 0)
     segment_sum_kernel<4><<<blocks, kThreads, lay.bytes, stream>>>(
         x, perm, keys, offsets, out, n, cols, per_block, chunk, counter);
@@ -335,18 +328,6 @@ int segment_sum_launch(const float* x, const long long* perm, const int* keys,
 
 int segment_sum_max_cols() { return kColsMax; }
 
-// The counted launches since the last reset (synchronises the device).
-int segment_sum_read_launches(unsigned long long* value) {
-  return cudaMemcpyFromSymbol(value, launches_counted, sizeof(*value));
-}
-
-int segment_sum_reset_launches() {
-  const unsigned long long zero = 0;
-  return cudaMemcpyToSymbol(launches_counted, &zero, sizeof(zero));
-}
-
-const char* segment_sum_error(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
 }  // extern "C"
+
+LAUNCH_COUNTER_ENTRY_POINTS(segment_sum)

@@ -41,14 +41,10 @@ writes to a tensor it did not make. A capture or replay that fails raises:
 there is no fallback to the eager step. ``capture=False`` runs the same
 step on the same static buffers without graphs (on any device), each
 ``cond`` a host read of its predicate (``control.branching("host")``): the
-CPU tests hold that against the eager step. ``fast_score_nms.launches``
-counts one launch per replay of a graph that holds the FAST kernel (the
-kernel launch a capture records); the warm-up pass is not counted. The
-segment-sum kernel of the solvers and RANSAC's fit count their own
-launches on the card (``ops/segment.py::launch_count``,
-``ops/kabsch.py::launch_count``: those in an IF body run only where the
-card takes the branch); the warm-up's are not counted either
-(``ops/cuda_lib.py::uncounted``).
+CPU tests hold that against the eager step. The hand-written kernels
+count their own launches on the card (``utils/cuda_lib.py``: those in an
+IF body only where the card takes the branch); the warm-up pass runs under
+``cuda_lib.uncounted()`` and is not counted.
 
 The flight recorder (``utils/timing.py``) sees a runner from both sides: a
 capture is its ``capture`` span (and makes the card's ring of stamps); the
@@ -73,8 +69,7 @@ from putslam_tpu_torch.frontend.detector import detect_and_describe
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.models import slam as slam_mod
 from putslam_tpu_torch.models import vo as vo_mod
-from putslam_tpu_torch.ops import cuda_lib, fast_cuda
-from putslam_tpu_torch.utils import control, graph_cond, timing
+from putslam_tpu_torch.utils import control, cuda_lib, graph_cond, timing
 from putslam_tpu_torch.utils.control import assign as _assign
 from putslam_tpu_torch.utils.control import clone as _clone
 from putslam_tpu_torch.utils.control import leaves as _leaves
@@ -135,7 +130,6 @@ class _Segment:
         self.fn = fn
         self.graph = None
         self.out = None
-        self.fast_launches = 0
         self.roots = ()
 
     def _capture(self):
@@ -149,14 +143,11 @@ class _Segment:
         r = self.runner
         side = torch.cuda.Stream(r.device)
         side.wait_stream(torch.cuda.current_stream(r.device))
-        counted = fast_cuda.fast_score_nms.launches
         with torch.cuda.stream(side), control.branching("masked"), \
                 control.checking(), cuda_lib.uncounted():
             self.fn(commit=False)          # lazy initialisation, not a step
-        fast_cuda.fast_score_nms.launches = counted
         torch.cuda.current_stream(r.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        recorded = fast_cuda.fast_score_nms.recorded
         graph_cond.prepare(r.device, r.body_pool)
         stream = torch.cuda.current_stream(r.device)
         # a runner dropped earlier is freed by the cycle collector, which
@@ -171,7 +162,6 @@ class _Segment:
         except BaseException:
             _abandon_capture(r, stream)
             raise
-        self.fast_launches = fast_cuda.fast_score_nms.recorded - recorded
         self.graph = graph
         r.captured = True
 
@@ -186,7 +176,6 @@ class _Segment:
             self.graph.replay()
         for root in self.roots:
             self.recorder.replayed(self.ring, root)
-        fast_cuda.fast_score_nms.launches += self.fast_launches
         return self.out
 
 

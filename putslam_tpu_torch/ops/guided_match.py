@@ -14,14 +14,15 @@ A CPU tensor takes the plain version (``plain_match``), which is the ATen
 chain of the map's guided matching unchanged: the (L, N) gated distances
 (``plain_distances``, which ``guided_match_pairs`` reads too), then argmin,
 amin or the two smallest by topk, and the count. A CUDA tensor makes one
-launch of ``csrc/guided_match.cu`` (built and bound by ``ops/cuda_lib.py``)
-or raises: a warp a landmark, the descriptors packed to bit planes and
-compared by AND and popcount, nothing of size L × N in device memory. Its
+launch of ``csrc/guided_match.cu`` (built, bound and counted by
+``utils/cuda_lib.py``) or raises: a warp a landmark, the descriptors
+packed to bit planes and compared by AND and popcount, nothing of size
+L × N in device memory. Its
 operations repeat the chain's bits on the card (the sum of the squares in
 the order of the card's ``torch.linalg.vector_norm``, the root correctly
 rounded, the Python numbers as float32), so the two agree bit for bit with
 descriptors of ±1 and 0. The call counts one launch on the card
-(``launch_count``; not under ``cuda_lib.uncounted()``).
+(``_LIB.launch_count()``; not under ``cuda_lib.uncounted()``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
-from putslam_tpu_torch.ops import cuda_lib
+from putslam_tpu_torch.utils import cuda_lib
 
 DESC_BITS = 256
 ACCEPTANCES = ("hamming", "ratio")
@@ -155,22 +156,11 @@ def _bind(lib) -> None:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, f32, i32,
         f32, i32, f32, ptr, ptr, ptr, ptr, i32, ptr]
     lib.guided_match_norm3.argtypes = [ptr, ptr, ctypes.c_longlong, ptr]
-    for name in ("launch", "norm3", "warps", "max_features", "max_views"):
-        getattr(lib, f"guided_match_{name}").restype = i32
-    for name, want in (("warps", WARPS), ("max_features", MAX_FEATURES),
-                       ("max_views", MAX_VIEWS)):
-        fn = getattr(lib, f"guided_match_{name}")
-        fn.argtypes = []
-        if fn() != want:
-            raise RuntimeError(f"csrc/guided_match.cu has {name} {fn()}, "
-                               f"this module {want}")
+    lib.guided_match_launch.restype = lib.guided_match_norm3.restype = i32
 
 
-_LIB = cuda_lib.CountedLibrary("guided_match", _bind)
-build = _LIB.build
-build_log = _LIB.build_log
-launch_count = _LIB.launch_count
-reset_launch_count = _LIB.reset_launch_count
+_LIB = cuda_lib.Library("guided_match", _bind, constants={
+    "warps": WARPS, "max_features": MAX_FEATURES, "max_views": MAX_VIEWS})
 
 
 def _f32(x: float) -> float:

@@ -6,23 +6,24 @@ The JAX package writes the solve structure-of-arrays so that XLA fuses it
 into one pass over every hypothesis: the dominant eigenvector of Horn's
 4×4 matrix from a fixed number of symmetric squarings, the sign fixed, the
 translation from the means. Op by op in PyTorch that is ~500 elementwise
-launches a solve, so on the card each call is ONE launch of the
-hand-written kernel ``csrc/kabsch_fit.cu`` (built and bound by
-``ops/cuda_lib.py``):
+launches a solve. On the card the two fits run in hand-written kernels:
 
-* ``kabsch_soa(px, …, qz)``: the sampled fit, components (n, ...), one
-  thread a hypothesis (RANSAC's main path runs the same fit inside
-  ``ops/ransac_score.py::hypotheses``, on samples the kernel gathers);
-* ``weighted_kabsch(p, q, w)``: the weighted refit, p, q (..., N, 3), w
-  (..., N), one block a batch row, a warp a sum (the independent chains
-  of ``row_sum`` / ``inner_sum``'s order on its lanes).
+* ``kabsch_soa(px, …, qz)``, the sampled fit, components (n, ...), is the
+  plain version (``plain_kabsch_soa``) on every device: RANSAC's main path
+  runs the same fit inside ``ops/ransac_score.py::hypotheses``, on samples
+  that kernel gathers;
+* ``weighted_kabsch(p, q, w)``, the weighted refit, p, q (..., N, 3), w
+  (..., N), is ONE launch of ``csrc/kabsch_fit.cu`` a call on the card
+  (built, bound and counted by ``utils/cuda_lib.py``): one block a batch
+  row, a warp a sum (the independent chains of ``row_sum`` /
+  ``inner_sum``'s order on its lanes). A CPU tensor takes the plain version
+  (``plain_weighted_kabsch``); a CUDA tensor launches the kernel or raises
+  (float32, contiguous, one device).
 
-A CPU tensor takes the plain version (``plain_kabsch_soa``,
-``plain_weighted_kabsch``); a CUDA tensor launches the kernel or raises
-(float32, contiguous, one device). The plain version writes out, operation
-for operation, the arithmetic this module did on the CPU before the kernel
-(``torch.sum``, ``mean``, ``torch.linalg.norm``, ``torch.linalg.cross``),
-so that the kernel can follow it and the CPU's results do not move:
+The plain version writes out, operation for operation, the arithmetic
+this module did on the CPU before the kernels (``torch.sum``, ``mean``,
+``torch.linalg.norm``, ``torch.linalg.cross``), so that the kernels can
+follow it and the CPU's results do not move:
 
 * the refit's sums in the order of ATen's CPU float sums (``row_sum``,
   ``inner_sum``), the sampled fit's over its few points in turn from +0.0,
@@ -32,9 +33,8 @@ so that the kernel can follow it and the CPU's results do not move:
 * the cross products of the rotation as the CPU's FMA computes them
   (``_fma``: the exact product in double, then the sum, then float).
 
-The kernel repeats each operation, so the two agree bit for bit on the
-card. Launches are counted on the card (``launch_count``,
-``reset_launch_count``; not under ``cuda_lib.uncounted()``).
+The kernels repeat each operation, so they agree with it bit for bit on
+the card.
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ import math
 import torch
 
 from putslam_tpu_torch.geometry import se3
-from putslam_tpu_torch.ops import cuda_lib
+from putslam_tpu_torch.utils import cuda_lib
 
 # lanes of the vectors of ATen's CPU float sums, whose order ``inner_sum``
 # repeats (checked against the library when it is loaded)
@@ -54,24 +54,12 @@ LANES = 8
 
 def _bind(lib) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.kabsch_fit_sampled_launch.argtypes = [
-        ctypes.POINTER(ptr), i32, ctypes.c_longlong, i32, ptr, i32, ptr]
     lib.kabsch_fit_weighted_launch.argtypes = [
         ptr, ptr, ptr, ctypes.c_longlong, i32, i32, ptr, i32, ptr]
-    lib.kabsch_fit_lanes.argtypes = []
-    for fn in (lib.kabsch_fit_sampled_launch, lib.kabsch_fit_weighted_launch,
-               lib.kabsch_fit_lanes):
-        fn.restype = i32
-    if lib.kabsch_fit_lanes() != LANES:
-        raise RuntimeError(f"csrc/kabsch_fit.cu sums in {lib.kabsch_fit_lanes()}"
-                           f" lanes, this module in {LANES}")
+    lib.kabsch_fit_weighted_launch.restype = i32
 
 
-_LIB = cuda_lib.CountedLibrary("kabsch_fit", _bind)
-build = _LIB.build
-build_log = _LIB.build_log
-launch_count = _LIB.launch_count
-reset_launch_count = _LIB.reset_launch_count
+_LIB = cuda_lib.Library("kabsch_fit", _bind, constants={"lanes": LANES})
 
 
 def squarings(iters: int) -> int:
@@ -91,12 +79,9 @@ def weighted_kabsch(p, q, w, iters: int = 30):
 
 def kabsch_soa(px, py, pz, qx, qy, qz, iters: int = 30):
     """Uniform-weight Kabsch from component tensors with the point axis
-    leading: (n, ...) each. Returns (..., 7). CPU: the plain version; CUDA:
-    one kernel launch."""
-    comps = (px, py, pz, qx, qy, qz)
-    if px.device.type == "cpu":
-        return plain_kabsch_soa(*comps, iters=iters)
-    return _launch_sampled(comps, iters)
+    leading: (n, ...) each. Returns (..., 7): the plain version on every
+    device."""
+    return plain_kabsch_soa(px, py, pz, qx, qy, qz, iters=iters)
 
 
 def _ceil_log2(x: int) -> int:
@@ -300,32 +285,6 @@ def _check_inputs(what, tensors, device):
             raise ValueError(f"{what}: needs float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: needs contiguous tensors")
-
-
-def _launch_sampled(comps, iters):
-    """The CUDA path of ``kabsch_soa``: checks, the output, one launch."""
-    what = "kabsch_soa"
-    dev = comps[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dev}")
-    _check_inputs(what, comps, dev)
-    shape = comps[0].shape
-    if any(c.shape != shape for c in comps) or len(shape) < 1 \
-            or shape[0] < 1:
-        raise ValueError(f"{what}: components of shapes "
-                         f"{[tuple(c.shape) for c in comps]}")
-    n = shape[0]
-    out = torch.empty(tuple(shape[1:]) + (7,), dtype=torch.float32,
-                      device=dev)
-    ptrs = (ctypes.c_void_p * 6)(*(c.data_ptr() for c in comps))
-    with torch.cuda.device(dev):
-        lib = _LIB.library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _LIB.check(lib.kabsch_fit_sampled_launch(
-            ptrs, n, math.prod(shape[1:]), squarings(iters),
-            out.data_ptr(), cuda_lib.counted(), stream),
-            f"{what} kernel launch")
-    return out
 
 
 def _launch_weighted(p, q, w, iters):

@@ -23,15 +23,16 @@ patch matrix.
 
 A CPU tensor takes the plain version (``plain_chain``), which is that
 ATen chain unchanged, so CPU results keep their bits. A CUDA tensor makes
-one call of ``csrc/keypoints.cu`` (built and bound by ``ops/cuda_lib.py``)
-or raises: two kernel launches, a warp a subtile for the subtile maxima,
-then a warp a subtile's candidate, which ranks its score among its
-level's (the stable sort's position), and, where the rank lies inside the
-budget, writes that slot: refine, lifting and window. Every operation
+one call of ``csrc/keypoints.cu`` (built, bound and counted by
+``utils/cuda_lib.py``) or raises: two kernel launches, a warp a subtile
+for the subtile maxima, then a warp a subtile's candidate, which ranks its
+score among its level's (the stable sort's position), and, where the rank
+lies inside the budget, writes that slot: refine, lifting and window. Every operation
 repeats the one ATen runs on the card (``_rn`` intrinsics, IEEE division,
 a division by a Python float as ATen's CUDA kernel does it: times the
 float32 reciprocal), so the two agree bit for bit. The call counts one
-launch on the card (``launch_count``; not under ``cuda_lib.uncounted()``).
+launch on the card (``_LIB.launch_count()``; not under
+``cuda_lib.uncounted()``).
 
 ``grid_policy="exact"`` (the reference's per-cell top-k) has no kernel:
 ``chain`` hands it to ``plain_chain`` on every device.
@@ -47,7 +48,8 @@ import numpy as np
 import torch
 
 from putslam_tpu_torch.geometry import camera as camera_mod
-from putslam_tpu_torch.ops import brief, cuda_lib, fast
+from putslam_tpu_torch.ops import brief, fast
+from putslam_tpu_torch.utils import cuda_lib
 
 WARPS = 8                 # warps a block, both kernels (checked on load)
 MAX_LEVELS = 8
@@ -241,18 +243,9 @@ def _bind(lib) -> None:
         i32, i32, i32, ptr, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         ptr, ptr, ptr, i32, ptr]
     lib.keypoints_launch.restype = i32
-    lib.keypoints_warps.argtypes = []
-    lib.keypoints_warps.restype = i32
-    if lib.keypoints_warps() != WARPS:
-        raise RuntimeError(f"csrc/keypoints.cu runs {lib.keypoints_warps()} "
-                           f"warps a block, this module {WARPS}")
 
 
-_LIB = cuda_lib.CountedLibrary("keypoints", _bind)
-build = _LIB.build
-build_log = _LIB.build_log
-launch_count = _LIB.launch_count
-reset_launch_count = _LIB.reset_launch_count
+_LIB = cuda_lib.Library("keypoints", _bind, constants={"warps": WARPS})
 
 
 def _launch(det, cam, shapes, budgets, levels, maps, depth) -> Chain:

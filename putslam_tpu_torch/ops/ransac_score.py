@@ -19,10 +19,11 @@ errors in the order of ATen's CPU sum of a contiguous row
 A CPU tensor takes the plain version (``plain_hypotheses``,
 ``plain_score``), which is the arithmetic ``frontend/ransac.py`` did
 before the kernel, operation for operation, so that CPU results do not
-move. A CUDA tensor launches ``csrc/ransac_score.cu`` once a call (built
-and bound by ``ops/cuda_lib.py``) or raises; the kernel repeats every
-operation of the plain version, so the two agree bit for bit on the card.
-Launches are counted on the card by mode (``launch_counts``; not under
+move. A CUDA tensor launches ``csrc/ransac_score.cu`` once a call (built,
+bound and counted by ``utils/cuda_lib.py``) or raises; the kernel repeats
+every operation of the plain version, so the two agree bit for bit on the
+card. Launches are counted on the card by mode (``_LIB.launch_counts()``:
+``ransac_score.hypotheses``, ``ransac_score.score``; not under
 ``cuda_lib.uncounted()``).
 """
 
@@ -35,7 +36,8 @@ from typing import NamedTuple
 import torch
 
 from putslam_tpu_torch.geometry import se3
-from putslam_tpu_torch.ops import cuda_lib, kabsch
+from putslam_tpu_torch.ops import kabsch
+from putslam_tpu_torch.utils import cuda_lib
 
 
 class ScoreModel(NamedTuple):
@@ -73,40 +75,17 @@ def _bind(lib) -> None:
     lib.ransac_score_score_launch.argtypes = [
         ptr, ptr, ptr, ptr, ptr, i32, i64, i32, floats, ptr, ptr, ptr, ptr,
         i32, ptr]
-    lib.ransac_score_read_mode_launches.argtypes = [
-        ctypes.POINTER(ctypes.c_ulonglong)]
-    lib.ransac_score_staged.argtypes = []
     for fn in (lib.ransac_score_hypotheses_launch,
-               lib.ransac_score_score_launch,
-               lib.ransac_score_read_mode_launches, lib.ransac_score_staged):
+               lib.ransac_score_score_launch):
         fn.restype = i32
-    if lib.ransac_score_staged() != STAGED:
-        raise RuntimeError(f"csrc/ransac_score.cu stages "
-                           f"{lib.ransac_score_staged()} matches, this "
-                           f"module {STAGED}")
 
 
-_LIB = cuda_lib.CountedLibrary("ransac_score", _bind)
-build = _LIB.build
-build_log = _LIB.build_log
-launch_count = _LIB.launch_count
-reset_launch_count = _LIB.reset_launch_count
 # the most matches the kernel stages (and whose masked errors it stashes)
 # in shared memory; a longer row's errors go to a scratch buffer (checked
 # against the library when it is loaded)
 STAGED = 1024
-
-
-def launch_counts(device="cuda") -> dict:
-    """Counted launches on ``device`` since the last reset, by mode:
-    ``{"hypotheses": n, "score": n}`` (synchronises the device)."""
-    with torch.cuda.device(torch.device(device)):
-        lib = _LIB.library()
-        torch.cuda.synchronize()
-        both = (ctypes.c_ulonglong * 2)()
-        _LIB.check(lib.ransac_score_read_mode_launches(both),
-                   "reading the launch counts")
-    return {"hypotheses": int(both[0]), "score": int(both[1])}
+_LIB = cuda_lib.Library("ransac_score", _bind, constants={"staged": STAGED},
+                        modes=("hypotheses", "score"))
 
 
 def hypotheses(p, q, valid, idx, model: ScoreModel, info=None):

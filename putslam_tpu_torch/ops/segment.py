@@ -28,12 +28,9 @@ through a ``SegmentPlan``:
   row index, which the stable sort gives, so the kernel equals the plain
   version bit for bit, and a run, its replay and a second run agree.
 
-The kernel is built and bound by ``ops/cuda_lib.py`` (nvcc for
-``sm_90a`` at first use, ctypes). Its launches are counted on the card
-(``launch_count``, ``reset_launch_count``): a launch recorded into a CUDA
-graph, inside a conditional node's body, runs at a replay only where the
-card takes the branch, which the host does not see. Launches made under
-``uncounted()`` (the warm-up before a capture) are not counted.
+The kernel is built, bound and its launches counted on the card by
+``utils/cuda_lib.py`` (``_LIB.launch_count()``; not under
+``cuda_lib.uncounted()``, the warm-up before a capture).
 
 Sums that stay as they are, being exact in any order: the integer counts
 (``models/slam.py`` ``feat_matched``, ``parallel/multi_session.py``
@@ -49,7 +46,7 @@ import math
 
 import torch
 
-from putslam_tpu_torch.ops import cuda_lib
+from putslam_tpu_torch.utils import cuda_lib
 
 
 def _bind(lib) -> None:
@@ -61,12 +58,7 @@ def _bind(lib) -> None:
     lib.segment_sum_max_cols.restype = ctypes.c_int
 
 
-_LIB = cuda_lib.CountedLibrary("segment_sum", _bind)
-build = _LIB.build
-build_log = _LIB.build_log
-launch_count = _LIB.launch_count
-reset_launch_count = _LIB.reset_launch_count
-uncounted = cuda_lib.uncounted
+_LIB = cuda_lib.Library("segment_sum", _bind)
 
 
 class SegmentPlan:

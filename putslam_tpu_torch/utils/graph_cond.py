@@ -5,8 +5,7 @@ context in which everything PyTorch launches is captured into the body of
 an IF node of the graph being captured, which a replay runs only where the
 0-d bool ``pred`` on the card holds. The node, its handle and the
 one-thread kernel that sets the handle from ``pred`` are made by
-``csrc/graph_cond.cu`` (plain C entry points, built with ``nvcc`` into
-``putslam_tpu_torch/build/`` on first use and bound with ``ctypes``).
+``csrc/graph_cond.cu`` (built and bound by ``utils/cuda_lib.py``).
 
 A body is captured on a stream of its own (one per nesting depth, made by
 ``prepare``), made PyTorch's current stream for the body. The caching
@@ -21,50 +20,26 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-from pathlib import Path
 
 import torch
 
-from putslam_tpu_torch.ops import fast_cuda
+from putslam_tpu_torch.utils import cuda_lib
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "graph_cond.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 MAX_DEPTH = 8
 
-_lib = None
 _streams: dict = {}      # device index -> body streams, one per depth
 _body_pool = None        # (device index, MemPool) of the capture under way
 _depth = 0
 launches = 0             # set-condition kernels captured (one a node)
 
 
-def build() -> Path:
-    """Compile the library unless it is built already; returns its path."""
-    return fast_cuda.compile_library(SOURCE, NVCC_FLAGS)
+def _bind(lib) -> None:
+    lib.graph_cond_begin.argtypes = [ctypes.c_void_p] * 3
+    lib.graph_cond_end.argtypes = [ctypes.c_void_p]
+    lib.graph_cond_begin.restype = lib.graph_cond_end.restype = ctypes.c_int
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.graph_cond_begin.argtypes = [ctypes.c_void_p] * 3
-        lib.graph_cond_end.argtypes = [ctypes.c_void_p]
-        lib.graph_cond_begin.restype = lib.graph_cond_end.restype = \
-            ctypes.c_int
-        lib.graph_cond_error.argtypes = [ctypes.c_int]
-        lib.graph_cond_error.restype = ctypes.c_char_p
-        lib.graph_cond_load.argtypes = []
-        lib.graph_cond_load.restype = ctypes.c_int
-        _lib = lib
-        _check(lib.graph_cond_load(), "loading the set-condition kernel")
-    return _lib
-
-
-def _check(rc: int, what: str) -> None:
-    if rc:
-        msg = _library().graph_cond_error(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+_LIB = cuda_lib.Library("graph_cond", _bind, counted=False)
 
 
 def prepare(device, body_pool) -> None:
@@ -74,7 +49,7 @@ def prepare(device, body_pool) -> None:
     global _body_pool
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    _library()
+    _LIB.library()
     if idx not in _streams:
         _streams[idx] = [torch.cuda.Stream(idx) for _ in range(MAX_DEPTH)]
     _body_pool = (idx, body_pool)
@@ -92,9 +67,9 @@ def if_node(pred: torch.Tensor):
     idx, pool = _body_pool
     parent = torch.cuda.current_stream(idx)
     body = _streams[idx][_depth]
-    _check(_library().graph_cond_begin(parent.cuda_stream, body.cuda_stream,
-                                       pred.data_ptr()),
-           "opening a conditional graph node")
+    _LIB.check(_LIB.library().graph_cond_begin(
+        parent.cuda_stream, body.cuda_stream, pred.data_ptr()),
+        "opening a conditional graph node")
     launches += 1
     _depth += 1
     try:
@@ -105,5 +80,5 @@ def if_node(pred: torch.Tensor):
             yield
     finally:
         _depth -= 1
-        _check(_library().graph_cond_end(body.cuda_stream),
-               "closing a conditional graph node")
+        _LIB.check(_LIB.library().graph_cond_end(body.cuda_stream),
+                   "closing a conditional graph node")

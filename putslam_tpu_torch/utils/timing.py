@@ -16,8 +16,8 @@ The recorder is always on, bounded and in memory. It has two halves:
   The spans of the port: ``step`` (one ``compiled.run_sequence`` call)
   with its children ``load``, ``inputs``, ``draws``, ``replay`` and
   ``clone``; ``finalize``; ``capture`` (one CUDA-graph capture, warm-up
-  included); ``build`` (one nvcc build). ``StageTimer`` is a named group of
-  spans with its own samples.
+  included); ``build`` (one nvcc build, ``utils/cuda_lib.py``).
+  ``StageTimer`` is a named group of spans with its own samples.
 
 * **Stages** (``stage(name)``, ``STAGES``): a row a replay of a graph that
   opens one of the ``ROOTS`` stages (``frame``, one replay of
@@ -42,8 +42,8 @@ tries); the midpoint gives the offset between the two clocks and half the
 bracket its error. ``snapshot`` measures it again and states a row's times
 on the host's clock, the offset interpolated between the two readings
 (the clocks drift apart by a few microseconds a minute). ``snapshot()`` (one copy of each card ring to the host, made only
-when asked) returns the rows, the spans and the launch counters as plain
-numpy arrays.
+when asked) returns the rows, the spans and the kernels' launch counters
+(``cuda_lib.launch_counts()``) as plain numpy arrays.
 """
 
 from __future__ import annotations
@@ -52,13 +52,12 @@ import contextlib
 import ctypes
 import time
 from collections import defaultdict
-from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from putslam_tpu_torch.utils import control
+from putslam_tpu_torch.utils import control, cuda_lib
 
 STAGES = ("frame", "track", "vo_retry", "map_retry", "tail", "keyframe",
           "ba", "gn_iteration", "finalize", "detect", "guided")
@@ -69,38 +68,19 @@ HEAD = 8         # a card ring's header: rows opened, the open row, clocks
 CLOCK_TRIES = 5
 CAPACITY = 32768     # rows: the last replays kept
 SPAN_CAPACITY = 131072
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "stamp.cu"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 _OPEN, _BEGIN, _END, _CLOCK = range(4)         # the stamp kernel's operations
 _STAGE = {name: i for i, name in enumerate(STAGES)}
 _profiling = torch.autograd._profiler_enabled
 
-_lib = None
+
+def _bind(lib) -> None:
+    lib.stamp_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.stamp_launch.restype = ctypes.c_int
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        from putslam_tpu_torch.ops import fast_cuda
-
-        lib = ctypes.CDLL(str(fast_cuda.compile_library(SOURCE, NVCC_FLAGS)))
-        lib.stamp_launch.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p]
-        lib.stamp_load.argtypes = []
-        lib.stamp_launch.restype = lib.stamp_load.restype = ctypes.c_int
-        lib.stamp_error.argtypes = [ctypes.c_int]
-        lib.stamp_error.restype = ctypes.c_char_p
-        _check(lib, lib.stamp_load(), "loading the stamp kernel")
-        _lib = lib
-    return _lib
-
-
-def _check(lib, rc: int, what: str) -> None:
-    if rc:
-        raise RuntimeError(f"{what}: CUDA error {rc} "
-                           f"({lib.stamp_error(rc).decode()})")
+_LIB = cuda_lib.Library("stamp", _bind, counted=False)
 
 
 class _HostRing:
@@ -148,8 +128,7 @@ class _DeviceRing:
         self.first = self.measure_offset()
 
     def stamp(self, stage: int, op: int) -> None:
-        lib = _library()
-        _check(lib, lib.stamp_launch(
+        _LIB.check(_LIB.library().stamp_launch(
             self.tensor.data_ptr(), self.capacity, len(STAGES), stage, op,
             torch.cuda.current_stream(self.device).cuda_stream),
             "launching a stamp")
@@ -226,7 +205,7 @@ class Recorder:
             torch.cuda.current_device()
         ring = self.devices.get(idx)
         if ring is None:
-            _library()
+            _LIB.library()
             ring = self.devices[idx] = _DeviceRing(self.capacity,
                                                    torch.device("cuda", idx))
         return ring
@@ -427,24 +406,6 @@ def capture(device):
 # ---- reading ----------------------------------------------------------------
 
 
-def _launch_counts() -> Dict[str, int]:
-    """The launch counters of the hand-written kernels that have been
-    loaded (a counter on the card is read with a synchronise)."""
-    from putslam_tpu_torch.ops import (fast_cuda, guided_match, kabsch,
-                                       keypoints, ransac_score, segment)
-
-    out = {"fast_score_nms": int(fast_cuda.fast_score_nms.launches)}
-    for name, mod in (("segment_sum", segment), ("kabsch_fit", kabsch),
-                      ("keypoints", keypoints),
-                      ("guided_match", guided_match)):
-        if mod._LIB._lib is not None:
-            out[name] = mod.launch_count()
-    if ransac_score._LIB._lib is not None:
-        for mode, n in ransac_score.launch_counts().items():
-            out[f"ransac_score.{mode}"] = n
-    return out
-
-
 def snapshot(rec: Optional[Recorder] = None) -> dict:
     """What the recorder holds, as plain numpy arrays (one copy of each card
     ring to the host):
@@ -462,7 +423,8 @@ def snapshot(rec: Optional[Recorder] = None) -> dict:
     * ``clock``: per card, ``offset_ns`` (card − host, first reading),
       ``drift_ns`` (the offset now less the first), ``over_s`` (seconds
       between the two) and ``error_ns`` (the wider half bracket);
-    * ``launches``: the kernels' launch counters."""
+    * ``launches``: the launch counters of the kernels that are loaded
+      (``cuda_lib.launch_counts()``: ``{name: n}``, ``{name.mode: n}``)."""
     rec = rec or _recorder
     n = min(rec.n_replays, rec.capacity)
     meta = [rec.meta[r % rec.capacity]
@@ -511,7 +473,7 @@ def snapshot(rec: Optional[Recorder] = None) -> dict:
     out["span_totals"] = {name: {"count": c, "total_ns": t}
                           for name, (c, t) in zip(rec.names, rec.totals)}
     out["clock"] = clock
-    out["launches"] = _launch_counts()
+    out["launches"] = cuda_lib.launch_counts()
     return out
 
 

@@ -29,7 +29,8 @@ import pytest
 import torch
 from _guided_cases import gates, make
 
-from putslam_tpu_torch.ops import cuda_lib, guided_match as gops
+from putslam_tpu_torch.ops import guided_match as gops
+from putslam_tpu_torch.utils import cuda_lib
 
 pytestmark = pytest.mark.cuda
 
@@ -165,13 +166,13 @@ def test_kernel_on_the_maps_of_a_fr1_walk(cuda, fr1_maps, stop):
 def test_one_counted_launch_a_call(cuda):
     lm_cam, lm, feat = make("tiny", 2, device=cuda)
     g = gates()
-    gops.reset_launch_count()
+    gops._LIB.reset_launch_count()
     gops.match(lm_cam, lm, feat, g)
     gops.match(lm_cam, lm, feat, g)
     with cuda_lib.uncounted():
         gops.match(lm_cam, lm, feat, g)
     gops.plain_match(lm_cam, lm, feat, g)
-    assert gops.launch_count() == 2
+    assert gops._LIB.launch_count() == 2
 
 
 def test_replayed_from_a_graph(cuda):
@@ -187,7 +188,7 @@ def test_replayed_from_a_graph(cuda):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = gops.match(*bufs, g)
-    gops.reset_launch_count()
+    gops._LIB.reset_launch_count()
     for seed in (6, 7):
         lm_cam, lm, feat = make("fr1", seed, scale=2.0, device=cuda)
         bufs[0].copy_(lm_cam)
@@ -199,7 +200,7 @@ def test_replayed_from_a_graph(cuda):
         torch.cuda.synchronize()
         assert_same(out, gops.plain_match(lm_cam, lm, feat, g),
                     f"seed {seed} replayed")
-    assert gops.launch_count() == 2
+    assert gops._LIB.launch_count() == 2
 
 
 def test_a_launch_a_replayed_frame_and_rung(cuda):
@@ -213,12 +214,12 @@ def test_a_launch_a_replayed_frame_and_rung(cuda):
     with timing.recording(timing.Recorder()) as rec:
         compiled.clear_cache()
         state = slam.slam_init(cfg, g[0], d[0], poses[0], device=cuda)
-        gops.reset_launch_count()
+        gops._LIB.reset_launch_count()
         gen = torch.Generator(device=cuda)
         gen.manual_seed(5)
         compiled.run_sequence(cfg, state, g[1:], d[1:], generator=gen,
                               capture=True)
-        launches = gops.launch_count()
+        launches = gops._LIB.launch_count()
         snap = timing.snapshot(rec)
     compiled.clear_cache()
     frames = snap["valid"] & (snap["root"] == S["frame"])
@@ -250,9 +251,9 @@ def test_the_map_match_is_one_launch(cuda):
                  angle=torch.zeros(n, device=cuda), desc=feat.desc,
                  valid=feat.has_depth, has_depth=feat.has_depth)
     pose = torch.tensor([0, 0, 0, 1, 0, 0, 0.0], device=cuda)
-    gops.reset_launch_count()
+    gops._LIB.reset_launch_count()
     one = fm.guided_match(cfg, m, pose, f)
-    assert gops.launch_count() == 1
+    assert gops._LIB.launch_count() == 1
     ref = gops.plain_match(fm._landmarks_in_camera(m, pose), m, f,
                            fm._gates(cfg, 1.0, 0.0))
     assert_same(one, ref, "the map's guided_match")
@@ -314,11 +315,11 @@ def _same_bits(a, b):
 def test_a_fr1_walk_is_the_same_with_the_chain(cuda, walk):
     """Every output of every frame and the final state, bit for bit."""
     seq = _fr1_walk(cuda, walk, 777)
-    gops.reset_launch_count()
+    gops._LIB.reset_launch_count()
     state_k, outs_k = _sequence(seq, chain=False)
-    launches = gops.launch_count()
+    launches = gops._LIB.launch_count()
     state_c, outs_c = _sequence(seq, chain=True)
-    assert gops.launch_count() == launches >= len(outs_k.pose)
+    assert gops._LIB.launch_count() == launches >= len(outs_k.pose)
     for name, a, b in zip(outs_k._fields, outs_k, outs_c):
         assert _same_bits(a, b), name
     for name, a, b in zip(state_k.map._fields, state_k.map, state_c.map):

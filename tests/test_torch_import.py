@@ -42,6 +42,7 @@ def test_port_imports_with_jax_blocked():
             "import putslam_tpu_torch.models.compiled\n"
             "import putslam_tpu_torch.utils.control\n"
             "import putslam_tpu_torch.utils.graph_cond\n"
+            "import putslam_tpu_torch.utils.cuda_lib\n"
             "import putslam_tpu_torch.ops.segment\n"
             "import putslam_tpu_torch.ops.ransac_score\n"
             "import putslam_tpu_torch.ops.keypoints\n"
@@ -104,7 +105,8 @@ def _port_sources():
                  "ops/klt.py", "models/compiled.py", "utils/control.py",
                  "utils/graph_cond.py", "models/slam.py", "ops/segment.py",
                  "ops/ransac_score.py", "ops/keypoints.py",
-                 "ops/guided_match.py"):
+                 "ops/guided_match.py", "ops/fast_cuda.py",
+                 "utils/cuda_lib.py"):
         assert f"putslam_tpu_torch/{name}" in rel, name
     assert all(f.exists() for f in files)
     return files
@@ -138,3 +140,32 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              env=dict(os.environ, PYTHONPATH=""))
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_port_scripts_import_names_that_exist():
+    """Every ``from putslam_tpu_torch... import name`` in the smoke, the
+    port's tools and ``bench_torch.py`` names a module or an attribute
+    that exists, function-level imports included (the smoke runs only on
+    the card, so a stale import would show only there)."""
+    import ast
+    import importlib
+
+    sys.path.insert(0, str(ROOT))
+    scripts = [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
+    scripts += sorted((ROOT / "tools").glob("*_torch.py"))
+    checked, missing = 0, []
+    for f in scripts:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.ImportFrom) and node.module \
+                    and node.module.split(".")[0] == "putslam_tpu_torch":
+                mod = importlib.import_module(node.module)
+                for a in node.names:
+                    checked += 1
+                    if not hasattr(mod, a.name):
+                        try:
+                            importlib.import_module(f"{node.module}.{a.name}")
+                        except ImportError:
+                            missing.append(f"{f.name}:{node.lineno} "
+                                           f"{node.module}.{a.name}")
+    assert checked > 100
+    assert missing == []

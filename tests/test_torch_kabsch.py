@@ -351,7 +351,6 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a CPU tensor reached the kernel's launch")
 
-    monkeypatch.setattr(tkabsch, "_launch_sampled", refuse)
     monkeypatch.setattr(tkabsch, "_launch_weighted", refuse)
     p, q, w = (t(x) for x in _weighted_case("refit_512"))
     assert torch.equal(tkabsch.weighted_kabsch(p, q, w),
@@ -363,9 +362,6 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
 
 def test_launch_refuses_a_cpu_tensor():
     """The CUDA path checks its inputs before it builds or launches."""
-    comps = [t(c) for c in _sampled_case("sampled_1024")]
-    with pytest.raises(ValueError, match="device"):
-        tkabsch._launch_sampled(comps, 30)
     p, q, w = (t(x) for x in _weighted_case("refit_512"))
     with pytest.raises(ValueError, match="device"):
         tkabsch._launch_weighted(p, q, w, 30)

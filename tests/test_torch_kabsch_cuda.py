@@ -1,9 +1,8 @@
-"""RANSAC's rigid fit as the hand-written kernel (``csrc/kabsch_fit.cu``)
-on the card.
+"""RANSAC's weighted refit as the hand-written kernel
+(``csrc/kabsch_fit.cu``) on the card.
 
-The kernel against its plain version on the card, bit for bit: the
-sampled fit at the main path's 1024 hypotheses of 3 points, the refit at
-the VO's and the map's 512 matches, at loop closure's 128, at 1500 (read
+The kernel against its plain version on the card, bit for bit: the refit
+at the VO's and the map's 512 matches, at loop closure's 128, at 1500 (read
 from global memory, not staged) and in a batch of 700-match rows, the
 degenerate inputs (all-zero weights, three
 equal points, collinear points, fewer than 3 valid matches), and at the
@@ -11,10 +10,10 @@ edges of the warps' split of the sums (N 1 to 2051, one and three rows,
 0/1 and all-zero weights); one launch a
 call. Replayed from a CUDA graph it gives the eager bits, and a launch
 inside a conditional node's body counts only where the card runs the body
-(the warm-up under ``uncounted`` not at all). Float64 and non-contiguous
-input on the card raise. Then ``ransac.estimate`` at the fr1 widths: the
-same bits eager, twice, and replayed (its sampled fit is
-``csrc/ransac_score.cu``'s since that kernel came).
+(the warm-up under ``uncounted`` not at all). Float64, non-contiguous and
+misshapen input on the card raise. Then ``ransac.estimate`` at the fr1
+widths: the same bits eager, twice, and replayed (its sampled fit is
+``csrc/ransac_score.cu``'s, whose card tests hold its bits).
 
 Needs a CUDA card and skips without one. Imports no JAX, so on the machine
 with the card it runs as:
@@ -24,8 +23,8 @@ import numpy as np
 import pytest
 import torch
 
-from putslam_tpu_torch.ops import cuda_lib, kabsch
-from putslam_tpu_torch.utils import control, graph_cond
+from putslam_tpu_torch.ops import kabsch
+from putslam_tpu_torch.utils import control, cuda_lib, graph_cond
 
 pytestmark = pytest.mark.cuda
 
@@ -96,41 +95,13 @@ WEIGHTED = ["matches_512", "loop_closure_128", "unstaged_1500", "batch",
                               1024, 1025, 2051) for B in (1, 3)]
 
 
-def _sampled(kind, seed, dev):
-    """The six (3, 1024) components of a sampled fit on ``dev``."""
-    rng = np.random.default_rng(seed)
-    p, q = _collinear(rng, 512) if kind == "collinear" else _scene(rng, 512)
-    idx = rng.integers(0, 512, (3, 1024))
-    if kind == "three_equal_points":
-        idx[:] = idx[0]
-    return [torch.from_numpy(np.ascontiguousarray(x[:, c][idx])).to(dev)
-            for x in (p, q) for c in range(3)]
-
-
-SAMPLED = ["hypotheses_1024", "three_equal_points", "collinear"]
-
-
-@pytest.mark.parametrize("kind", SAMPLED)
-def test_sampled_fit_equals_plain_bit_for_bit(cuda, kind):
-    comps = _sampled(kind, SAMPLED.index(kind), cuda)
-    kabsch.reset_launch_count()
-    got = kabsch.kabsch_soa(*comps)
-    again = kabsch.kabsch_soa(*comps)
-    assert kabsch.launch_count() == 2
-    ref = kabsch.plain_kabsch_soa(*comps)
-    torch.cuda.synchronize()
-    assert got.shape == (1024, 7)
-    assert torch.equal(got, ref)
-    assert torch.equal(again, got)
-
-
 @pytest.mark.parametrize("kind", WEIGHTED)
 def test_refit_equals_plain_bit_for_bit(cuda, kind):
     p, q, w = (torch.from_numpy(x).to(cuda)
                for x in _weighted(kind, 10 + WEIGHTED.index(kind)))
-    kabsch.reset_launch_count()
+    kabsch._LIB.reset_launch_count()
     got = kabsch.weighted_kabsch(p, q, w)
-    assert kabsch.launch_count() == 1
+    assert kabsch._LIB.launch_count() == 1
     ref = kabsch.plain_weighted_kabsch(p, q, w)
     torch.cuda.synchronize()
     assert got.shape == p.shape[:-2] + (7,)
@@ -147,13 +118,6 @@ def test_refuses_what_it_does_not_take(cuda):
         kabsch.weighted_kabsch(p.t().contiguous().t(), q, w)
     with pytest.raises(ValueError, match=r"w \(511,\)"):
         kabsch.weighted_kabsch(p, q, w[:-1])
-    comps = _sampled("hypotheses_1024", 4, cuda)
-    with pytest.raises(ValueError, match="float32"):
-        kabsch.kabsch_soa(*(c.double() for c in comps))
-    with pytest.raises(ValueError, match="contiguous"):
-        kabsch.kabsch_soa(*(c.t().contiguous().t() for c in comps))
-    with pytest.raises(ValueError, match="shapes"):
-        kabsch.kabsch_soa(comps[0][:, :-1].contiguous(), *comps[1:])
 
 
 def _capture(fn):
@@ -177,21 +141,21 @@ _capture.pools = []      # each graph's body pool lives as long as the module
 
 
 def test_replayed_from_a_graph_and_an_if_body(cuda):
-    comps = _sampled("hypotheses_1024", 5, cuda)
+    outer = [torch.from_numpy(x).to(cuda) for x in _weighted("batch", 5)]
     p, q, w = (torch.from_numpy(x).to(cuda)
                for x in _weighted("matches_512", 6))
-    eager = (kabsch.kabsch_soa(*comps), kabsch.weighted_kabsch(p, q, w))
+    eager = (kabsch.weighted_kabsch(*outer), kabsch.weighted_kabsch(p, q, w))
     pred = torch.zeros((), dtype=torch.bool, device=cuda)
-    direct = torch.zeros((1024, 7), device=cuda)
+    direct = torch.zeros((3, 7), device=cuda)
     body = torch.zeros((7,), device=cuda)
 
     def frame():
-        direct.copy_(kabsch.kabsch_soa(*comps))
+        direct.copy_(kabsch.weighted_kabsch(*outer))
         control.cond(pred, lambda: kabsch.weighted_kabsch(p, q, w), body)
 
-    kabsch.reset_launch_count()
+    kabsch._LIB.reset_launch_count()
     graph, _ = _capture(frame)
-    assert kabsch.launch_count() == 0        # warm-up uncounted, capture
+    assert kabsch._LIB.launch_count() == 0        # warm-up uncounted, capture
     for on in (False, True, True):           # records, runs nothing
         body.fill_(-1.0)
         direct.zero_()
@@ -204,7 +168,7 @@ def test_replayed_from_a_graph_and_an_if_body(cuda):
         else:
             assert torch.equal(body, torch.full_like(body, -1.0))
     # one launch a replay outside the body, one in each replay that ran it
-    assert kabsch.launch_count() == 3 + 2
+    assert kabsch._LIB.launch_count() == 3 + 2
 
 
 def test_estimate_repeats_itself_eager_and_replayed(cuda):
@@ -225,9 +189,9 @@ def test_estimate_repeats_itself_eager_and_replayed(cuda):
     def call():
         return ransac.estimate(cfg, None, p, q, valid, u=u)
 
-    kabsch.reset_launch_count()
+    kabsch._LIB.reset_launch_count()
     first = call()
-    assert kabsch.launch_count() == cfg.refit_iterations
+    assert kabsch._LIB.launch_count() == cfg.refit_iterations
     graph, replayed = _capture(call)
     graph.replay()
     torch.cuda.synchronize()

@@ -12,12 +12,10 @@ and beyond, the tiny config). ``grid_policy="exact"`` keeps its ATen chain:
 kernel's selection (a warp a subtile's first maximum, then each
 candidate's rank by count) is written out in numpy and equals
 ``fast.grid_topk``'s stable sort on every level of those frames. The
-layout at fr1, the float32 camera numbers, the bfloat16 patch
-matrix, and the new source in the library's build hash. The card's own
-tests are ``test_torch_keypoints_cuda.py``."""
+layout at fr1, the float32 camera numbers and the bfloat16 patch
+matrix. The card's own tests are ``test_torch_keypoints_cuda.py``."""
 
 import dataclasses
-import shutil
 
 import _torch_port  # noqa: F401  (one thread a worker)
 import numpy as np
@@ -29,7 +27,8 @@ from putslam_tpu_torch.config import tum_fr1_config
 from putslam_tpu_torch.convert import brief_bank
 from putslam_tpu_torch.frontend import detector
 from putslam_tpu_torch.geometry import camera as camera_mod
-from putslam_tpu_torch.ops import brief, cuda_lib, fast, fast_cuda, keypoints
+from putslam_tpu_torch.ops import brief, fast, fast_cuda, keypoints
+from putslam_tpu_torch.utils import cuda_lib
 
 
 def old_detect(cfg, gray, depth):
@@ -166,7 +165,7 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch):
         raise AssertionError("a CPU tensor reached the kernel")
 
     monkeypatch.setattr(keypoints, "_launch", never)
-    monkeypatch.setattr(cuda_lib.CountedLibrary, "library", never)
+    monkeypatch.setattr(cuda_lib.Library, "library", never)
     got = keypoints.chain(*args)
     ref = keypoints.plain_chain(*args)
     for name, x, y in zip(keypoints.Chain._fields, got, ref):
@@ -341,18 +340,3 @@ def test_describe_patches_takes_the_patch_matrix():
         (d0, a0), (d1, a1) = (brief.describe_patches(x, kind)
                               for x in (p, flat))
         assert torch.equal(d0, d1) and torch.equal(_bits(a0), _bits(a1))
-
-
-def test_build_path_covers_the_source(tmp_path):
-    src = cuda_lib.CSRC / "keypoints.cu"
-    assert keypoints._LIB.source == src
-    assert fast_cuda.included_sources(src) == [src.resolve()]
-    flags = cuda_lib.NVCC_FLAGS
-    assert "-fmad=false" in flags
-    copy = tmp_path / "keypoints.cu"
-    shutil.copy(src, copy)
-    first = fast_cuda.compiled_path(copy, flags)
-    assert first.name.startswith("keypoints_")
-    assert first == fast_cuda.compiled_path(src, flags)
-    copy.write_text(copy.read_text() + "\n// changed\n")
-    assert fast_cuda.compiled_path(copy, flags) != first

@@ -25,7 +25,8 @@ import torch
 from _keypoints_cases import CASES, chain_inputs, make
 
 from putslam_tpu_torch.frontend import detector
-from putslam_tpu_torch.ops import brief, cuda_lib, keypoints
+from putslam_tpu_torch.ops import brief, keypoints
+from putslam_tpu_torch.utils import cuda_lib
 
 pytestmark = pytest.mark.cuda
 
@@ -89,13 +90,13 @@ def test_detect_and_describe_equals_the_aten_chain(cuda, case):
 def test_one_counted_launch_a_call(cuda):
     args = chain_inputs(*make("fr1_0", cuda))
     keypoints.chain(*args)
-    keypoints.reset_launch_count()
+    keypoints._LIB.reset_launch_count()
     for _ in range(3):
         keypoints.chain(*args)
-    assert keypoints.launch_count() == 3
+    assert keypoints._LIB.launch_count() == 3
     with cuda_lib.uncounted():
         keypoints.chain(*args)
-    assert keypoints.launch_count() == 3
+    assert keypoints._LIB.launch_count() == 3
 
 
 def test_replayed_equals_eager(cuda):
@@ -108,7 +109,7 @@ def test_replayed_equals_eager(cuda):
         keypoints.chain(det, cam, shapes, budgets, levels, maps, depth)
     stream.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    keypoints.reset_launch_count()
+    keypoints._LIB.reset_launch_count()
     with torch.cuda.graph(graph):
         out = keypoints.chain(det, cam, shapes, budgets, levels, maps, depth)
     for case in ("fr1_1", "fr1_2"):
@@ -123,7 +124,7 @@ def test_replayed_equals_eager(cuda):
         graph.replay()
         torch.cuda.synchronize()
         assert_same(out, eager, f"{case} replayed")
-    assert keypoints.launch_count() == 2 * 3   # an eager call, 2 replays
+    assert keypoints._LIB.launch_count() == 2 * 3   # an eager call, 2 replays
 
 
 def test_one_launch_a_replayed_slam_frame(cuda):
@@ -137,12 +138,12 @@ def test_one_launch_a_replayed_slam_frame(cuda):
     with timing.recording(timing.Recorder()) as rec:
         compiled.clear_cache()
         state = slam.slam_init(cfg, g[0], d[0], poses[0], device=cuda)
-        keypoints.reset_launch_count()
+        keypoints._LIB.reset_launch_count()
         gen = torch.Generator(device=cuda)
         gen.manual_seed(5)
         compiled.run_sequence(cfg, state, g[1:], d[1:], generator=gen,
                               capture=True)
-        launches = keypoints.launch_count()
+        launches = keypoints._LIB.launch_count()
         snap = timing.snapshot(rec)
     compiled.clear_cache()
     frames = snap["valid"] & (snap["root"] == S["frame"])
@@ -179,9 +180,9 @@ def test_wrong_input_raises(cuda):
 def test_exact_policy_takes_the_aten_chain(cuda, case):
     det, *rest = chain_inputs(*make(case, cuda))
     det = dataclasses.replace(det, grid_policy="exact")
-    keypoints.reset_launch_count()
+    keypoints._LIB.reset_launch_count()
     got = keypoints.chain(det, *rest)
     ref = keypoints.plain_chain(det, *rest)
     torch.cuda.synchronize()
-    assert keypoints.launch_count() == 0
+    assert keypoints._LIB.launch_count() == 0
     assert_same(got, ref, f"{case}, exact cap")

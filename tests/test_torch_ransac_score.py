@@ -13,13 +13,11 @@ fr1 widths (1024 poses, 512 matches) and at the tiny config's; and
 takes the plain path and the launch refuses one. ``ransac.estimate``
 against the JAX package's on the same draws (atol 1e-5, as
 ``tests/test_torch_kabsch.py::test_estimate_at_fr1_widths_matches_jax_same_draws``)
-for each model at the fr1 widths. The build of a kernel library is named by
-its source and the headers it includes. The kernel itself runs on the card
+for each model at the fr1 widths. The kernel itself runs on the card
 only: ``tests/test_torch_ransac_score_cuda.py``.
 """
 
 import dataclasses
-import shutil
 import zlib
 
 import jax
@@ -33,7 +31,6 @@ from putslam_tpu.config import tiny_test_config, tum_fr1_config
 from putslam_tpu.frontend import ransac as jransac
 from putslam_tpu_torch.frontend import ransac as transac
 from putslam_tpu_torch.geometry import se3 as tse3
-from putslam_tpu_torch.ops import cuda_lib, fast_cuda
 from putslam_tpu_torch.ops import kabsch as tkabsch
 from putslam_tpu_torch.ops import ransac_score as tscore
 
@@ -273,31 +270,3 @@ def test_estimate_at_fr1_widths_matches_jax_same_draws(version, with_info):
     for f in ("inliers", "n_inliers", "ok"):
         np.testing.assert_array_equal(n(getattr(got, f)),
                                       np.asarray(getattr(ref, f)))
-
-
-def test_build_path_covers_the_included_headers(tmp_path):
-    """A library's build is named by a hash of its source, the flags and
-    every header the source includes (here through a second header): a
-    changed header builds anew, an unchanged tree reuses the build."""
-    src = tmp_path / "ransac_score.cu"
-    shutil.copy(cuda_lib.CSRC / "ransac_score.cu", src)
-    shutil.copy(cuda_lib.CSRC / "horn_fit.cuh", tmp_path / "horn_fit.cuh")
-    flags = cuda_lib.NVCC_FLAGS
-    assert fast_cuda.included_sources(src) == [
-        src.resolve(), (tmp_path / "horn_fit.cuh").resolve()]
-    first = fast_cuda.compiled_path(src, flags)
-    assert fast_cuda.compiled_path(src, flags) == first
-    assert first.name.startswith("ransac_score_")
-    header = tmp_path / "horn_fit.cuh"
-    header.write_text(header.read_text() + "\n// changed\n")
-    second = fast_cuda.compiled_path(src, flags)
-    assert second != first
-    # a header included by a header counts too
-    (tmp_path / "inner.cuh").write_text("// inner\n")
-    header.write_text(header.read_text() + '#include "inner.cuh"\n')
-    third = fast_cuda.compiled_path(src, flags)
-    (tmp_path / "inner.cuh").write_text("// inner, changed\n")
-    assert fast_cuda.compiled_path(src, flags) not in (first, second, third)
-    # the repository's own: kabsch_fit.cu includes horn_fit.cuh
-    assert (cuda_lib.CSRC / "horn_fit.cuh").resolve() in \
-        fast_cuda.included_sources(cuda_lib.CSRC / "kabsch_fit.cu")

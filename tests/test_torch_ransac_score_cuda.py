@@ -27,8 +27,8 @@ import torch
 
 from putslam_tpu_torch.config import tum_fr1_config
 from putslam_tpu_torch.frontend import ransac
-from putslam_tpu_torch.ops import cuda_lib, kabsch, ransac_score
-from putslam_tpu_torch.utils import control, graph_cond
+from putslam_tpu_torch.ops import kabsch, ransac_score
+from putslam_tpu_torch.utils import control, cuda_lib, graph_cond
 
 pytestmark = pytest.mark.cuda
 
@@ -117,10 +117,11 @@ def _equal(got, ref, what):
 @pytest.mark.parametrize("kind", sorted(CASES))
 def test_hypotheses_equal_plain_bit_for_bit(cuda, kind):
     model, p, q, valid, info, idx = _case(kind, cuda)
-    ransac_score.reset_launch_count()
+    ransac_score._LIB.reset_launch_count()
     got = ransac_score.hypotheses(p, q, valid, idx, model, info)
     again = ransac_score.hypotheses(p, q, valid, idx, model, info)
-    assert ransac_score.launch_counts() == {"hypotheses": 2, "score": 0}
+    assert ransac_score._LIB.launch_counts() == {
+        "ransac_score.hypotheses": 2, "ransac_score.score": 0}
     ref = ransac_score.plain_hypotheses(p, q, valid, idx, model, info)
     torch.cuda.synchronize()
     _equal(got, ref, kind)
@@ -138,9 +139,10 @@ def test_score_equals_plain_bit_for_bit(cuda, kind, B):
     model, p, q, valid, info, idx = _case(kind, cuda)
     T = ransac_score.plain_hypotheses(p, q, valid, idx, model, info)[0][:B]
     T = T.contiguous()
-    ransac_score.reset_launch_count()
+    ransac_score._LIB.reset_launch_count()
     got = ransac_score.score(T, p, q, valid, model, info)
-    assert ransac_score.launch_counts() == {"hypotheses": 0, "score": 1}
+    assert ransac_score._LIB.launch_counts() == {
+        "ransac_score.hypotheses": 0, "ransac_score.score": 1}
     _equal(got, ransac_score.plain_score(T, p, q, valid, model, info), kind)
     assert got[0].shape == (B, p.shape[0])
 
@@ -198,9 +200,9 @@ def test_replayed_from_a_graph_and_an_if_body(cuda):
         control.cond(pred, lambda: ransac_score.score(T1, p, q, valid,
                                                       model)[1], body)
 
-    ransac_score.reset_launch_count()
+    ransac_score._LIB.reset_launch_count()
     graph, _ = _capture(frame)
-    assert ransac_score.launch_count() == 0   # warm-up uncounted, capture
+    assert ransac_score._LIB.launch_count() == 0   # warm-up uncounted, capture
     for on in (False, True, True):            # records, runs nothing
         body.fill_(-1)
         direct.zero_()
@@ -213,7 +215,8 @@ def test_replayed_from_a_graph_and_an_if_body(cuda):
         else:
             assert torch.equal(body, torch.full_like(body, -1))
     # one launch a replay outside the body, one in each replay that ran it
-    assert ransac_score.launch_counts() == {"hypotheses": 3, "score": 2}
+    assert ransac_score._LIB.launch_counts() == {
+        "ransac_score.hypotheses": 3, "ransac_score.score": 2}
 
 
 def test_estimate_is_one_hypotheses_launch_and_a_score_a_refit(cuda):
@@ -230,12 +233,13 @@ def test_estimate_is_one_hypotheses_launch_and_a_score_a_refit(cuda):
     def call():
         return ransac.estimate(cfg, None, p, q, valid, u=u)
 
-    ransac_score.reset_launch_count()
-    kabsch.reset_launch_count()
+    ransac_score._LIB.reset_launch_count()
+    kabsch._LIB.reset_launch_count()
     first = call()
-    assert ransac_score.launch_counts() == {
-        "hypotheses": 1, "score": cfg.refit_iterations}
-    assert kabsch.launch_count() == cfg.refit_iterations
+    assert ransac_score._LIB.launch_counts() == {
+        "ransac_score.hypotheses": 1,
+        "ransac_score.score": cfg.refit_iterations}
+    assert kabsch._LIB.launch_count() == cfg.refit_iterations
     graph, replayed = _capture(call)
     graph.replay()
     torch.cuda.synchronize()

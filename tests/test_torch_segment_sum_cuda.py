@@ -30,7 +30,7 @@ import torch
 
 from putslam_tpu_torch.ops import segment
 from putslam_tpu_torch.ops.segment import SegmentPlan
-from putslam_tpu_torch.utils import control, graph_cond
+from putslam_tpu_torch.utils import control, cuda_lib, graph_cond
 
 pytestmark = pytest.mark.cuda
 
@@ -112,10 +112,10 @@ def test_kernel_equals_plain_bit_for_bit(cuda, case):
         x, idx, n = _case(case, seed=CASES.index(case))
         xs = x.to(cuda)
     plan = SegmentPlan(idx.to(cuda), n)
-    segment.reset_launch_count()
+    segment._LIB.reset_launch_count()
     got = plan.sum(xs)
     again = plan.sum(xs)
-    assert segment.launch_count() == 2
+    assert segment._LIB.launch_count() == 2
     ref = _plain_cpu(x, idx, n)
     assert got.shape == ref.shape
     assert torch.equal(got.cpu(), ref)
@@ -136,7 +136,7 @@ def _capture(fn):
     capture it; returns the graph and what the capture returned."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side), segment.uncounted():
+    with torch.cuda.stream(side), cuda_lib.uncounted():
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
@@ -165,9 +165,9 @@ def test_replayed_from_a_graph_and_an_if_body(cuda):
         # the plan built inside the body, as the BA builds its plans
         control.cond(pred, lambda: SegmentPlan(ids, n).sum(xs), out)
 
-    segment.reset_launch_count()
+    segment._LIB.reset_launch_count()
     graph, _ = _capture(frame)
-    assert segment.launch_count() == 0       # warm-up uncounted, capture
+    assert segment._LIB.launch_count() == 0       # warm-up uncounted, capture
     for on in (False, True, True):           # records, runs nothing
         out.fill_(-1.0)
         direct.zero_()
@@ -180,9 +180,9 @@ def test_replayed_from_a_graph_and_an_if_body(cuda):
         else:
             assert torch.equal(out, torch.full_like(out, -1.0))
     # one launch a replay outside the body, one in each replay that ran it
-    assert segment.launch_count() == 3 + 2
+    assert segment._LIB.launch_count() == 3 + 2
     SegmentPlan(ids, n).sum(xs)
-    assert segment.launch_count() == 6
+    assert segment._LIB.launch_count() == 6
 
 
 def _dense_map(cuda):
@@ -222,9 +222,9 @@ def test_gauss_newton_mm_repeats_itself_with_63_free_keyframes(cuda):
                                     m.lm_valid, g, fixed, lm_gen=m.lm_gen,
                                     kf_gen=m.kf_gen, cam=cfg.camera)
 
-    segment.reset_launch_count()
+    segment._LIB.reset_launch_count()
     eager = [solve(), solve()]
-    assert segment.launch_count() > 0
+    assert segment._LIB.launch_count() > 0
     graph, replayed = _capture(solve)
     graph.replay()
     torch.cuda.synchronize()

@@ -19,14 +19,13 @@ The cell is ``chip_smoke.py`` phase 7b's bench: the fr1 config, the
   its predicate, so the branches that run are the replay's): each
   ``mul`` / ``add`` / ``sub`` operator on a CUDA tensor (one kernel each)
   attributed to the innermost function of the port's package on the
-  Python stack, by a ``TorchDispatchMode``; and the calls of RANSAC's fit
-  (``ops/kabsch.py``: ``kabsch_soa``, ``weighted_kabsch``) and, where the
-  checkout has them, of its hypotheses and scores
-  (``ops/ransac_score.py``: ``hypotheses``, ``score``) a frame.
-* One fit alone, profiled: the kernels a sampled fit (1024 hypotheses of 3
-  points) and a refit (512 matches) launch; and one ``ransac.estimate``
-  call at the fr1 widths (1024 hypotheses, 512 matches, two refits): its
-  kernels, by kind, and its sampler's alone.
+  Python stack, by a ``TorchDispatchMode``; and the calls of RANSAC's refit
+  (``ops/kabsch.py``: ``weighted_kabsch``) and, where the checkout has
+  them, of its hypotheses and scores (``ops/ransac_score.py``:
+  ``hypotheses``, ``score``) a frame.
+* One refit alone (512 matches), profiled: the kernels it launches; and
+  one ``ransac.estimate`` call at the fr1 widths (1024 hypotheses, 512
+  matches, two refits): its kernels, by kind, and its sampler's alone.
 
 ``--repo`` imports ``putslam_tpu_torch`` from another checkout (a parent
 commit, unpacked with ``git archive``), so that two versions are counted on
@@ -153,8 +152,7 @@ def main():
 
     host()
     fits = collections.Counter()
-    real = {(kabsch, name): getattr(kabsch, name)
-            for name in ("kabsch_soa", "weighted_kabsch")}
+    real = {(kabsch, "weighted_kabsch"): kabsch.weighted_kabsch}
     if ransac_score is not None:
         real.update({(ransac_score, name): getattr(ransac_score, name)
                      for name in ("hypotheses", "score")})
@@ -176,15 +174,11 @@ def main():
             setattr(*key, fn)
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    comps = [torch.rand((3, 1024), generator=gen, device=dev)
-             for _ in range(6)]
     p, q = (torch.rand((512, 3), generator=gen, device=dev)
             for _ in range(2))
     w = (torch.rand((512,), generator=gen, device=dev) < 0.7).float()
-    one_fit = {"kabsch_soa": profiled_kernels(
-                   torch, lambda: kabsch.kabsch_soa(*comps)),
-               "weighted_kabsch": profiled_kernels(
-                   torch, lambda: kabsch.weighted_kabsch(p, q, w))}
+    one_fit = {"weighted_kabsch": profiled_kernels(
+        torch, lambda: kabsch.weighted_kabsch(p, q, w))}
 
     # one RANSAC call at the fr1 widths, and its sampler alone
     rcfg = cfg.ransac
