@@ -27,7 +27,9 @@ Phases (any failed check raises and the script exits non-zero):
      call per frame, segment sums launched (the bench makes no keyframe,
      so finalize's), at least 2 hypotheses launches, 4 score launches and
      4 refits a frame (the VO and the map's pass, a hypotheses launch and
-     two refits each, a score launch a refit), final ATE under the gate.
+     two refits each, a score launch a refit), one pose-pose edge launch a
+     Gauss-Newton iteration run (finalize's, by the recorder's
+     gn_iteration stamps), final ATE under the gate.
  5b. the same frames with every tracked frame a keyframe, so keyframe
      bookkeeping and the windowed, landmark-blocked BA run in the loop.
  5c. the segment-sum kernel (csrc/segment_sum.cu, the solvers' sums in a
@@ -87,6 +89,23 @@ Phases (any failed check raises and the script exits non-zero):
      own duration in torch.profiler) beside the ATen chain eager and
      replayed from a graph (its kernels and device time) and the bound from
      the bytes it must move.
+  5h. the pose-pose edge terms of the BA (csrc/pp_edge.cu, one launch a
+     Gauss-Newton iteration): on phase 5b's graphs after frames 15, 31, 47
+     and 62, and on each with every slot a live edge between two of its
+     keyframes (angles in both Taylor windows, up to near π), each robust
+     kernel, with and without the generations, the
+     kernel against the ATen chain it replaces (``pp_edge.plain_terms`` on
+     the card) bit for bit in r6, Ji, Jj, wpp and sq_pp (max_abs_err 0),
+     twice the same, and replayed from a CUDA graph the same bits; a whole
+     in-loop BA call and ``finalize`` with the kernel and with the chain
+     the same bits, one launch an iteration; timed on the last graph (CUDA
+     events behind a spin kernel: eager and replayed; its own duration in
+     torch.profiler) beside the ATen chain eager and replayed from a graph
+     (its kernels and device time) and the bound from the bytes it must
+     move; the ATen ops of one in-loop BA call by function of
+     backend/optimize.py with the kernel and with the chain (at most 1,000
+     with the kernel). Phases 5 and 7b count one launch a Gauss-Newton
+     iteration run (the recorder's gn_iteration stamps on the graph path).
  6. the CLI: putslam_tpu_torch.run --synthetic 30 writes its five files
      (statistics.txt included) and reports an ATE under 0.05 m; with
      --loop-closure the same; --only-vo --vo-version 1 (KLT tracking)
@@ -240,9 +259,9 @@ Phases (any failed check raises and the script exits non-zero):
      polished map with odometry edges and three
      keyframes moved by 0.5 m: the same repairs, poses within
      CHECK_TRAJECTORY_TOL; ms a call.
-Then one JSON line describing the four kernels (fast_score_nms,
-segment_sum, kabsch_fit, ransac_score), the nvidia-smi line, and the final
-status line.
+Then one JSON line describing the hand-written kernels (fast_score_nms,
+segment_sum, kabsch_fit, ransac_score, keypoints, guided_match, pp_edge),
+the nvidia-smi line, and the final status line.
 """
 
 import argparse
@@ -2658,6 +2677,269 @@ def phase_guided(cfg, grays, depths, gt, dev):
     return max_err, row
 
 
+def phase_pp_edge(kf_cfg, grays, depths, gt, dev):
+    """Phase 5h, the pose-pose edge terms (``csrc/pp_edge.cu``): the graphs
+    of phase 5b's run (every tracked frame a keyframe, from the frame's
+    graph) after frames 15, 31, 47 and 62, and each with every slot a live
+    edge (``filled``), each robust kernel, with and without the keyframes'
+    generations: the kernel against the ATen chain
+    it replaces (``pp_edge.plain_terms`` on the card), every output bit for
+    bit, twice the same, and replayed from a CUDA graph the same bits. A
+    whole in-loop BA call (``slam.bundle_adjust``, eager) on the last graph
+    and on it filled, and ``finalize`` (eager) on the last graph, with the
+    kernel and with the chain: the same
+    bits, one launch a Gauss-Newton iteration. Then on the last graph: the
+    call eager and replayed (CUDA events behind a spin kernel, twice each),
+    its kernel's own duration (torch.profiler), the ATen chain eager and
+    replayed, its kernels and device time a replay, and the bound from the
+    bytes the call must move (``slambench/roofline/pp_edge.py``). Last, the
+    ATen ops of one in-loop BA call by the innermost function of
+    ``backend/optimize.py`` (a dispatch mode, views not counted), with the
+    kernel and with the chain. Returns (max_abs_err, row)."""
+    import collections
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from putslam_tpu_torch.models import compiled, slam
+    from putslam_tpu_torch.ops import pp_edge
+    from putslam_tpu_torch.utils import cuda_lib
+    from slambench import peaks, spec
+
+    fields = ("r6", "Ji", "Jj", "wpp", "sq_pp")
+    compiled.clear_cache()
+    state = slam.slam_init(kf_cfg, grays[0], depths[0],
+                           torch.as_tensor(gt[0], device=dev))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    states, k0 = {}, 1
+    for k in (15, 31, 47, 62):
+        state, _ = compiled.run_sequence(kf_cfg, state, grays[k0:k + 1],
+                                         depths[k0:k + 1], generator=gen)
+        k0 = k + 1
+        states[f"graph after frame {k}"] = state
+    compiled.clear_cache()
+
+    def filled(st, seed):
+        """``st``'s graph with every pose-pose slot a live edge between two
+        of its valid keyframes, measured at their relative pose moved by a
+        twist whose angle lies in either Taylor window, up to near π."""
+        from putslam_tpu_torch.geometry import se3
+
+        g, m = st.graph, st.map
+        E = g.pp_i.shape[0]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def draw(*shape):
+            return torch.rand(shape, generator=gen, device=dev)
+
+        kfs = torch.nonzero(m.kf_valid).reshape(-1)
+        pi, pj = (kfs[(draw(E) * kfs.numel()).long().clamp(
+            max=kfs.numel() - 1)] for _ in range(2))
+        ang = draw(E) * 3.14
+        ang = torch.where(draw(E) < 0.3, ang * 1e-3, ang)
+        axis = torch.randn((E, 3), generator=gen, device=dev)
+        axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+        xi = torch.cat([(draw(E, 3) - 0.5) * 0.1, axis * ang[:, None]], -1)
+        rel = se3.compose(se3.relative(m.kf_pose[pi], m.kf_pose[pj]),
+                          se3.exp(xi))
+        return g._replace(
+            pp_i=pi.to(torch.int32), pp_j=pj.to(torch.int32),
+            pp_rel=rel.contiguous(), pp_w=torch.full((E,), 100.0, device=dev),
+            pp_gen_i=m.kf_gen[pi].contiguous(),
+            pp_gen_j=m.kf_gen[pj].contiguous(),
+            pp_valid=torch.ones((E,), dtype=torch.bool, device=dev))
+
+    for k, tag in enumerate(list(states)):
+        st = states[tag]
+        states[f"{tag}, every slot live"] = st._replace(graph=filled(st, k))
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    def compare(tag, got, ref):
+        err = 0.0
+        for name, g, r in zip(fields, got, ref):
+            check(g.shape == r.shape and g.dtype == r.dtype,
+                  f"[5h] {tag}: {name} {tuple(g.shape)} against "
+                  f"{tuple(r.shape)}")
+            finite = torch.isfinite(g) & torch.isfinite(r)
+            diff = float((g.double() - r.double())[finite].abs().max()) \
+                if finite.any() else 0.0
+            check(torch.equal(bits(g), bits(r)),
+                  f"[5h] {tag}: {name} differs (finite entries by "
+                  f"{diff:.3e})")
+            err = max(err, diff)
+        return err
+
+    last = states["graph after frame 62"]
+    buf = (type(last.graph)(*(t.clone() for t in last.graph)),
+           last.map.kf_pose.clone(), last.map.kf_gen.clone())
+    rk, rd = kf_cfg.backend.robust_kernel, kf_cfg.backend.robust_delta
+
+    def graph_of(fn):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), cuda_lib.uncounted():
+            fn(*buf, rk, rd)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            out = fn(*buf, rk, rd)
+        return g, out
+
+    g_kern, g_out = graph_of(pp_edge.terms)
+    max_err, live = 0.0, {}
+    for tag, st in states.items():
+        g, kf_pose, kf_gen = st.graph, st.map.kf_pose, st.map.kf_gen
+        for kind, delta in (("cauchy", 1.0), ("huber", 0.1), ("none", 1.0)):
+            for kg in (kf_gen, None):
+                what = f"{tag} {kind} gen {kg is not None}"
+                got = pp_edge.terms(g, kf_pose, kg, kind, delta)
+                ref = pp_edge.plain_terms(g, kf_pose, kg, kind, delta)
+                max_err = max(max_err, compare(what, got, ref))
+                compare(f"{what}, twice",
+                        pp_edge.terms(g, kf_pose, kg, kind, delta), got)
+        for dst, src in zip(buf[0], g):
+            dst.copy_(src)
+        buf[1].copy_(kf_pose)
+        buf[2].copy_(kf_gen)
+        g_kern.replay()
+        torch.cuda.synchronize()
+        compare(f"{tag}, replayed", g_out,
+                pp_edge.plain_terms(g, kf_pose, kf_gen, rk, rd))
+        live[tag] = int(pp_edge.gate(g, kf_gen).sum())
+    check(min(v for t, v in live.items() if "every slot" in t)
+          == last.graph.pp_i.shape[0], f"[5h] live edges: {live}")
+
+    class chain_terms:
+        """pp_edge.terms replaced by the ATen chain; counts the calls."""
+
+        def __enter__(self):
+            self.calls, self.real = 0, pp_edge.terms
+
+            def chain(*a):
+                self.calls += 1
+                return pp_edge.plain_terms(*a)
+
+            pp_edge.terms = chain
+            return self
+
+        def __exit__(self, *exc):
+            pp_edge.terms = self.real
+
+    def same(a, b):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            bits(a.contiguous()), bits(b.contiguous()))
+
+    for st in (last, states["graph after frame 62, every slot live"]):
+        pp_edge._LIB.reset_launch_count()
+        ba_k = slam.bundle_adjust(kf_cfg, st.map, st.graph)
+        ba_launches = pp_edge._LIB.launch_count()
+        with chain_terms() as ch:
+            ba_c = slam.bundle_adjust(kf_cfg, st.map, st.graph)
+        check(ba_launches == ch.calls == kf_cfg.backend.gn_iterations,
+              f"[5h] in-loop BA: {ba_launches} launches, the chain's "
+              f"{ch.calls} calls, {kf_cfg.backend.gn_iterations} iterations")
+        for name, a, b in zip(("kf_pose", "lm_pos", "obs_valid", "chi2"),
+                              ba_k, ba_c):
+            check(same(a, b), f"[5h] in-loop BA: {name} differs from the "
+                  f"chain")
+    pp_edge._LIB.reset_launch_count()
+    fin_k = slam.finalize(kf_cfg, last, graph=False)
+    fin_launches = pp_edge._LIB.launch_count()
+    with chain_terms() as ch:
+        fin_c = slam.finalize(kf_cfg, last, graph=False)
+    check(fin_launches == ch.calls >= 2,
+          f"[5h] finalize: {fin_launches} launches, the chain's {ch.calls}")
+    for name, a, b in zip(fin_k.map._fields, fin_k.map, fin_c.map):
+        check(same(a, b), f"[5h] finalize: map.{name} differs")
+    print(f"[5h] pose-pose edge terms, kernel against the ATen chain on the "
+          f"card: r6, Ji, Jj, wpp, sq_pp bit-equal (max_abs_err {max_err}), "
+          f"twice the same and replayed from a graph the same, on "
+          f"{len(states)} graphs (phase 5b's and the same with every slot "
+          f"a live edge) x 3 robust kernels x kf_gen given / None (live "
+          f"edges {live}); a whole in-loop BA call on the last two "
+          f"({ba_launches} launches each) and finalize ({fin_launches} "
+          f"launches, one an iteration run) give the chain's bits",
+          flush=True)
+
+    class by_function(TorchDispatchMode):
+        """ATen ops (views not counted) by the innermost function of
+        backend/optimize.py on the Python stack."""
+
+        def __init__(self):
+            super().__init__()
+            self.counts = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                f, name = sys._getframe(1), "outside optimize.py"
+                while f is not None:
+                    if f.f_code.co_filename.endswith(
+                            os.path.join("backend", "optimize.py")):
+                        name = f.f_code.co_name
+                        break
+                    f = f.f_back
+                self.counts[name] += 1
+            return func(*args, **(kwargs or {}))
+
+    counts = {}
+    for mode in ("kernel", "chain"):
+        ctx = chain_terms() if mode == "chain" else contextlib.nullcontext()
+        with ctx, by_function() as m:
+            slam.bundle_adjust(kf_cfg, last.map, last.graph)
+        counts[mode] = m.counts
+        top = ", ".join(f"{n} {c}" for n, c in m.counts.most_common())
+        print(f"[5h] one in-loop BA call ({kf_cfg.backend.gn_iterations} "
+              f"Gauss-Newton iterations, eager), ATen ops with the "
+              f"{mode}: {sum(m.counts.values())}; by function: {top}",
+              flush=True)
+    check(sum(counts["kernel"].values()) <= 1000,
+          f"[5h] one in-loop BA call makes {sum(counts['kernel'].values())} "
+          f"ATen ops with the kernel")
+
+    for dst, src in zip(buf[0], last.graph):
+        dst.copy_(src)
+    buf[1].copy_(last.map.kf_pose)
+    buf[2].copy_(last.map.kf_gen)
+    g_plain, _ = graph_of(pp_edge.plain_terms)
+    kern = lambda: pp_edge.terms(*buf, rk, rd)          # noqa: E731
+    plain = lambda: pp_edge.plain_terms(*buf, rk, rd)   # noqa: E731
+    ms = [median_ms(kern, runs=30), median_ms(kern, runs=30)]
+    graph_ms = [median_ms(g_kern.replay, runs=30),
+                median_ms(g_kern.replay, runs=30)]
+    plain_ms = median_ms(plain, runs=10)
+    plain_graph_ms = median_ms(g_plain.replay, runs=30)
+    own_us = profiler_us(kern, "pp_edge_kernel")
+    n_plain, dev_plain = device_kernels(g_plain.replay)
+    ops, nbytes = spec.load_module("roofline", "pp_edge").counts(kf_cfg)
+    bound_ms = 1e3 * peaks.bound_s(ops, nbytes)
+    row = dict(ms=0.5 * (ms[0] + ms[1]),
+               graph_ms=0.5 * (graph_ms[0] + graph_ms[1]),
+               plain_ms=plain_ms, plain_graph_ms=plain_graph_ms,
+               bound_ms=bound_ms, own_us=own_us, plain_kernels=n_plain,
+               plain_device_ms=dev_plain, ba_launches=ba_launches,
+               finalize_launches=fin_launches,
+               ba_ops={k: sum(v.values()) for k, v in counts.items()})
+
+    def fmt(x, spec_):
+        return "not measured" if x is None else format(x, spec_)
+
+    print(f"[5h] graph after frame 62 ({buf[0].pp_i.shape[0]} slots): "
+          f"{nbytes} bytes read and written once, {ops} operations: bound "
+          f"{1e3 * bound_ms:.3f} us at {peaks.HBM_BYTES_PER_S / 1e12} TB/s "
+          f"and {peaks.FP32_OPS_PER_S / 1e12} TFLOP/s; kernel call eager "
+          f"{1e3 * ms[0]:.3f} / {1e3 * ms[1]:.3f} us, replayed "
+          f"{1e3 * graph_ms[0]:.3f} / {1e3 * graph_ms[1]:.3f} us "
+          f"({100 * bound_ms / row['graph_ms']:.2f} % of the bound; own "
+          f"{fmt(own_us, '.2f')} us, torch.profiler); the ATen chain eager "
+          f"{1e3 * plain_ms:.2f} us, replayed {1e3 * plain_graph_ms:.2f} us "
+          f"({plain_graph_ms / row['graph_ms']:.1f}x; "
+          f"{fmt(n_plain, 'd')} kernels, device "
+          f"{fmt(dev_plain and 1e3 * dev_plain, '.2f')} us, "
+          f"torch.profiler); library call: none", flush=True)
+    del g_kern, g_plain
+    return max_err, row
+
+
 def device_kernels(fn):
     """(kernels, their summed device ms) of one call of ``fn`` as
     torch.profiler (CUPTI) records them, CUDA-graph replays included;
@@ -2717,7 +2999,8 @@ def phase_compiled(cells, dev):
 
     from putslam_tpu_torch.eval import ate as ate_mod
     from putslam_tpu_torch.models import compiled, slam
-    from putslam_tpu_torch.ops import fast_cuda, kabsch, ransac_score, segment
+    from putslam_tpu_torch.ops import (fast_cuda, kabsch, pp_edge,
+                                       ransac_score, segment)
     from putslam_tpu_torch.utils import graph_cond, timing
 
     def fmt(x, spec):
@@ -2749,7 +3032,19 @@ def phase_compiled(cells, dev):
             segment._LIB.reset_launch_count()
             kabsch._LIB.reset_launch_count()
             ransac_score._LIB.reset_launch_count()
+            pp_edge._LIB.reset_launch_count()
+            first = timing.recorder().n_replays
             (st, outs), dt, n_launch = timed(run, fast_cuda._LIB)
+            n_pe = pp_edge._LIB.launch_count()
+            if mode == "graph":
+                snap = timing.snapshot()
+                n_gn = int(snap["count"][
+                    snap["valid"] & (snap["replay"] >= first),
+                    timing.STAGES.index("gn_iteration")].sum())
+            else:               # masked: every iteration of a BA runs
+                n_gn = c.backend.gn_iterations * int(outs.ba_ran.sum())
+            check(n_pe == n_gn, f"{tag} {mode}: pose-pose edge launches "
+                  f"{n_pe}, Gauss-Newton iterations run {n_gn}")
             n_seg = segment._LIB.launch_count()
             n_fit = kabsch._LIB.launch_count()
             n_rs = ransac_counts()
@@ -2794,7 +3089,9 @@ def phase_compiled(cells, dev):
                   f"({n_rs['hypotheses'] / n:.2f} a frame), scores "
                   f"{n_rs['score']} ({n_rs['score'] / n:.2f} a frame); "
                   f"keyframes {int(outs.is_keyframe.sum())}, BA calls "
-                  f"{int(outs.ba_ran.sum())}; ATE {r['ate_b']:.5f} m, "
+                  f"{int(outs.ba_ran.sum())}, pose-pose edge launches "
+                  f"{n_pe} (one a Gauss-Newton iteration run); ATE "
+                  f"{r['ate_b']:.5f} m, "
                   f"finalized {r['ate_f']:.5f} m{extra}", flush=True)
             check(n_launch == n,
                   f"{tag} {mode}: FAST launches {n_launch} for {n} frames")
@@ -3070,7 +3367,8 @@ def main() -> int:
     from putslam_tpu_torch.slam_map import features_map as fm
     from putslam_tpu_torch.models import slam, vo
     from putslam_tpu_torch.ops import (fast, fast_cuda, guided_match, kabsch,
-                                       keypoints, ransac_score, segment)
+                                       keypoints, pp_edge, ransac_score,
+                                       segment)
     from putslam_tpu_torch import run as run_mod
     from putslam_tpu_torch.utils import control, cuda_lib, graph_cond, timing
 
@@ -3236,6 +3534,7 @@ def main() -> int:
     ransac_score._LIB.reset_launch_count()
     keypoints._LIB.reset_launch_count()
     guided_match._LIB.reset_launch_count()
+    pp_edge._LIB.reset_launch_count()
     first_replay = timing.recorder().n_replays
     t0 = time.perf_counter()
     pb, pa, outs, state = slam.run_slam_final(cfg, grays, depths,
@@ -3251,6 +3550,10 @@ def main() -> int:
     gm_stages = int(snap["count"][rows, timing.STAGES.index("guided")].sum())
     gm_rungs = int(snap["count"][rows,
                                  timing.STAGES.index("map_retry")].sum())
+    pe_launches = pp_edge._LIB.launch_count()
+    gn_iters = int(snap["count"][snap["valid"]
+                                 & (snap["replay"] >= first_replay),
+                                 timing.STAGES.index("gn_iteration")].sum())
     seg_launches = segment._LIB.launch_count()
     fit_launches = kabsch._LIB.launch_count()
     score_launches = ransac_counts()
@@ -3265,6 +3568,9 @@ def main() -> int:
           f"tracked frame and one a rung)")
     # the bench makes no keyframe (ROADMAP 3j): its BA is finalize's
     check(seg_launches > 0, "the main path launched no segment sum")
+    check(pe_launches == gn_iters > 0, f"pose-pose edge launches "
+          f"{pe_launches}, Gauss-Newton iterations run {gn_iters} (one "
+          f"an iteration)")
     # two RANSAC calls a frame (the VO and the map's pass), each one
     # hypotheses launch and two refits, each refit a score launch
     check(fit_launches >= 4 * (N_FRAMES - 1), f"the main path launched "
@@ -3284,7 +3590,9 @@ def main() -> int:
           f"{N_FRAMES / dt:.2f} SLAM frames/s, {1e3 * dt / N_FRAMES:.2f} "
           f"ms/frame (incl. finalize); kernel launches {launches}, "
           f"keypoint-chain calls {kp_launches}, guided matches "
-          f"{gm_launches} ({gm_rungs} rungs), segment sums {seg_launches} (finalize's), RANSAC refits "
+          f"{gm_launches} ({gm_rungs} rungs), segment sums {seg_launches} (finalize's), pose-pose "
+          f"edge launches {pe_launches} ({gn_iters} Gauss-Newton iterations "
+          f"run, finalize's), RANSAC refits "
           f"{fit_launches} ({fit_launches / (N_FRAMES - 1):.2f} a frame), "
           f"hypotheses {score_launches['hypotheses']} and scores "
           f"{score_launches['score']} "
@@ -3380,6 +3688,9 @@ def main() -> int:
 
     # ---- 5g. guided map matching on the bench's maps ------------------------
     gm_err, gm_row = phase_guided(cfg, grays, depths, gt, dev)
+
+    # ---- 5h. the pose-pose edge terms on the keyframe-dense graphs ---------
+    pe_err, pe_row = phase_pp_edge(kf_cfg, grays, depths, gt, dev)
 
     # ---- 6. the CLI ---------------------------------------------------------
     five = FIVE_FILES
@@ -3794,6 +4105,33 @@ def main() -> int:
         "device_us_profiler": gm_row["own_us"],
         "plain_kernels": gm_row["plain_kernels"],
         "plain_device_ms": gm_row["plain_device_ms"],
+    }, {
+        "name": "pp_edge",
+        "route": "cuda",
+        "source": "putslam_tpu_torch/csrc/pp_edge.cu",
+        "replaces": "none: not a TPU kernel (the XLA fusion of "
+                    "putslam_tpu/backend/factors.py's pose-pose factor; in "
+                    "the port the ATen chain of "
+                    "putslam_tpu_torch/ops/pp_edge.py::plain_terms)",
+        "launches": pe_launches,
+        "gn_iterations_run": gn_iters,
+        "launches_in_loop_ba": pe_row["ba_launches"],
+        "launches_finalize": pe_row["finalize_launches"],
+        "ba_aten_ops": pe_row["ba_ops"],
+        "kernels_per_call": 1,
+        "max_abs_err": pe_err,
+        # one call a Gauss-Newton iteration at fr1 (1,024 slots), eager and
+        # replayed from a graph; the plain version is the ATen chain
+        "ms": pe_row["ms"],
+        "graph_ms": pe_row["graph_ms"],
+        "plain_ms": pe_row["plain_ms"],
+        "plain_graph_ms": pe_row["plain_graph_ms"],
+        "bound_ms": pe_row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "device_us_profiler": pe_row["own_us"],
+        "plain_kernels": pe_row["plain_kernels"],
+        "plain_device_ms": pe_row["plain_device_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -44,6 +44,7 @@ from putslam_tpu_torch.backend.graph import GraphState
 from putslam_tpu_torch.config import BackendConfig, CameraConfig
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.geometry.uncertainty import chol3x3, inv3x3
+from putslam_tpu_torch.ops import pp_edge
 from putslam_tpu_torch.ops.segment import SegmentPlan
 from putslam_tpu_torch.utils import control
 from putslam_tpu_torch.utils.indexing import nonzero_fixed, set_rows
@@ -219,37 +220,24 @@ def _assemble_obs(bcfg: BackendConfig, kf_pose, lm_pos, lm_valid,
                       _whitening_chol(g) if _whitens(bcfg) else None, cam)
 
 
-def _pp_gate(g: GraphState, kf_gen):
-    """Live pose-pose edges: valid, both generations current."""
-    gate = g.pp_valid
-    if kf_gen is not None:
-        gate = gate & (g.pp_gen_i == kf_gen[g.pp_i]) \
-            & (g.pp_gen_j == kf_gen[g.pp_j])
-    return gate
-
-
 def _live_slots(g: GraphState, K: int, L: int, lm_valid, lm_gen, kf_gen):
     """The plans' indices of an unwindowed solve: (keyframe, landmark) of
     each live observation and (i, j) of each live pose-pose edge, the
     sentinel K or L elsewhere (``_live``)."""
     live = _obs_gate(g, lm_valid, lm_gen, kf_gen)
-    pp_live = _pp_gate(g, kf_gen)
+    pp_live = pp_edge.gate(g, kf_gen)
     return (_live(g.obs_kf.long(), live, K), _live(g.obs_lm.long(), live, L),
             _live(g.pp_i.long(), pp_live, K), _live(g.pp_j.long(), pp_live, K))
 
 
 def _pp_terms(bcfg: BackendConfig, g: GraphState, kf_pose, kf_gen):
     """Pose-pose edges with stale-generation masking: (r6, Ji, Jj, wpp,
-    sq_pp)."""
-    pi = kf_pose[g.pp_i]
-    pj = kf_pose[g.pp_j]
-    r6 = factors.pp_residual(pi, pj, g.pp_rel)
-    Ji, Jj = factors.pp_jacobians(pi, pj, g.pp_rel)
-    wpp_info = g.pp_w * _pp_gate(g, kf_gen)
-    sq_pp = wpp_info * torch.sum(r6 * r6, dim=-1)
-    wpp = wpp_info * factors.robust_weight(sq_pp, bcfg.robust_kernel,
-                                           bcfg.robust_delta)
-    return r6, Ji, Jj, wpp, sq_pp
+    sq_pp). On the card one launch of ``csrc/pp_edge.cu``
+    (``pp_edge.terms``), elsewhere the ATen chain (``pp_edge.plain_terms``):
+    the same bits."""
+    fn = pp_edge.terms if kf_pose.device.type == "cuda" \
+        else pp_edge.plain_terms
+    return fn(g, kf_pose, kf_gen, bcfg.robust_kernel, bcfg.robust_delta)
 
 
 def _damped_ll_inverse(H_ll, lam: float):
@@ -530,7 +518,7 @@ def gauss_newton_mm(bcfg: BackendConfig, kf_pose, kf_valid, lm_pos, lm_valid,
     ck_obs = torch.where(cl_obs < LC, ck_obs, torch.full_like(ck_obs, KC))
     Lw = _whitening_chol(g) if _whitens(bcfg) else None
     ck_l = _live(ck_obs, gate, KC)
-    pp_live = _pp_gate(g, kf_gen)
+    pp_live = pp_edge.gate(g, kf_gen)
     cpp_il, cpp_jl = _live(cpp_i, pp_live, KC), _live(cpp_j, pp_live, KC)
     kf_plan = SegmentPlan(ck_l, KC)
     lm_plan = SegmentPlan(_live(cl_obs, gate, LC), LC)

@@ -52,7 +52,7 @@ from putslam_tpu_torch.backend.graph import GraphState
 from putslam_tpu_torch.backend.optimize import (_damped_ll_inverse,
                                                 _gather_pad, _obs_terms,
                                                 _live, _pp_blocks,
-                                                _pp_gate, _pp_gradients,
+                                                _pp_gradients,
                                                 _pp_terms, _whitening_chol,
                                                 _whitens, coupling_plan,
                                                 hessian_plan,
@@ -60,6 +60,7 @@ from putslam_tpu_torch.backend.optimize import (_damped_ll_inverse,
 from putslam_tpu_torch.config import BackendConfig, CameraConfig
 from putslam_tpu_torch.geometry import se3
 from putslam_tpu_torch.geometry.uncertainty import chol3x3
+from putslam_tpu_torch.ops import pp_edge
 from putslam_tpu_torch.ops.segment import SegmentPlan
 from putslam_tpu_torch.utils.device import as_numpy
 
@@ -154,7 +155,7 @@ def shard_plans(shard: Shard, g: GraphState, rank: int, K: int, Ls: int,
     ar = torch.arange(K, device=shard.kf.device)
     kf, lm = _live(shard.kf, live, K), _live(shard.lm, live, Ls)
     if rank == 0:
-        pp_live = _pp_gate(g, kf_gen)
+        pp_live = pp_edge.gate(g, kf_gen)
         pi, pj = _live(g.pp_i.long(), pp_live, K), _live(g.pp_j.long(),
                                                         pp_live, K)
         c = SegmentPlan(torch.cat([kf, pi, pj]), K)

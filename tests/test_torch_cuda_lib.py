@@ -189,7 +189,7 @@ def test_launch_counts_are_empty_before_any_load():
             "for m in pkgutil.iter_modules(ops.__path__):\n"
             "    importlib.import_module('putslam_tpu_torch.ops.' + m.name)\n"
             "from putslam_tpu_torch.utils import cuda_lib, timing\n"
-            "assert len(cuda_lib.registered()) == 6, cuda_lib.registered()\n"
+            "assert len(cuda_lib.registered()) == 7, cuda_lib.registered()\n"
             "assert not any(lib.loaded for lib in cuda_lib.registered())\n"
             "assert cuda_lib.launch_counts() == {}\n"
             "assert timing.snapshot()['launches'] == {}\n"

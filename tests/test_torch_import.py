@@ -47,6 +47,7 @@ def test_port_imports_with_jax_blocked():
             "import putslam_tpu_torch.ops.ransac_score\n"
             "import putslam_tpu_torch.ops.keypoints\n"
             "import putslam_tpu_torch.ops.guided_match\n"
+            "import putslam_tpu_torch.ops.pp_edge\n"
             "import bench_torch\n"
             "sys.path.insert(0, 'tools')\n"
             "import make_disk_dataset_torch\n"
@@ -106,7 +107,7 @@ def _port_sources():
                  "utils/graph_cond.py", "models/slam.py", "ops/segment.py",
                  "ops/ransac_score.py", "ops/keypoints.py",
                  "ops/guided_match.py", "ops/fast_cuda.py",
-                 "utils/cuda_lib.py"):
+                 "utils/cuda_lib.py", "ops/pp_edge.py"):
         assert f"putslam_tpu_torch/{name}" in rel, name
     assert all(f.exists() for f in files)
     return files
